@@ -1,0 +1,27 @@
+"""Dispatch for the kernels: the tensors' device picks the path.
+
+CUDA tensors go to the hand-written kernel, which launches or raises;
+CPU tensors go to the plain PyTorch version in ``kernels.ref``.  There is
+no fall-back from one to the other: the plain version serves CPU tensors
+only, never a CUDA call that failed.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ref
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
+                    softcap: float = 0.0, k_scale=None, v_scale=None):
+    """Paged single-token decode read; see ``ref.paged_attention_ref``
+    for the semantics.  Rows with no valid position differ by
+    definition: the kernel returns 0 there, the plain version the mean
+    of the clipped page 0 (as their JAX originals do)."""
+    kw = dict(scale=scale, softcap=softcap, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "cuda":
+        return _pa.paged_attention(q, k_pages, v_pages, block_tables,
+                                   lengths, **kw)
+    if q.device.type == "cpu":
+        return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                       lengths, **kw)
+    raise ValueError(f"paged_attention: no kernel for device {q.device}")

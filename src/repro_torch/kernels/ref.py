@@ -1,0 +1,51 @@
+"""Plain PyTorch versions of the hand-written kernels (the allclose
+ground truth).
+
+Each function mirrors its counterpart in ``repro.kernels.ref`` line for
+line: written in the most obvious way (gather, masked full softmax), so
+a kernel is held against independent math, not a refactor of itself.
+``kernels.ops`` sends CPU tensors here; a CUDA tensor always goes to
+the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
+                        scale, softcap: float = 0.0,
+                        k_scale=None, v_scale=None):
+    """Gather-based paged-attention decode read (the obvious way).
+
+    q (B,H,hd) one query token per sequence; k_pages/v_pages
+    (num_blocks, bs, K, hd) shared page pool; block_tables (B, n_blk)
+    int32 physical ids (-1 = unallocated); lengths (B,) valid context
+    token counts — row b attends logical positions [0, lengths[b]).
+    ``k_scale``/``v_scale`` (num_blocks, bs, K): per-(page, offset,
+    kv-head) dequant scales for an int8 pool — the gathered pages are
+    dequantized densely before the softmax.  Returns (B, H, hd).
+
+    A row with no valid position (all -1 or ``lengths`` 0) takes a
+    softmax over an all-masked row: the mean of the clipped page 0,
+    exactly like the JAX oracle (the hand kernel returns 0 there).
+    """
+    Bq, H, hd = q.shape
+    nB, bs, Kh, _ = k_pages.shape
+    G = H // Kh
+    bt = torch.clamp(block_tables.long(), 0, nB - 1)
+    kg = k_pages[bt].reshape(Bq, -1, Kh, hd).float()
+    vg = v_pages[bt].reshape(Bq, -1, Kh, hd).float()
+    if k_scale is not None:
+        kg = kg * k_scale[bt].reshape(Bq, -1, Kh)[..., None].float()
+        vg = vg * v_scale[bt].reshape(Bq, -1, Kh)[..., None].float()
+    qg = q.reshape(Bq, Kh, G, hd).float()
+    s = torch.einsum("bkgd,btkd->bkgt", qg, kg) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    t = torch.arange(kg.shape[1], device=q.device)
+    valid = (t[None, :] < lengths[:, None]) \
+        & torch.repeat_interleave(block_tables >= 0, bs, dim=1)
+    s = torch.where(valid[:, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, vg)
+    return out.reshape(Bq, H, hd).to(q.dtype)

@@ -1,0 +1,113 @@
+"""Unified model API (PyTorch port of ``repro.models.model``).
+
+The same entry points, dispatched on ``cfg.family``; this slice ports
+the dense family (``models.transformer``), and every other family raises
+``NotImplementedError`` naming its ROADMAP item:
+
+    init_params(cfg, generator, device)           -> params
+    forward(cfg, params, tokens)                  -> logits (B, S, V)
+    init_paged_cache(cfg, b, max_len, nB, bs)     -> cache (paged pool)
+    prefill_paged(cfg, params, batch, max_len,
+                  cache, slots=..., write_tables=..., true_len=...)
+                                                  -> (logits, cache)
+    decode_step_paged(cfg, params, cache,
+                      toks, pos, block_tables)    -> (logits, cache)
+    extend_paged(cfg, params, cache, toks[B,S],
+                 pos, block_tables)               -> (logits[B,S,V], cache)
+    extendable / spec_decodable / prefix_sharable -> bool
+
+The JAX entry points return new caches; these update the cache's
+tensors in place and return the same cache.
+"""
+from __future__ import annotations
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.devices import DeviceLike
+from repro_torch.models import transformer
+
+_FAMILY_ITEMS = {"moe": "A.9.1", "vlm": "A.9.2", "encdec": "A.9.3",
+                 "ssm": "A.9.4", "hybrid": "A.9.5"}
+
+
+def family_module(cfg: ModelConfig):
+    if cfg.family == "dense":
+        return transformer
+    item = _FAMILY_ITEMS.get(cfg.family)
+    if item is None:
+        raise ValueError(cfg.family)
+    raise NotImplementedError(
+        f"the {cfg.family} family is not ported to repro_torch yet "
+        f"(ROADMAP {item})")
+
+
+def init_params(cfg: ModelConfig, generator=None, device: DeviceLike = None):
+    return family_module(cfg).init_params(cfg, generator, device)
+
+
+def forward(cfg: ModelConfig, params, tokens):
+    return family_module(cfg).forward(cfg, params, tokens)
+
+
+def init_paged_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+                     num_blocks: int, block_size: int, kv_dtype=None,
+                     device: DeviceLike = None):
+    """Decode cache with attention KV in a shared page pool of
+    ``num_blocks`` x ``block_size`` tokens (no batch axis on pool
+    leaves), on ``device`` (default ``cuda``)."""
+    return family_module(cfg).init_paged_cache(
+        cfg, batch_size, max_len, num_blocks, block_size,
+        kv_dtype=kv_dtype, device=device)
+
+
+def decode_step_paged(cfg: ModelConfig, params, cache, tokens, pos,
+                      block_tables, use_pallas: bool = False):
+    """One decode token per row through ``block_tables`` (B, n_blk) int32
+    (-1 = unallocated), cache updated in place.  ``use_pallas=True``
+    reads the pages through the hand-written ``paged_attention`` kernel
+    (CUDA tensors) or its plain version (CPU tensors) instead of the
+    gather."""
+    return family_module(cfg).decode_step_paged(cfg, params, cache, tokens,
+                                                pos, block_tables,
+                                                use_pallas)
+
+
+def extend_paged(cfg: ModelConfig, params, cache, tokens, pos,
+                 block_tables, valid_len=None, use_pallas: bool = False):
+    """Score S tokens against the paged cache in one call (chunked
+    catch-up prefill), cache updated in place.  Context read masked
+    strictly below ``pos``; K/V for rows ``i < valid_len`` written at
+    ``pos + i``."""
+    return family_module(cfg).extend_paged(cfg, params, cache, tokens,
+                                           pos, block_tables, valid_len,
+                                           use_pallas=use_pallas)
+
+
+def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
+                  slots, write_tables=None, ctx_tables=None, ctx_len=None,
+                  true_len=None, use_flash: bool = False):
+    """Admission prefill fused with cache insertion: prompt K/V is
+    written directly into the page pool through ``write_tables``.
+    Returns (last-true-token logits, cache)."""
+    return family_module(cfg).prefill_paged(
+        cfg, params, batch["tokens"], max_len, cache, slots=slots,
+        write_tables=write_tables, ctx_tables=ctx_tables, ctx_len=ctx_len,
+        true_len=true_len, use_flash=use_flash)
+
+
+def extendable(cfg: ModelConfig) -> bool:
+    """Does the family implement multi-token ``extend_paged``?"""
+    return cfg.family in ("dense", "moe", "vlm", "encdec")
+
+
+def spec_decodable(cfg: ModelConfig) -> bool:
+    """Can this config serve as a speculative-decoding verify model?"""
+    if cfg.family in ("dense", "vlm"):
+        return cfg.pattern_period <= 1
+    return cfg.family in ("moe", "encdec")
+
+
+def prefix_sharable(cfg: ModelConfig) -> bool:
+    """Can finished chains be shared through the radix prefix cache?"""
+    if cfg.family in ("dense", "vlm"):
+        return cfg.pattern_period <= 1
+    return cfg.family in ("moe", "encdec")

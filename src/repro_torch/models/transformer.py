@@ -1,0 +1,266 @@
+"""Dense decoder-only transformer trunk (PyTorch port of
+``repro.models.transformer``, the uniform all-global subset).
+
+Layers are stacked along a leading axis exactly like the JAX trunk, and
+the ``lax.scan`` over them becomes a Python loop over layer slices (views,
+no copies).  The paged KV pool is updated IN PLACE: every ``*_paged``
+function writes into the cache tensors it was given and returns that
+same cache.  Configs with a local:global pattern (``pattern_period > 1``,
+the gemma rings) raise ``NotImplementedError`` until their slice.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models import layers as L
+
+Params = dict
+
+
+def _uniform_only(cfg: ModelConfig) -> None:
+    if cfg.pattern_period > 1:
+        raise L._not_ported(
+            f"{cfg.name}: local:global layer patterns (pattern_period="
+            f"{cfg.pattern_period})", "A.3 (gemma superblocks)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_block(cfg: ModelConfig, gen, stack=(), dtype=torch.float32,
+               device=None) -> Params:
+    norm_init, _ = L.make_norm(cfg)
+    kw = dict(dtype=dtype, device=device)
+    p = {
+        "attn": L.init_attention(cfg, gen, stack, **kw),
+        "mlp": L.init_mlp(cfg, gen, stack=stack, **kw),
+        "ln1": norm_init(cfg.d_model, stack, **kw),
+        "ln2": norm_init(cfg.d_model, stack, **kw),
+    }
+    if cfg.sandwich_norms:
+        p["ln1_post"] = norm_init(cfg.d_model, stack, **kw)
+        p["ln2_post"] = norm_init(cfg.d_model, stack, **kw)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
+                device: DeviceLike = None) -> Params:
+    """Random parameters in the reference layout (same keys, shapes and
+    init scheme as the JAX ``init_params``), stored in
+    ``cfg.weight_dtype`` on ``device`` (default ``cuda``).  The numbers
+    come from ``generator`` (default: seed 0 on ``device``); they are not
+    the JAX package's numbers — bridge JAX weights for parity."""
+    _uniform_only(cfg)
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    if generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, params on {dev}")
+    norm_init, _ = L.make_norm(cfg)
+    kw = dict(dtype=cfg.weight_dtype, device=dev)
+    return {
+        "embed": L.init_embedding(cfg, generator, **kw),
+        "unembed": L.init_unembed(cfg, generator, **kw),
+        "trunk": {"layers": init_block(cfg, generator,
+                                       stack=(cfg.num_layers,), **kw)},
+        "final_norm": norm_init(cfg.d_model, **kw),
+    }
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked parameter / pool tree (views)."""
+    return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
+            for k, v in tree.items()}
+
+
+def _uniform_layers(cfg: ModelConfig, trunk: Params):
+    """Per-layer views of the stacked trunk, the first ``cfg.num_layers``
+    of them (a tree holding more stacked layers is sliced, as in JAX)."""
+    _uniform_only(cfg)
+    return [_layer(trunk["layers"], i) for i in range(cfg.num_layers)]
+
+
+def _pool_layers(cfg: ModelConfig, cache: Params):
+    return [_layer(cache["layers"], i) for i in range(cfg.num_layers)]
+
+
+# ---------------------------------------------------------------------------
+# block application
+# ---------------------------------------------------------------------------
+
+def _block(cfg: ModelConfig, p: Params, x, attend):
+    """Pre-norm residual block around ``attend(h) -> (a, aux)``."""
+    _, norm = L.make_norm(cfg)
+    h = norm(p["ln1"], x)
+    a, aux = attend(h)
+    if cfg.sandwich_norms:
+        a = norm(p["ln1_post"], a)
+    x = x + a
+    h = norm(p["ln2"], x)
+    m = L.mlp(p["mlp"], h)
+    if cfg.sandwich_norms:
+        m = norm(p["ln2_post"], m)
+    return x + m, aux
+
+
+def block_fwd(cfg: ModelConfig, p: Params, x, positions, *, is_global,
+              use_flash=False):
+    out, _ = _block(cfg, p, x, lambda h: (L.attention_fwd(
+        cfg, p["attn"], h, positions, is_global=is_global,
+        use_flash=use_flash)[0], None))
+    return out
+
+
+def block_decode_paged(cfg: ModelConfig, p: Params, x, cache, pos,
+                       block_tables, use_pallas: bool = False):
+    """A GLOBAL layer's decode step whose KV lives in the paged pool
+    (``layers.attention_decode_paged``, in place)."""
+    return _block(cfg, p, x, lambda h: L.attention_decode_paged(
+        cfg, p["attn"], h, cache, pos, block_tables, use_pallas=use_pallas))
+
+
+def block_extend_paged(cfg: ModelConfig, p: Params, x, pos, cache,
+                       block_tables, valid_len=None, *,
+                       use_pallas: bool = False):
+    """``block_decode_paged`` for S tokens at once (chunked catch-up)."""
+    return _block(cfg, p, x, lambda h: L.attention_extend_paged(
+        cfg, p["attn"], h, pos, cache, block_tables, valid_len,
+        use_pallas=use_pallas))
+
+
+def block_prefill_paged(cfg: ModelConfig, p: Params, x, positions, pages,
+                        write_tables, ctx_tables=None, ctx_len=None, *,
+                        use_flash=False):
+    """A GLOBAL layer's prefill writing K/V straight into its page pool
+    (``layers.attention_prefill_paged``, in place)."""
+    return _block(cfg, p, x, lambda h: L.attention_prefill_paged(
+        cfg, p["attn"], h, positions, pages, write_tables, ctx_tables,
+        ctx_len, use_flash=use_flash))
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: Params, tokens, *, use_flash=False):
+    """Full-sequence logits (B, S, V). tokens: (B, S)."""
+    x = L.embed(cfg, params["embed"], tokens)
+    B, S, _ = x.shape
+    positions = torch.broadcast_to(
+        torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+    for lp in _uniform_layers(cfg, params["trunk"]):
+        x = block_fwd(cfg, lp, x, positions, is_global=True,
+                      use_flash=use_flash)
+    return _logits(cfg, params, x)
+
+
+def _logits(cfg: ModelConfig, params: Params, x):
+    _, norm = L.make_norm(cfg)
+    x = norm(params["final_norm"], x)
+    return L.unembed(cfg, params["embed"], params["unembed"], x)
+
+
+# ---------------------------------------------------------------------------
+# paged cache + decode / extend
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
+                     num_blocks: int, block_size: int, kv_dtype=None,
+                     device: DeviceLike = None) -> Params:
+    """Shared page pool for every (global) layer: ``{"layers": {"k", "v"}}``
+    of shape (L, num_blocks, block_size, K, hd) in the activation dtype,
+    on ``device`` (default ``cuda``).  ``batch``/``max_len`` size dense
+    ring layers, which this slice does not have; ``kv_dtype="int8"`` is
+    the quantized pool of a later slice."""
+    del batch, max_len
+    _uniform_only(cfg)
+    return {"layers": L.init_kv_pages(
+        cfg, num_blocks, block_size, stack=(cfg.num_layers,),
+        quant=kv_dtype == "int8", device=resolve_device(device))}
+
+
+def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
+                      tokens, pos, block_tables, use_pallas: bool = False):
+    """One decode token per row against the paged cache (updated in
+    place).  tokens: (B, 1) int32; pos: (B,) int32 write positions;
+    block_tables: (B, n_blk) int32.  Returns (logits (B, 1, V), cache)."""
+    x = L.embed(cfg, params["embed"], tokens)
+    for lp, c in zip(_uniform_layers(cfg, params["trunk"]),
+                     _pool_layers(cfg, cache)):
+        x, _ = block_decode_paged(cfg, lp, x, c, pos, block_tables,
+                                  use_pallas)
+    return _logits(cfg, params, x), cache
+
+
+def extend_paged(cfg: ModelConfig, params: Params, cache: Params, tokens,
+                 pos, block_tables, valid_len=None,
+                 use_pallas: bool = False):
+    """Score S tokens against the paged cache in one call (updated in
+    place).  tokens: (B, S) int32 at absolute positions ``pos + i``.
+    Returns (logits (B, S, V), cache) — row i is the next-token
+    distribution after consuming ``tokens[:, :i+1]``; rows
+    ``i >= valid_len`` are padding (garbage logits, writes dropped)."""
+    x = L.embed(cfg, params["embed"], tokens)
+    pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                             device=x.device),
+                             (x.shape[0],))
+    for lp, c in zip(_uniform_layers(cfg, params["trunk"]),
+                     _pool_layers(cfg, cache)):
+        x, _ = block_extend_paged(cfg, lp, x, pos, c, block_tables,
+                                  valid_len, use_pallas=use_pallas)
+    return _logits(cfg, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# prefill: admission writes straight into the engine cache
+# ---------------------------------------------------------------------------
+
+def broadcast_true_len(true_len, batch: int, device=None):
+    """``true_len`` (int | (B,) int32 | None) -> (B,) int32 | None."""
+    if true_len is None:
+        return None
+    return torch.broadcast_to(torch.as_tensor(true_len, dtype=torch.int32,
+                                              device=device), (batch,))
+
+
+def gather_last(x, n):
+    """x: (B, S, d); n: (B,) true lengths -> (B, 1, d) at index n-1."""
+    idx = torch.clamp(n - 1, min=0).long()[:, None, None]
+    return torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
+
+
+def prefill_paged(cfg: ModelConfig, params: Params, tokens, max_len,
+                  cache, *, slots, write_tables=None, ctx_tables=None,
+                  ctx_len=None, true_len=None, prefix_embeds=None,
+                  use_flash=False):
+    """Admission prefill fused with cache insertion: runs ``m`` prompt
+    rows and writes their K/V DIRECTLY into the shared page pool through
+    ``write_tables`` (m, n_wblk), in place.  ``true_len`` (m,) marks the
+    right-padded bucket: logits come from each row's true last token.
+    The prefix-cache hit path (``ctx_tables``), VLM prefix embeddings
+    and the dense ``write_tables=None`` engine are later slices.
+    Returns (last-true-token logits (m, 1, V), cache)."""
+    if ctx_tables is not None:
+        raise L._not_ported("prefix-cache hit prefill", "A.5 (prefix cache)")
+    if write_tables is None:
+        raise L._not_ported("dense-strip admission (paged=False)",
+                            "A.4 (dense twin)")
+    if prefix_embeds is not None:
+        raise L._not_ported("prefix embeddings", "A.9.2 (vlm family)")
+    del max_len, slots     # no per-slot dense leaves in this trunk
+    x = L.embed(cfg, params["embed"], tokens)
+    B, S, _ = x.shape
+    n = broadcast_true_len(true_len, B, x.device)
+    positions = torch.broadcast_to(
+        torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+    for lp, pg in zip(_uniform_layers(cfg, params["trunk"]),
+                      _pool_layers(cfg, cache)):
+        x, _ = block_prefill_paged(cfg, lp, x, positions, pg, write_tables,
+                                   use_flash=use_flash)
+    x = x[:, -1:] if n is None else gather_last(x, n)
+    return _logits(cfg, params, x), cache
