@@ -13,23 +13,42 @@ non-zero without printing a result:
               the checkout (one process per source, all at once).
 3. kernels  — each kernel against its plain PyTorch version on the card
               at the serving path's shapes (B=4, H=40, K=10, hd=128,
-              bs=16, n_blk=32): bf16 / f32 pages and int8 pages with
-              scales, softcap 0 and 50 (at scale 1, where it binds),
-              ragged lengths, -1 table entries, an empty row.  Times the kernel, the plain
-              version and a PyTorch library call, next to the bound.
-4. serve    — the main path: phi3-medium-14b at full width and depth
-              (bf16 weights from a seeded generator, ~29 GB) behind
-              ``EdgeServingEngine`` with ``use_pallas_paged=True``; 8
-              greedy requests of 16-300 prompt tokens x 32 new tokens
-              through the CLI's drain loop.  Kernel launch counts are
-              zeroed just before and read just after: every layer of
-              every decode wave must have gone through the kernel.
+              bs=16, n_blk=32; S=4 new tokens for the extend read):
+              bf16 / f32 pages and int8 pages with scales under f32
+              and under bf16 queries (the pair int8 serving runs),
+              softcap 0 and 50 (at scale 1, where it binds), ragged
+              lengths, -1 table entries, an empty row (decode) and a
+              row at pos 0 (extend).  Times the kernel, the plain version and a
+              PyTorch library call, next to the bound.
+4. serve    — the first main path: phi3-medium-14b at full width and
+              depth (bf16 weights from a seeded generator, ~29 GB)
+              behind ``EdgeServingEngine`` with ``use_pallas_paged=True``
+              on a bf16 pool; 8 greedy requests of 16-300 prompt tokens
+              x 32 new tokens through the CLI's drain loop.  Kernel
+              launch counts are zeroed just before and read just after:
+              every layer of every decode wave must have gone through
+              ``paged_attention``, and nothing through the extend kernel
+              (a float pool keeps the gather, as in JAX).
 5. model    — from one cache state, ``decode_step_paged`` through the
               kernel and through the gather: logits must agree within
-              the stated bf16 tolerance; times one decode wave of each.
-6. reference — the phi3 smoke config at float32: the engine on the card
-              (hand kernel) and on the CPU (plain version) must emit
-              the same greedy tokens.
+              the stated tolerances; times one decode wave of each.
+6. serve_int8 — the second main path: the same model and traffic with
+              ``quant_kv="int8"`` (the first engine's weights): every
+              decode wave's layers through ``paged_attention`` on int8
+              pages, every catch-up extend wave's layers through
+              ``paged_extend_attention``.
+7. model_int8 — on the int8 pool at float32 activations, kernel reads
+              against gather reads for decode and for extend: each
+              layer's block on identical inputs within the float32
+              kernel tolerance, greedy tokens of the two full-model runs
+              equal (their logits and the written bytes that differ are
+              reported); times one extend and one decode wave of each
+              read at bf16.
+8. reference — the phi3 smoke config at float32: the engine on the card
+              (hand kernels) and on the CPU (plain versions) must emit
+              the same greedy tokens on a float pool, and on an int8
+              pool meet the JAX package's int8 gate (every first token
+              equal, longest common prefix >= 60% of the tokens).
 
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
@@ -51,12 +70,19 @@ N_REQ, MAX_NEW, MIN_PROMPT, MAX_PROMPT = 8, 32, 16, 300
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # kernel vs its plain version computed in float32 on the same inputs,
-# per page dtype: float32 / int8 (float32 q) are the same float32 math
+# per case (CASES): float32 / int8 (float32 q) are the same float32 math
 # summed in another order; a bfloat16 output is that float32 result
 # rounded once to bfloat16, so it lies within one bfloat16 step (2**-8)
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "int8": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2 ** -8, atol=1e-5)}
+# the cases each kernel is held on: (name, page dtype, query dtype,
+# tolerance); bfloat16 queries over int8 pages give a bfloat16 output,
+# the pair that int8 serving runs on the card
+CASES = (("bfloat16", "bfloat16", "bfloat16", "bfloat16"),
+         ("float32", "float32", "float32", "float32"),
+         ("int8", "int8", "float32", "int8"),
+         ("int8/bf16q", "int8", "bfloat16", "bfloat16"))
 # softcap 50 is checked at scale 1, where scores reach tens and the cap
 # binds: it must move the output by more than this, far past every TOL
 CAP_MOVES = 0.1
@@ -66,6 +92,11 @@ CAP_MOVES = 0.1
 # every layer's rounding difference travels through the residual stream
 F32_REL_TOL = 1e-3
 BF16_REL_TOL = 0.1
+# int8 serving is not bit-exact across reads that sum in another order
+# (one int8 level can move), so card-vs-CPU tokens are held to the JAX
+# package's int8 gate (tests/test_engine_matrix.py): every first token
+# equal and a longest common prefix of at least this share of tokens
+INT8_LCP_SHARE = 0.6
 
 
 def emit(phase: str, **fields) -> None:
@@ -110,12 +141,15 @@ def cuda_ms(torch, fn, iters: int = 100, warmup: int = 10) -> float:
 # phase 3: paged_attention against its plain version
 # ---------------------------------------------------------------------------
 
-def _paged_inputs(torch, dtype, *, layers=1, B=4, H=40, K=10, hd=128,
-                  bs=16, n_blk=32, lengths=None, seed=0, dev="cuda"):
+def _paged_inputs(torch, dtype, *, q_dtype=None, layers=1, B=4, H=40,
+                  K=10, hd=128, bs=16, n_blk=32, lengths=None, seed=0,
+                  dev="cuda"):
     """q, a ``layers``-deep pool (nB = B * n_blk pages per layer), block
     tables with each row's pages scattered over the pool and one -1
     hole inside row 0, and ragged lengths; int8 pools come with their
     scales (symmetric per head_dim vector, as ``layers.quantize_kv``).
+    q is in the page dtype, float32 over int8 pages, unless ``q_dtype``
+    says otherwise (bfloat16 over int8 is what int8 serving runs).
     Queries at 3 x randn against K at 0.5 x randn make each softmax
     peaked, so a skipped page or a wrong head moves the output far past
     the tolerances."""
@@ -144,34 +178,50 @@ def _paged_inputs(torch, dtype, *, layers=1, B=4, H=40, K=10, hd=128,
         vp, vs = quant(vp)
         scales = dict(k_scale=ks, v_scale=vs)
     else:
-        q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
-    return q, kp, vp, bt.to(dev), lengths.to(dev), scales
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    if q_dtype is None:
+        q_dtype = torch.float32 if dtype == torch.int8 else dtype
+    return q.to(q_dtype), kp, vp, bt.to(dev), lengths.to(dev), scales
+
+
+def _roofline(nbytes: int, ops: int, page_dtype) -> tuple:
+    """Least time (ms) of moving ``nbytes`` through device memory and
+    doing ``ops`` operations at the peak rate of the page type: the
+    larger of the two, and which one it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS[str(page_dtype).replace("torch.", "")]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _visible_context(torch, bt, lengths, bs):
+    """(B,) count of each row's positions t < lengths[b] on allocated
+    pages: the context rows a paged read must load."""
+    pos = torch.arange(bt.shape[1] * bs, device=bt.device)
+    valid = (pos[None, :] < lengths[:, None].long()) \
+        & torch.repeat_interleave(bt >= 0, bs, dim=1)
+    return valid.sum(dim=1)
+
+
+def _page_row_bytes(kp, scales) -> int:
+    """Bytes of one position's K and V rows over all kv heads (and their
+    scales on an int8 pool)."""
+    K, hd = kp.shape[-2:]
+    return 2 * K * hd * kp.element_size() + (2 * K * 4 if scales else 0)
 
 
 def _bound(torch, q, kp, bt, lengths, scales):
-    """Least time (ms) of one call on these inputs: every input byte the
-    function needs read once (q, tables, lengths, and the K/V rows — plus
-    scales — of each row's valid positions on allocated pages), the
-    output written once; against the operations it does over the peak
-    rate of the page type.  Returns (ms, "bytes" | "operations")."""
+    """Least time (ms) of one decode read on these inputs: every input
+    byte the function needs read once (q, tables, lengths, and the K/V
+    rows — plus scales — of each row's valid positions on allocated
+    pages), the output written once; against the operations it does
+    over the peak rate of the page type.  Returns (ms, "bytes" |
+    "operations")."""
     B, H, hd = q.shape
-    nB, bs, K, _ = kp.shape[-4:]
-    n_blk = bt.shape[1]
-    pos = torch.arange(n_blk * bs, device=bt.device)
-    valid = (pos[None, :] < lengths[:, None].long()) \
-        & torch.repeat_interleave(bt >= 0, bs, dim=1)
-    tokens = int(valid.sum())
-    row_bytes = 2 * K * hd * kp.element_size()
-    if scales:
-        row_bytes += 2 * K * 4
+    tokens = int(_visible_context(torch, bt, lengths, kp.shape[-3]).sum())
     nbytes = (2 * q.numel() * q.element_size() + bt.numel() * 4
-              + lengths.numel() * 4 + tokens * row_bytes)
-    ops = 4 * H * hd * tokens
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    dname = str(kp.dtype).replace("torch.", "")
-    t_ops = ops / PEAK_OPS[dname]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+              + lengths.numel() * 4 + tokens * _page_row_bytes(kp, scales))
+    return _roofline(nbytes, 4 * H * hd * tokens, kp.dtype)
 
 
 def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
@@ -181,31 +231,29 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
     errs, moves = {}, {}
     worst = 0.0
 
-    def held(name, case, q, kp, vp, bt, ln, **kw):
+    def held(tol, case, q, kp, vp, bt, ln, **kw):
         nonlocal worst
         out = pa.paged_attention(q, kp, vp, bt, ln, **kw)
         _sync(torch)
         exp = ref.paged_attention_ref(q.float(), kp, vp, bt, ln, **kw)
         err = float((out.float() - exp).abs().max())
-        if not torch.allclose(out.float(), exp, **TOL[name]):
+        if not torch.allclose(out.float(), exp, **TOL[tol]):
             raise AssertionError(f"paged_attention {case}: max abs err "
-                                 f"{err} beyond tolerance {TOL[name]}")
+                                 f"{err} beyond tolerance {TOL[tol]}")
         errs[case] = err
         worst = max(worst, err)
         return out.float()
 
-    for seed, dtype in enumerate((torch.bfloat16, torch.float32,
-                                  torch.int8)):
-        name = str(dtype).replace("torch.", "")
-        q, kp, vp, bt, ln, sc = _paged_inputs(torch, dtype, seed=seed,
-                                              dev=dev)
-        if dtype == torch.int8:
-            sc = {k: v[0] for k, v in sc.items()}
+    for seed, (name, pages, q_dtype, tol) in enumerate(CASES):
+        q, kp, vp, bt, ln, sc = _paged_inputs(
+            torch, getattr(torch, pages), q_dtype=getattr(torch, q_dtype),
+            seed=seed, dev=dev)
+        sc = {k: v[0] for k, v in sc.items()}
         args = (q, kp[0], vp[0], bt, ln)
-        held(name, f"{name}/softcap0", *args, scale=128 ** -0.5, **sc)
-        capped = held(name, f"{name}/softcap50/scale1", *args, scale=1.0,
+        held(tol, f"{name}/softcap0", *args, scale=128 ** -0.5, **sc)
+        capped = held(tol, f"{name}/softcap50/scale1", *args, scale=1.0,
                       softcap=50.0, **sc)
-        free = held(name, f"{name}/softcap0/scale1", *args, scale=1.0, **sc)
+        free = held(tol, f"{name}/softcap0/scale1", *args, scale=1.0, **sc)
         moves[name] = float((capped - free).abs().max())
         if moves[name] <= CAP_MOVES:
             raise AssertionError(f"paged_attention {name}: softcap 50 moved "
@@ -272,39 +320,236 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-6
+# phase 3: paged_extend_attention against its plain version
 # ---------------------------------------------------------------------------
 
-def serve_phase(torch, pa, serve, scale="full", dev="cuda"):
-    """Drive the main path; returns (engine, cfg, phase fields)."""
+def _extend_inputs(torch, dtype, *, q_dtype=None, layers=1, B=4, S=4, H=40,
+                   K=10, hd=128, bs=16, n_blk=32, pos=None, seed=0,
+                   dev="cuda"):
+    """q (B, S, H, hd) at 3 x randn, the suffix k_new / v_new at 0.5 x
+    randn in q's dtype, and a ``layers``-deep pool from
+    ``_paged_inputs`` whose tables cover each row's pos + S positions.
+    By default row 0 has a -1 hole below its pos and the last row sits
+    at pos 0 (it reads no page); stale bytes fill every page past each
+    row's pos.  q is float32 over int8 pages unless ``q_dtype`` says
+    otherwise."""
+    g = torch.Generator(device="cpu").manual_seed(seed + 1000)
+    if pos is None:
+        pos = torch.randint(bs + 1, n_blk * bs - S + 1, (B,), generator=g)
+        pos[-1] = 0
+    pos = torch.as_tensor(pos, dtype=torch.int32)
+    _, kp, vp, bt, _, scales = _paged_inputs(
+        torch, dtype, layers=layers, B=B, H=H, K=K, hd=hd, bs=bs,
+        n_blk=n_blk, lengths=pos + S, seed=seed, dev=dev)
+    q_dtype = q_dtype or (torch.float32 if dtype == torch.int8 else dtype)
+    q = (torch.randn((B, S, H, hd), generator=g) * 3.0).to(q_dtype).to(dev)
+    kn = (torch.randn((B, S, K, hd), generator=g) * 0.5).to(q_dtype).to(dev)
+    vn = (torch.randn((B, S, K, hd), generator=g) * 0.5).to(q_dtype).to(dev)
+    return q, kp, vp, kn, vn, bt, pos.to(dev), scales
+
+
+def _extend_bound(torch, q, kp, kn, bt, pos, scales):
+    """Least time (ms) of one extend read on these inputs: q, k_new,
+    v_new, tables and pos read once, the K/V rows (plus scales) of each
+    row's context below pos on allocated pages read once, the output
+    written once; against 4 * hd operations per (query head, visible
+    key) pair over the peak rate of the page type."""
+    B, S, H, hd = q.shape
+    ctx = _visible_context(torch, bt, pos, kp.shape[-3])
+    nbytes = (2 * q.numel() * q.element_size()
+              + 2 * kn.numel() * kn.element_size()
+              + bt.numel() * 4 + pos.numel() * 4
+              + int(ctx.sum()) * _page_row_bytes(kp, scales))
+    pairs = H * (S * int(ctx.sum()) + B * S * (S + 1) // 2)
+    return _roofline(nbytes, 4 * hd * pairs, kp.dtype)
+
+
+def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
+    """Hold the extend kernel against its plain version on every case;
+    time both (and a library call) at the serving path's shapes."""
+    import torch.nn.functional as F
+    errs, moves = {}, {}
+    worst = 0.0
+
+    def plain(q, kp, vp, kn, vn, bt, pos, **kw):
+        return ref.paged_extend_attention_ref(q.float(), kp, vp, kn.float(),
+                                              vn.float(), bt, pos, **kw)
+
+    def held(tol, case, *args, **kw):
+        nonlocal worst
+        out = pea.paged_extend_attention(*args, **kw)
+        _sync(torch)
+        exp = plain(*args, **kw)
+        err = float((out.float() - exp).abs().max())
+        if not torch.allclose(out.float(), exp, **TOL[tol]):
+            raise AssertionError(f"paged_extend_attention {case}: max abs "
+                                 f"err {err} beyond tolerance {TOL[tol]}")
+        errs[case] = err
+        worst = max(worst, err)
+        return out.float()
+
+    for seed, (name, pages, q_dtype, tol) in enumerate(CASES):
+        q, kp, vp, kn, vn, bt, pos, sc = _extend_inputs(
+            torch, getattr(torch, pages), q_dtype=getattr(torch, q_dtype),
+            seed=seed, dev=dev)
+        if int(bt[0, 0]) != -1 or int(pos[0]) <= kp.shape[2] \
+                or int(pos[-1]) != 0:
+            raise AssertionError("extend inputs lack the -1 hole below pos "
+                                 "or the pos-0 row")
+        sc = {k: v[0] for k, v in sc.items()}
+        args = (q, kp[0], vp[0], kn, vn, bt, pos)
+        held(tol, f"{name}/softcap0", *args, scale=128 ** -0.5, **sc)
+        capped = held(tol, f"{name}/softcap50/scale1", *args, scale=1.0,
+                      softcap=50.0, **sc)
+        free = held(tol, f"{name}/softcap0/scale1", *args, scale=1.0, **sc)
+        moves[name] = float((capped - free).abs().max())
+        if moves[name] <= CAP_MOVES:
+            raise AssertionError(f"paged_extend_attention {name}: softcap "
+                                 f"50 moved the output by only {moves[name]}")
+
+    # timing at the serving path's shapes: a catch-up wave of 4 slots x 4
+    # tokens at prompt positions past the largest prefill bucket (128),
+    # bf16 queries over int8 pages, one pool per layer (40 pools) cycled
+    # per call so L2 holds no layer's pages
+    g = torch.Generator(device="cpu").manual_seed(7)
+    S = 4
+    pos = torch.randint(128, MAX_PROMPT - S + 1, (4,), generator=g)
+    q, kp, vp, kn, vn, bt, pos, sc = _extend_inputs(
+        torch, torch.int8, q_dtype=torch.bfloat16, layers=40, S=S, pos=pos,
+        seed=11, dev=dev)
+    ks, vs = sc["k_scale"], sc["v_scale"]
+    scale = 128 ** -0.5
+    L = kp.shape[0]
+
+    def kernel(i):
+        return pea.paged_extend_attention(q, kp[i % L], vp[i % L], kn, vn,
+                                          bt, pos, scale=scale,
+                                          k_scale=ks[i % L],
+                                          v_scale=vs[i % L])
+    ms = timer(torch, kernel)
+    plain_ms = timer(torch, lambda i: ref.paged_extend_attention_ref(
+        q, kp[i % L], vp[i % L], kn, vn, bt, pos, scale=scale,
+        k_scale=ks[i % L], v_scale=vs[i % L]), iters=20, warmup=3)
+
+    # library yardstick (never called by the port): gather + dequantize
+    # the context, then SDPA over context + suffix with a boolean mask
+    B, _, H, hd = q.shape
+    K, bs = kp.shape[-2], kp.shape[2]
+    btc = bt.clamp(min=0).long()
+    n_ctx = bt.shape[1] * bs
+    t = torch.arange(n_ctx, device=q.device)
+    ctx_ok = (t[None, :] < pos[:, None]) \
+        & torch.repeat_interleave(bt >= 0, bs, dim=1)
+    i = torch.arange(S, device=q.device)
+    mask = torch.cat([ctx_ok[:, None, :].expand(B, S, n_ctx),
+                      (i[None, :] <= i[:, None])[None].expand(B, S, S)],
+                     dim=-1)[:, None]                       # (B,1,S,T)
+    qt = q.transpose(1, 2)
+
+    def library(j):
+        l = j % L
+        kg = (kp[l][btc].float() * ks[l][btc][..., None]).to(q.dtype)
+        vg = (vp[l][btc].float() * vs[l][btc][..., None]).to(q.dtype)
+        k_all = torch.cat([kg.reshape(B, n_ctx, K, hd), kn], dim=1)
+        v_all = torch.cat([vg.reshape(B, n_ctx, K, hd), vn], dim=1)
+        return F.scaled_dot_product_attention(
+            qt, k_all.transpose(1, 2), v_all.transpose(1, 2),
+            attn_mask=mask, scale=scale, enable_gqa=True).transpose(1, 2)
+    exp = plain(q, kp[0], vp[0], kn, vn, bt, pos, scale=scale,
+                k_scale=ks[0], v_scale=vs[0])
+    lib_err = float((library(0).float() - exp).abs().max())
+    out = kernel(0).float()
+    kernel_err = float((out - exp).abs().max())
+    if not torch.allclose(out, exp, **TOL["bfloat16"]):
+        raise AssertionError(f"paged_extend_attention timed case (bf16 q, "
+                             f"int8 pages): max abs err {kernel_err} "
+                             f"beyond tolerance {TOL['bfloat16']}")
+    worst = max(worst, kernel_err)
+    library_ms = timer(torch, library)
+    bound_ms, bound_by = _extend_bound(torch, q, kp[0], kn, bt, pos, sc)
+    return {
+        "name": "paged_extend_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_extend_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:283",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": library_ms,
+    }, {"errors": errs, "tolerance": TOL, "softcap50_moves": moves,
+        "timed_pos": [int(x) for x in pos.tolist()], "timed_S": S,
+        "timed_kernel_max_abs_err_bf16": kernel_err,
+        "library_call": "gather + dequantize, then "
+        "F.scaled_dot_product_attention(enable_gqa=True) with a boolean "
+        "mask, all timed",
+        "library_max_abs_err": lib_err}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-8
+# ---------------------------------------------------------------------------
+
+def serve_phase(torch, kernels, serve, scale="full", dev="cuda"):
+    """Drive the first main path (bf16 pool); returns (engine, cfg,
+    phase fields).  ``kernels`` maps each kernel's name to its wrapper
+    module (with its ``launches`` counter)."""
     clock = serve.default_clock
     t0 = clock()
     cfg, eng = serve.build_engine(ARCH, scale, SERVE, dev)
-    if dev == "cuda":
+    init_s = clock() - t0
+    fields = _drive(torch, kernels, serve, eng, cfg, expect_extend=False)
+    fields["init_s"] = init_s
+    return eng, cfg, fields
+
+
+def serve_int8_phase(torch, kernels, serve, eng0, cfg):
+    """Drive the second main path: the first engine's model and traffic
+    on an int8 pool; returns (engine, phase fields)."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    eng = EdgeServingEngine(cfg, eng0.params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, quant_kv="int8",
+        **SERVE), device=eng0.device)
+    return eng, _drive(torch, kernels, serve, eng, cfg, expect_extend=True)
+
+
+def _drive(torch, kernels, serve, eng, cfg, *, expect_extend):
+    """Serve the phase's traffic through ``eng`` with every kernel count
+    zeroed just before and read just after; check the output and that
+    each layer of each decode wave went through ``paged_attention`` and
+    each layer of each extend wave through ``paged_extend_attention``
+    exactly when ``expect_extend`` (int8 pools) — never on a float
+    pool."""
+    dev = eng.device
+    if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    init_s = clock() - t0
     reqs = serve.make_requests(cfg, N_REQ, MIN_PROMPT, MAX_PROMPT, MAX_NEW,
                                SERVE["policy"])
-    pa.launches = 0
+    for mod in kernels.values():
+        mod.launches = 0
     raw = serve.run_drain(eng, reqs)
-    launches = pa.launches
+    launches = {name: mod.launches for name, mod in kernels.items()}
     done = eng.completed
     if len(done) != N_REQ or any(len(r.generated) != MAX_NEW for r in done):
         raise AssertionError(f"serve: {len(done)} requests done, lengths "
                              f"{[len(r.generated) for r in done]}")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
         raise AssertionError("serve: token id outside the vocabulary")
-    if eng.decode_waves == 0 or launches != cfg.num_layers * eng.decode_waves:
+    L = cfg.num_layers
+    expect = {"paged_attention": L * eng.decode_waves,
+              "paged_extend_attention": (L * eng.extend_waves
+                                         if expect_extend else 0)}
+    if eng.decode_waves == 0 or (expect_extend and eng.extend_waves == 0) \
+            or launches != expect:
         raise AssertionError(
-            f"serve: {launches} kernel launches for {eng.decode_waves} "
-            f"decode waves x {cfg.num_layers} layers")
+            f"serve: kernel launches {launches} for {eng.decode_waves} "
+            f"decode and {eng.extend_waves} extend waves x {L} layers "
+            f"(expected {expect})")
     eng.pool.assert_consistent()
     ttft = raw["ttft_ms"]
-    fields = {
+    return {
         "arch": ARCH, "depth": cfg.num_layers, "depth_cut": False,
         "d_model": cfg.d_model, "params": cfg.param_count(),
-        "param_dtype": cfg.param_dtype, "init_s": init_s,
+        "param_dtype": cfg.param_dtype,
+        "kv_pool": str(eng.cache["layers"]["k"].dtype).replace("torch.", ""),
         "requests": raw["requests"], "tokens": raw["tokens"],
         "steps": raw["decode_steps"], "decode_waves": eng.decode_waves,
         "extend_waves": eng.extend_waves, "elapsed_s": raw["elapsed_s"],
@@ -313,11 +558,10 @@ def serve_phase(torch, pa, serve, scale="full", dev="cuda"):
         "ttft_p50_ms": ttft[len(ttft) // 2],
         "ttft_p99_ms": ttft[min(len(ttft) - 1, int(0.99 * len(ttft)))],
         "prompt_lengths": [len(r.prompt) for r in reqs],
-        "paged_attention_launches": launches,
+        "launches": launches,
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                        if dev == "cuda" else None),
+                        if dev.type == "cuda" else None),
     }
-    return eng, cfg, fields
 
 
 def _device_profile(torch, fn) -> dict:
@@ -354,16 +598,8 @@ def model_phase(torch, M, eng, cfg, dev="cuda"):
     serving bf16 activations, where the gather path also rounds its
     softmax probabilities to bf16 (within BF16_REL_TOL); both bf16
     reads are reported against the float32 logits."""
-    B, bs = 4, eng.block_size
-    lengths = [300, 211, 97, 33]
-    bt = torch.full((B, eng.n_blk), -1, dtype=torch.int32)
-    for b, n in enumerate(lengths):
-        k = -(-(n + 1) // bs)
-        bt[b, :k] = torch.arange(b * eng.n_blk, b * eng.n_blk + k)
-    bt = bt.to(dev)
-    pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
-    tok = torch.randint(0, cfg.vocab_size, (B, 1), dtype=torch.int32,
-                        generator=torch.Generator().manual_seed(5)).to(dev)
+    B = 4
+    lengths, bt, pos, tok = _wave_state(torch, eng, cfg, 1, dev)
     cfg32 = cfg.replace(dtype="float32")
 
     def logits(c, use_kernel):
@@ -409,25 +645,162 @@ def model_phase(torch, M, eng, cfg, dev="cuda"):
             "decode_wave_profile": prof}
 
 
+def _wave_state(torch, eng, cfg, S, dev):
+    """Block tables, positions and tokens of one 4-slot wave over the
+    engine's pool: rows at positions 300, 211, 97, 33 with tables
+    covering them and S more tokens (pages of the served pool)."""
+    B, bs = 4, eng.block_size
+    lengths = [300, 211, 97, 33]
+    bt = torch.full((B, eng.n_blk), -1, dtype=torch.int32)
+    for b, n in enumerate(lengths):
+        k = -(-(n + S) // bs)
+        bt[b, :k] = torch.arange(b * eng.n_blk, b * eng.n_blk + k)
+    pos = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    tok = torch.randint(0, cfg.vocab_size, (B, S), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(5)).to(dev)
+    return lengths, bt.to(dev), pos, tok
+
+
+def _layerwise_blocks(torch, cfg, params, cache, tokens, block):
+    """Run the trunk block by block through the gather read and, at
+    every layer, the same block through the kernel read on the same
+    input and a copy of the same pool: the two outputs then differ in
+    summation order only.  Returns the largest per-layer max |kernel -
+    gather| and whether every layer's pair is within TOL["float32"]."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    x = L.embed(cfg, params["embed"], tokens)
+    worst, ok = 0.0, True
+    for lp, pool in T.paged_layers(cfg, params, cache):
+        shadow = {k: v.clone() for k, v in pool.items()}
+        ker, _ = block(lp, x, shadow, True)
+        x, _ = block(lp, x, pool, False)
+        worst = max(worst, float((ker - x).abs().max()))
+        ok = ok and bool(torch.allclose(ker, x, **TOL["float32"]))
+    return worst, ok
+
+
+def model_int8_phase(torch, M, eng, cfg, dev="cuda"):
+    """On the int8 pool of the served model, kernel reads against gather
+    reads at float32 activations, for decode and for extend.
+
+    Every layer is held on identical inputs: the trunk runs through the
+    gather read, and each block also runs through the kernel read on the
+    same input and a copy of the same pool; the outputs must agree within
+    TOL["float32"].  This takes the place of holding two full-model runs'
+    logits within F32_REL_TOL x max |logit|: each run quantizes the K/V
+    it writes, so float noise between the runs moves some written bytes
+    by one int8 level (a step of max |k| / 127, far above float32
+    rounding), and the step travels on through the later layers.  The
+    two runs' logits are reported beside the count of written bytes that
+    differ, and their greedy tokens must agree.  Times one extend and
+    one decode wave of each read at the serving bf16 activations."""
+    from repro_torch.models import transformer as T
+    S = eng.K
+    lengths, bt, pos, tok = _wave_state(torch, eng, cfg, S, dev)
+    cfg32 = cfg.replace(dtype="float32")
+    pool = eng.cache["layers"]
+    runs = {
+        "decode": (tok[:, :1], lambda c, k: M.decode_step_paged(
+            c, eng.params, eng.cache, tok[:, :1], pos, bt, k)[0][:, 0],
+            lambda lp, x, pg, k: T.block_decode_paged(cfg32, lp, x, pg, pos,
+                                                      bt, k)),
+        "extend": (tok, lambda c, k: M.extend_paged(
+            c, eng.params, eng.cache, tok, pos, bt, None, k)[0],
+            lambda lp, x, pg, k: T.block_extend_paged(
+                cfg32, lp, x, pos, pg, bt, None, use_pallas=k)),
+    }
+    res = {"lengths": lengths, "extend_tokens": S,
+           "layer_tolerance": TOL["float32"],
+           "logits": "reported, not held: see the written bytes that differ"}
+    for name, (tokens, full, block) in runs.items():
+        layer_err, layer_ok = _layerwise_blocks(torch, cfg32, eng.params,
+                                                eng.cache, tokens, block)
+        if not layer_ok:
+            raise AssertionError(f"model_int8: {name} kernel read differs "
+                                 f"from the gather read on identical "
+                                 f"inputs by {layer_err}")
+        ker = full(cfg32, True).float()
+        written = {k: pool[k].clone() for k in ("k", "v")}
+        gat = full(cfg32, False).float()
+        if not bool(torch.isfinite(ker).all() and torch.isfinite(gat).all()):
+            raise AssertionError(f"model_int8: non-finite {name} logits")
+        differ = sum(int((pool[k] != written[k]).sum()) for k in written)
+        del written
+        same = int((ker.argmax(-1) == gat.argmax(-1)).sum())
+        total = ker.argmax(-1).numel()
+        res.update({f"{name}_layerwise_max_abs_err": layer_err,
+                    f"{name}_max_abs_logit_f32": float(gat.abs().max()),
+                    f"{name}_f32_kernel_vs_gather":
+                        float((ker - gat).abs().max()),
+                    f"{name}_written_bytes_differ": differ,
+                    f"{name}_argmax_agree_f32": f"{same}/{total}"})
+        if same != total:
+            raise AssertionError(f"model_int8: {name} greedy tokens agree "
+                                 f"{same}/{total}")
+    for name, call in (
+            ("extend", lambda k: M.extend_paged(cfg, eng.params, eng.cache,
+                                                tok, pos, bt, None, k)),
+            ("decode", lambda k: M.decode_step_paged(
+                cfg, eng.params, eng.cache, tok[:, :1], pos, bt, k))):
+        for k in (True, False):
+            res[f"{name}_wave_ms_{'kernel' if k else 'gather'}"] = cuda_ms(
+                torch, lambda i, k=k, call=call: call(k), iters=10,
+                warmup=2)
+    res["extend_wave_profile"] = _device_profile(torch, lambda: M.extend_paged(
+        cfg, eng.params, eng.cache, tok, pos, bt, None, True))
+    return res
+
+
 def reference_phase(torch, M, serve_mod, get_smoke_config):
-    """Small input: the engine on the card (hand kernel) and on the CPU
-    (plain version) emit the same greedy tokens at float32."""
+    """Small input: the engine on the card (hand kernels) and on the CPU
+    (plain versions) at float32.  On a float pool the greedy tokens must
+    be equal; on an int8 pool, where one int8 level can move with the
+    summation order, every first token must be equal and the longest
+    common prefix at least INT8_LCP_SHARE of the tokens (the JAX
+    package's int8 gate)."""
     from repro_torch.serving import EdgeServingEngine, ServeConfig
     cfg = get_smoke_config(ARCH).replace(dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    scfg = ServeConfig(max_slots=3, max_len=192, prefix_cache=False,
-                       use_pallas_paged=True, policy="priority")
-    tokens = {}
-    for dev in ("cpu", "cuda"):
-        eng = EdgeServingEngine(cfg, _to(params, dev), scfg, device=dev)
-        reqs = serve_mod.make_requests(cfg, 6, 4, 150, 8, "priority")
-        serve_mod.run_drain(eng, reqs)
-        tokens[dev] = {r.uid: list(r.generated) for r in eng.completed}
-    if tokens["cpu"] != tokens["cuda"] or len(tokens["cuda"]) != 6:
-        raise AssertionError(f"reference: card tokens {tokens['cuda']} != "
-                             f"CPU tokens {tokens['cpu']}")
-    return {"arch": f"{ARCH} smoke, float32", "requests": 6,
-            "tokens_equal": True}
+    res = {"arch": f"{ARCH} smoke, float32", "requests": 6}
+    for pool in ("float32", "int8"):
+        scfg = ServeConfig(max_slots=3, max_len=192, prefix_cache=False,
+                           use_pallas_paged=True, policy="priority",
+                           quant_kv="int8" if pool == "int8" else None)
+        tokens, waves = {}, {}
+        for dev in ("cpu", "cuda"):
+            eng = EdgeServingEngine(cfg, _to(params, dev), scfg, device=dev)
+            reqs = serve_mod.make_requests(cfg, 6, 4, 150, 8, "priority")
+            serve_mod.run_drain(eng, reqs)
+            tokens[dev] = {r.uid: list(r.generated) for r in eng.completed}
+            waves[dev] = (eng.decode_waves, eng.extend_waves)
+        cpu, card = tokens["cpu"], tokens["cuda"]
+        if len(card) != 6 or set(card) != set(cpu):
+            raise AssertionError(f"reference {pool}: requests {sorted(card)}"
+                                 f" on the card, {sorted(cpu)} on the CPU")
+        if pool == "float32":
+            if card != cpu:
+                raise AssertionError(f"reference: card tokens {card} != "
+                                     f"CPU tokens {cpu}")
+            res["float32_tokens_equal"] = True
+            continue
+        first = sum(card[u][0] == cpu[u][0] for u in cpu)
+        lcp = total = 0
+        for u in cpu:
+            total += len(cpu[u])
+            for a, b in zip(cpu[u], card[u]):
+                if a != b:
+                    break
+                lcp += 1
+        res.update(int8_first_tokens_equal=f"{first}/{len(cpu)}",
+                   int8_lcp_share=lcp / total,
+                   int8_tokens_equal=card == cpu,
+                   int8_waves_decode_extend=list(waves["cuda"]))
+        if first != len(cpu) or lcp < INT8_LCP_SHARE * total:
+            raise AssertionError(f"reference int8: first tokens {first}/"
+                                 f"{len(cpu)}, LCP {lcp}/{total}: card "
+                                 f"{card} vs CPU {cpu}")
+    return res
 
 
 def _to(tree, dev):
@@ -444,6 +817,7 @@ def main() -> int:
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_extend_attention as pea
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
@@ -466,19 +840,36 @@ def main() -> int:
          ptxas=ptxas)
 
     t0 = clock()
-    pa_row, pa_detail = check_paged_attention(torch, pa, ref, cuda_ms)
-    emit("kernels", seconds=clock() - t0, paged_attention=dict(pa_row,
-                                                                **pa_detail))
+    rows, details = {}, {}
+    for name, check, mod in (
+            ("paged_attention", check_paged_attention, pa),
+            ("paged_extend_attention", check_paged_extend_attention, pea)):
+        rows[name], details[name] = check(torch, mod, ref, cuda_ms)
+    emit("kernels", seconds=clock() - t0,
+         **{n: dict(rows[n], **details[n]) for n in rows})
 
+    kernels = {"paged_attention": pa, "paged_extend_attention": pea}
     t0 = clock()
-    eng, cfg, fields = serve_phase(torch, pa, serve)
-    pa_row["launches"] = fields["paged_attention_launches"]
+    eng, cfg, fields = serve_phase(torch, kernels, serve)
+    launches = dict(fields["launches"])
     emit("serve", seconds=clock() - t0, **fields)
 
     t0 = clock()
     fields = model_phase(torch, M, eng, cfg)
     emit("model", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    eng8, fields = serve_int8_phase(torch, kernels, serve, eng, cfg)
+    for name, n in fields["launches"].items():
+        launches[name] += n
     del eng
+    torch.cuda.empty_cache()
+    emit("serve_int8", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = model_int8_phase(torch, M, eng8, cfg)
+    emit("model_int8", seconds=clock() - t0, **fields)
+    del eng8
     torch.cuda.empty_cache()
 
     t0 = clock()
@@ -489,7 +880,11 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [{k: pa_row[k] for k in keys}]}))
+    for name, row in rows.items():
+        # main-path launches: both serve phases, each counted from zero
+        row["launches"] = launches[name]
+    print(json.dumps({"kernels": [{k: row[k] for k in keys}
+                                  for row in rows.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -38,72 +38,13 @@
 // Simple and right first: no split of long rows across blocks, no
 // cp.async/TMA staging and no tensor cores yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstdint>
+#include "paged_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
+using namespace paged;
+
 constexpr int kThreads = 128;
-
-enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_float(int8_t x) {
-  return static_cast<float>(x);
-}
-
-// 16 bytes of a page row -> 16 / sizeof(T) floats, one vector load
-template <typename T>
-struct Vec16 {
-  static constexpr int N = 16 / static_cast<int>(sizeof(T));
-};
-
-__device__ __forceinline__ void load16(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* o) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void load16(const int8_t* p, float* o) {
-  const int4 v = *reinterpret_cast<const int4*>(p);
-  const int8_t* b = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) o[i] = static_cast<float>(b[i]);
-}
-
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
 
 template <typename TQ, typename TP>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
@@ -117,9 +58,6 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int b = blockIdx.y;
   const int G = H / K;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
 
   extern __shared__ float smem[];
   float* q_s = smem;             // (G, hd)   queries of the group
@@ -146,7 +84,6 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   int n_used = len <= 0 ? 0 : (len + bs - 1) / bs;
   if (n_used > n_blk) n_used = n_blk;
   const int32_t* table = block_tables + static_cast<size_t>(b) * n_blk;
-  const bool quant = k_scale != nullptr;
   __syncthreads();
 
   for (int j = 0; j < n_used; ++j) {
@@ -154,76 +91,12 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     if (page < 0) continue;     // unallocated: skipped, never read
     const int t_valid = min(bs, len - j * bs);  // >= 1 since j < n_used
 
-    // stage this kv head's rows of the page, coalesced along head_dim in
-    // 16-byte vector loads (the wrapper admits only rows that are whole,
-    // aligned vectors)
-    constexpr int N = Vec16<TP>::N;
-    for (int i = tid; i < t_valid * (hd / N); i += blockDim.x) {
-      const int e = i * N;  // element index within the staged rows
-      const int t = e / hd;
-      const size_t row = (static_cast<size_t>(page) * bs + t) * K + kh;
-      float kf[N], vf[N];
-      load16(k_pages + row * hd + (e - t * hd), kf);
-      load16(v_pages + row * hd + (e - t * hd), vf);
-      const float ks = quant ? k_scale[row] : 1.f;
-      const float vs = quant ? v_scale[row] : 1.f;
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        k_s[e + n] = kf[n] * ks;
-        v_s[e + n] = vf[n] * vs;
-      }
-    }
+    stage_page_rows(k_pages, v_pages, k_scale, v_scale, page, t_valid, bs,
+                    K, kh, hd, k_s, v_s);
     __syncthreads();
 
-    // scores: one warp per token, lanes split head_dim
-    for (int t = warp; t < t_valid; t += n_warps) {
-      for (int g = 0; g < G; ++g) {
-        float part = 0.f;
-        for (int d = lane; d < hd; d += 32)
-          part += q_s[g * hd + d] * k_s[t * hd + d];
-        part = warp_sum(part);
-        if (lane == 0) {
-          float s = part * scale;
-          if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-          p_s[g * bs + t] = s;
-        }
-      }
-    }
-    __syncthreads();
-
-    // online-softmax statistics: one warp per query head
-    for (int g = warp; g < G; g += n_warps) {
-      float mx = kNegInf;
-      for (int t = lane; t < t_valid; t += 32) mx = fmaxf(mx, p_s[g * bs + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < t_valid; t += 32) {
-        const float p = expf(p_s[g * bs + t] - m_new);
-        p_s[g * bs + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ v   (each thread owns fixed (g, d) entries)
-    for (int i = tid; i < G * hd; i += blockDim.x) {
-      const int g = i / hd;
-      const int d = i - g * hd;
-      const float* p = p_s + g * bs;
-      float a = acc_s[i] * a_s[g];
-      for (int t = 0; t < t_valid; ++t) a += p[t] * v_s[t * hd + d];
-      acc_s[i] = a;
-    }
-    __syncthreads();
+    attend_staged(q_s, k_s, v_s, acc_s, p_s, m_s, l_s, a_s, G, 1, bs, hd,
+                  t_valid, false, scale, softcap);
   }
 
   TQ* o_row = out + (static_cast<size_t>(b) * H + h0) * hd;
@@ -245,7 +118,7 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                        static_cast<size_t>(G) * bs + 3 * static_cast<size_t>(G));
   // rows start at multiples of hd elements: the 16-byte loads need hd to
   // be a whole number of vectors and the pool bases 16-byte aligned
-  if (hd % Vec16<TP>::N != 0 ||
+  if (hd > 32 * kMaxChunks || hd % Vec16<TP>::N != 0 ||
       reinterpret_cast<uintptr_t>(k_pages) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(v_pages) % 16 != 0)
     return cudaErrorInvalidValue;
@@ -267,31 +140,6 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
   return cudaGetLastError();
 }
 
-template <typename TQ>
-cudaError_t launch_pages(int page_dtype, const void* q, const void* k_pages,
-                         const void* v_pages, const void* k_scale,
-                         const void* v_scale, const void* block_tables,
-                         const void* lengths, void* out, int B, int H, int K,
-                         int hd, int bs, int n_blk, float scale,
-                         float softcap, cudaStream_t stream) {
-  switch (page_dtype) {
-    case kF32:
-      return launch<TQ, float>(q, k_pages, v_pages, k_scale, v_scale,
-                               block_tables, lengths, out, B, H, K, hd, bs,
-                               n_blk, scale, softcap, stream);
-    case kBF16:
-      return launch<TQ, __nv_bfloat16>(q, k_pages, v_pages, k_scale, v_scale,
-                                       block_tables, lengths, out, B, H, K,
-                                       hd, bs, n_blk, scale, softcap, stream);
-    case kI8:
-      return launch<TQ, int8_t>(q, k_pages, v_pages, k_scale, v_scale,
-                                block_tables, lengths, out, B, H, K, hd, bs,
-                                n_blk, scale, softcap, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // C entry point, bound with ctypes.  Every pointer is a device pointer
@@ -304,17 +152,11 @@ extern "C" int repro_paged_attention(
     const void* lengths, void* out, int B, int H, int K, int hd, int bs,
     int n_blk, float scale, float softcap, int q_dtype, int page_dtype,
     void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (q_dtype) {
-    case kF32:
-      return static_cast<int>(launch_pages<float>(
-          page_dtype, q, k_pages, v_pages, k_scale, v_scale, block_tables,
-          lengths, out, B, H, K, hd, bs, n_blk, scale, softcap, s));
-    case kBF16:
-      return static_cast<int>(launch_pages<__nv_bfloat16>(
-          page_dtype, q, k_pages, v_pages, k_scale, v_scale, block_tables,
-          lengths, out, B, H, K, hd, bs, n_blk, scale, softcap, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(paged::dispatch(q_dtype, page_dtype, [&](auto tq,
+                                                                  auto tp) {
+    return launch<decltype(tq), decltype(tp)>(
+        q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, out, B,
+        H, K, hd, bs, n_blk, scale, softcap,
+        static_cast<cudaStream_t>(stream));
+  }));
 }

@@ -39,6 +39,16 @@ KERNELS = {
              _P],                                 # stream
             _I),
     }),
+    "paged_extend_attention": ("paged_extend_attention.cu", {
+        "repro_paged_extend_attention": (
+            [_P, _P, _P, _P, _P,                  # q k v ks vs
+             _P, _P, _P, _P, _P,                  # k_new v_new tables pos out
+             _I, _I, _I, _I, _I, _I, _I,          # B S H K hd bs n_blk
+             _F, _F,                              # scale softcap
+             _I, _I,                              # q dtype, page dtype
+             _P],                                 # stream
+            _I),
+    }),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -57,10 +67,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` is (or will be) built."""
-    src = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    """Where the library of kernel ``name`` is (or will be) built: keyed
+    by the source, the shared headers of ``csrc`` and the flags."""
+    h = hashlib.sha256((CSRC / KERNELS[name][0]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

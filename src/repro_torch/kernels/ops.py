@@ -8,6 +8,7 @@ only, never a CUDA call that failed.
 from __future__ import annotations
 
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_extend_attention as _pea
 from repro_torch.kernels import ref
 
 
@@ -25,3 +26,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
         return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
                                        lengths, **kw)
     raise ValueError(f"paged_attention: no kernel for device {q.device}")
+
+
+def paged_extend_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
+                           pos, *, scale, softcap: float = 0.0,
+                           k_scale=None, v_scale=None):
+    """Paged multi-token extend read; see
+    ``ref.paged_extend_attention_ref`` for the semantics."""
+    args = (q, k_pages, v_pages, k_new, v_new, block_tables, pos)
+    kw = dict(scale=scale, softcap=softcap, k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "cuda":
+        return _pea.paged_extend_attention(*args, **kw)
+    if q.device.type == "cpu":
+        return ref.paged_extend_attention_ref(*args, **kw)
+    raise ValueError(f"paged_extend_attention: no kernel for device "
+                     f"{q.device}")

@@ -13,13 +13,11 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, checks
 
 launches = 0
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_SMEM_LIMIT = 232_448          # bytes of shared memory a block may use
-_MAX_HEAD_DIM = 256
+NAME = "paged_attention"
 
 
 def smem_bytes(G: int, hd: int, bs: int) -> int:
@@ -32,63 +30,16 @@ def _check(q, k_pages, v_pages, block_tables, lengths, k_scale, v_scale):
                "block_tables": block_tables, "lengths": lengths}
     if k_scale is not None or v_scale is not None:
         tensors.update(k_scale=k_scale, v_scale=v_scale)
-    for name, t in tensors.items():
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"paged_attention: {name} must be a tensor")
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"paged_attention: {name} is on {t.device}; "
-                             f"the kernel takes tensors on one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"paged_attention: {name} must be contiguous")
-    if q.dim() != 3 or k_pages.dim() != 4:
-        raise ValueError("paged_attention: q must be (B, H, hd) and pages "
-                         "(num_blocks, bs, K, hd)")
+    checks.on_one_cuda_device(NAME, tensors, q.device)
+    if q.dim() != 3:
+        raise ValueError(f"{NAME}: q must be (B, H, hd)")
     B, H, hd = q.shape
-    nB, bs, K, hd_p = k_pages.shape
-    if v_pages.shape != k_pages.shape or hd_p != hd:
-        raise ValueError(f"paged_attention: page shapes {k_pages.shape} / "
-                         f"{v_pages.shape} do not match q {q.shape}")
-    if K == 0 or H % K:
-        raise ValueError(f"paged_attention: {H} query heads do not group "
-                         f"over {K} kv heads")
-    if hd > _MAX_HEAD_DIM:
-        raise ValueError(f"paged_attention: head_dim {hd} > "
-                         f"{_MAX_HEAD_DIM}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"paged_attention: q dtype {q.dtype} (takes "
-                        "float32 or bfloat16)")
-    if k_pages.dtype not in _DTYPE_CODES or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"paged_attention: page dtypes {k_pages.dtype} / "
-                        f"{v_pages.dtype}")
-    quant = k_pages.dtype == torch.int8
-    if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
-        raise ValueError("paged_attention: int8 pages need k_scale and "
-                         "v_scale, other pages take neither")
-    # the kernel stages page rows in 16-byte vector loads
-    if (hd * k_pages.element_size()) % 16:
-        raise ValueError(f"paged_attention: a page row of head_dim {hd} "
-                         f"{k_pages.dtype} is not a whole number of 16-byte "
-                         "vectors")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"paged_attention: {name} is not 16-byte "
-                             "aligned")
-    if quant:
-        for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
-            if s.dtype != torch.float32 or s.shape != (nB, bs, K):
-                raise ValueError(f"paged_attention: {name} must be float32 "
-                                 f"{(nB, bs, K)}, got {s.dtype} "
-                                 f"{tuple(s.shape)}")
-    if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
-            or block_tables.shape[0] != B):
-        raise ValueError(f"paged_attention: block_tables must be int32 "
-                         f"(B={B}, n_blk)")
-    if lengths.dtype != torch.int32 or lengths.shape != (B,):
-        raise ValueError(f"paged_attention: lengths must be int32 ({B},)")
-    smem = smem_bytes(H // K, hd, bs)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_attention: needs {smem} bytes of shared "
-                         f"memory per block (> {_SMEM_LIMIT})")
+    checks.query_dtype(NAME, q)
+    _, bs, K = checks.page_pool(NAME, k_pages, v_pages, k_scale, v_scale,
+                                H, hd)
+    checks.int32_rows(NAME, "block_tables", block_tables, B, 2)
+    checks.int32_rows(NAME, "lengths", lengths, B, 1)
+    checks.shared_memory(NAME, smem_bytes(H // K, hd, bs))
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
@@ -109,19 +60,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     out = torch.empty_like(q)
     if B == 0 or H == 0:
         return out
-    lib = build.load("paged_attention")
+    lib = build.load(NAME)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.repro_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            None if k_scale is None else k_scale.data_ptr(),
-            None if v_scale is None else v_scale.data_ptr(),
+            *checks.scale_pointers(k_scale, v_scale),
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             B, H, K, hd, bs, block_tables.shape[1],
             float(scale), float(softcap),
-            _DTYPE_CODES[q.dtype], _DTYPE_CODES[k_pages.dtype], stream)
+            checks.DTYPE_CODES[q.dtype], checks.DTYPE_CODES[k_pages.dtype],
+            stream)
     if err != 0:
-        raise RuntimeError(f"paged_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     launches += 1
     return out

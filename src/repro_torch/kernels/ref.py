@@ -49,3 +49,50 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, vg)
     return out.reshape(Bq, H, hd).to(q.dtype)
+
+
+def paged_extend_attention_ref(q, k_pages, v_pages, k_new, v_new,
+                               block_tables, pos, *, scale,
+                               softcap: float = 0.0,
+                               k_scale=None, v_scale=None):
+    """Gather-based multi-token extend read (the obvious way).
+
+    q (B,S,H,hd): S new tokens per row at absolute positions
+    ``pos + i``; k_new/v_new (B,S,K,hd): the suffix K/V those tokens
+    attend causally (already round-tripped by the caller on a quantized
+    pool); k_pages/v_pages (num_blocks, bs, K, hd) with optional
+    per-(page, offset, kv-head) ``k_scale``/``v_scale``; block_tables
+    (B, n_blk) int32 (-1 = unallocated); pos (B,) int32 — context
+    positions ``< pos`` on allocated pages are visible, everything at or
+    beyond ``pos`` is masked (the pre-write view).  Returns (B, S, H, hd)
+    in ``q.dtype``.  The suffix's diagonal is always visible, so no row
+    is empty.
+    """
+    B, S, H, hd = q.shape
+    nB, bs, Kh, _ = k_pages.shape
+    G = H // Kh
+    bt = torch.clamp(block_tables.long(), 0, nB - 1)
+    kg = k_pages[bt].reshape(B, -1, Kh, hd).float()
+    vg = v_pages[bt].reshape(B, -1, Kh, hd).float()
+    if k_scale is not None:
+        kg = kg * k_scale[bt].reshape(B, -1, Kh)[..., None].float()
+        vg = vg * v_scale[bt].reshape(B, -1, Kh)[..., None].float()
+    L = kg.shape[1]
+    k_all = torch.cat([kg, k_new.float()], dim=1)
+    v_all = torch.cat([vg, v_new.float()], dim=1)
+    qg = q.reshape(B, S, Kh, G, hd).float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k_all) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    t = torch.arange(L, device=q.device)
+    ctx_ok = (t[None, :] < pos[:, None]) \
+        & torch.repeat_interleave(block_tables >= 0, bs, dim=1)   # (B, L)
+    i = torch.arange(S, device=q.device)
+    causal = i[None, :] <= i[:, None]                             # (S, S)
+    mask = torch.cat(
+        [torch.broadcast_to(ctx_ok[:, None, :], (B, S, L)),
+         torch.broadcast_to(causal, (B, S, S))], dim=-1)
+    s = torch.where(mask[:, None, None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, v_all)
+    return out.reshape(B, S, H, hd).to(q.dtype)

@@ -15,9 +15,12 @@ Conventions
   function writes into the pool tensors it was given (masked
   ``index_put_``; dropped writes touch nothing) and returns that same
   dict.
-* Not in this slice, raising ``NotImplementedError``: int8 pools and
-  weights, dense ring/strip caches, the long-sequence and local-window
-  prefill branches, and the ``flash_attention`` kernel path.
+* Paged pools come in the activation dtype or as int8 with one float32
+  scale per (page, offset, kv head) head_dim vector (``quantize_kv``).
+* Not ported yet, raising ``NotImplementedError``: int8 weights, dense
+  ring/strip caches, the long-sequence and local-window prefill
+  branches, the prefix-hit prefill and the ``flash_attention`` kernel
+  path.
 """
 from __future__ import annotations
 
@@ -63,6 +66,34 @@ def _zeros(shape, stack=(), dtype=torch.float32, device=None):
 
 def _ones(shape, stack=(), dtype=torch.float32, device=None):
     return torch.ones(tuple(stack) + tuple(shape), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# int8 quantization of KV pages
+# ---------------------------------------------------------------------------
+
+KV_QMAX = 127.0
+
+
+def quantize_kv(x, eps: float = 1e-8):
+    """Symmetric int8 quantization of a K/V tensor along ``head_dim``.
+
+    x: (..., hd).  Returns (q int8 (..., hd), scale float32 (...)): one
+    scale per head_dim vector, ``scale = max|x| / 127 + eps``,
+    ``q = clamp(round(x / scale), -127, 127)``.  ``torch.round`` rounds
+    half to even like ``jnp.round``, so the same float32 input gives the
+    JAX function's bytes and scales exactly.  A row's scale depends on
+    that row alone: committed page rows are never re-quantized.
+    """
+    xf = x.float()
+    scale = torch.amax(torch.abs(xf), dim=-1) / KV_QMAX + eps
+    q = torch.clamp(torch.round(xf / scale[..., None]), -KV_QMAX, KV_QMAX)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q, scale, dtype=torch.float32):
+    """Inverse of ``quantize_kv``: q (..., hd) int8, scale (...)."""
+    return (q.float() * scale[..., None].float()).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +357,23 @@ def init_kv_pages(cfg: ModelConfig, num_blocks: int, block_size: int,
                   stack=(), dtype=None, quant: bool = False, device=None):
     """Paged KV pool for GLOBAL attention layers: physical pages of
     ``block_size`` tokens shared by every slot, no batch axis (ownership
-    lives in the engine's block tables).  ``quant=True`` (the int8
-    layout) is not ported yet."""
-    if quant:
-        raise _not_ported("int8 KV pages", "A.7 (int8 serving)")
+    lives in the engine's block tables).  ``quant=True`` stores K/V as
+    int8 with one float32 scale per (page, offset, kv head) in
+    ``k_scale``/``v_scale`` leaves of shape (nB, bs, K): the pool
+    layout, so every page-granular operation covers them unchanged."""
     dtype = dtype or cfg.activation_dtype
     K, hd = cfg.num_kv_heads, cfg.head_dim
+    if quant:
+        return {
+            "k": _zeros((num_blocks, block_size, K, hd), stack, torch.int8,
+                        device),
+            "v": _zeros((num_blocks, block_size, K, hd), stack, torch.int8,
+                        device),
+            "k_scale": _zeros((num_blocks, block_size, K), stack,
+                              torch.float32, device),
+            "v_scale": _zeros((num_blocks, block_size, K), stack,
+                              torch.float32, device),
+        }
     return {
         "k": _zeros((num_blocks, block_size, K, hd), stack, dtype, device),
         "v": _zeros((num_blocks, block_size, K, hd), stack, dtype, device),
@@ -375,10 +417,10 @@ def scatter_kv_pages(pages, k, v, write_tables):
     write_tables: (B, n_wblk) int32 physical page per covered logical
     block (-1 = unallocated -> write dropped).  T is right-padded up to
     ``n_wblk * bs`` — pad K/V lands beyond each row's true length and is
-    positionally masked at read time.  Returns ``pages``.
+    positionally masked at read time.  An int8 pool stores
+    ``quantize_kv`` of the strip: bytes and scales go to the same pages
+    under the same keep mask.  Returns ``pages``.
     """
-    if kv_pages_quantized(pages):
-        raise _not_ported("int8 KV pages", "A.7 (int8 serving)")
     nB, bs = pages["k"].shape[0], pages["k"].shape[1]
     B, T = k.shape[0], k.shape[1]
     n_wblk = write_tables.shape[1]
@@ -391,7 +433,14 @@ def scatter_kv_pages(pages, k, v, write_tables):
     tgt = write_tables.reshape(-1).long()
     keep = tgt >= 0
     tgt = torch.clamp(tgt, 0, nB - 1)
-    _masked_put(((pages["k"], kb), (pages["v"], vb)), (tgt,), keep)
+    if kv_pages_quantized(pages):
+        kq, ks = quantize_kv(kb)
+        vq, vs = quantize_kv(vb)
+        pairs = ((pages["k"], kq), (pages["v"], vq),
+                 (pages["k_scale"], ks), (pages["v_scale"], vs))
+    else:
+        pairs = ((pages["k"], kb), (pages["v"], vb))
+    _masked_put(pairs, (tgt,), keep)
     return pages
 
 
@@ -399,15 +448,18 @@ def gather_kv_pages(pages, ctx_tables):
     """Materialise the logical K/V view of a chain of pages.
 
     ctx_tables: (B, n_cblk) int32 physical pages (-1 rows gather page 0,
-    which the caller masks).  Returns (k, v) each (B, n_cblk * bs, K, hd).
+    which the caller masks).  Returns (k, v) each (B, n_cblk * bs, K, hd),
+    dequantized to float32 from an int8 pool.
     """
-    if kv_pages_quantized(pages):
-        raise _not_ported("int8 KV pages", "A.7 (int8 serving)")
     nB = pages["k"].shape[0]
     B = ctx_tables.shape[0]
     bt = torch.clamp(ctx_tables.long(), 0, nB - 1)
     kg = pages["k"][bt].reshape(B, -1, *pages["k"].shape[2:])
     vg = pages["v"][bt].reshape(B, -1, *pages["v"].shape[2:])
+    if kv_pages_quantized(pages):
+        ks = pages["k_scale"][bt].reshape(B, -1, *pages["k_scale"].shape[2:])
+        vs = pages["v_scale"][bt].reshape(B, -1, *pages["v_scale"].shape[2:])
+        return dequantize_kv(kg, ks), dequantize_kv(vg, vs)
     return kg, vg
 
 
@@ -444,10 +496,11 @@ def attention_decode_paged(cfg: ModelConfig, params, x, cache, pos,
     pages through the hand-written ``paged_attention`` kernel on a CUDA
     tensor (its plain version on a CPU tensor, ``kernels.ops``);
     otherwise the logical view is gathered and read with a masked
-    softmax.  Returns (out (B, 1, d), cache).
+    softmax.  On an int8 pool the new token is quantized and its bytes
+    and scales written in place first; the kernel fuses the dequant
+    into its read, the gather path dequantizes the gathered view.
+    Returns (out (B, 1, d), cache).
     """
-    if kv_pages_quantized(cache):
-        raise _not_ported("int8 KV pages", "A.7 (int8 serving)")
     B, S, d = x.shape
     assert S == 1
     pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
@@ -464,13 +517,22 @@ def attention_decode_paged(cfg: ModelConfig, params, x, cache, pos,
     phys = block_tables[torch.arange(B, device=x.device), blk].long()
     keep = phys >= 0
     wphys = torch.clamp(phys, 0, nB - 1)
-    _masked_put(((kc, knew[:, 0]), (vc, vnew[:, 0])), (wphys, off), keep)
+    quant = kv_pages_quantized(cache)
+    if quant:
+        kcs, vcs = cache["k_scale"], cache["v_scale"]
+        kq1, ks1 = quantize_kv(knew[:, 0])
+        vq1, vs1 = quantize_kv(vnew[:, 0])
+        pairs = ((kc, kq1), (vc, vq1), (kcs, ks1), (vcs, vs1))
+    else:
+        pairs = ((kc, knew[:, 0]), (vc, vnew[:, 0]))
+    _masked_put(pairs, (wphys, off), keep)
 
     if use_pallas:
         from repro_torch.kernels import ops as kernel_ops
         out = kernel_ops.paged_attention(
             q[:, 0].contiguous(), kc, vc, block_tables, pos + 1,
-            scale=scale, softcap=cfg.attn_logit_softcap)
+            scale=scale, softcap=cfg.attn_logit_softcap,
+            k_scale=cache.get("k_scale"), v_scale=cache.get("v_scale"))
         o = weight_einsum("bshq,hqd->bsd", out[:, None].to(x.dtype),
                           params["wo"])
         return o, cache
@@ -479,6 +541,9 @@ def attention_decode_paged(cfg: ModelConfig, params, x, cache, pos,
     bt = torch.clamp(block_tables.long(), 0, nB - 1)
     kg = kc[bt].reshape(B, -1, K, hd)
     vg = vc[bt].reshape(B, -1, K, hd)
+    if quant:
+        kg = dequantize_kv(kg, kcs[bt].reshape(B, -1, K))
+        vg = dequantize_kv(vg, vcs[bt].reshape(B, -1, K))
     t = torch.arange(block_tables.shape[1] * bs, dtype=torch.int32,
                      device=x.device)
     allocated = torch.repeat_interleave(block_tables >= 0, bs, dim=1)
@@ -521,21 +586,43 @@ def scatter_kv_tokens(pages, k, v, block_tables, pos, valid_len=None):
     pos: (B,) int32 first write position; valid_len: optional (B,) int32
     — rows ``i >= valid_len`` are host-side padding whose writes are
     dropped.  Writes past the table's logical span (``n_blk * bs``) are
-    dropped.  Returns ``pages``.
+    dropped.  An int8 pool stores ``quantize_kv`` of k and v.  Returns
+    ``pages``.
     """
     if kv_pages_quantized(pages):
-        raise _not_ported("int8 KV pages", "A.7 (int8 serving)")
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        return _scatter_tokens_quant(pages, kq, ks, vq, vs, block_tables,
+                                     pos, valid_len)
+    return _scatter_tokens(pages, ((pages["k"], k), (pages["v"], v)),
+                           block_tables, pos, valid_len)
+
+
+def _scatter_tokens(pages, pairs, block_tables, pos, valid_len):
+    """Masked in-place write of per-token leaves: each ``(dst, values)``
+    with values (B, S, ...) lands at the targets of ``pos + i``."""
     nB = pages["k"].shape[0]
-    B, S = k.shape[0], k.shape[1]
+    B, S = pairs[0][1].shape[0], pairs[0][1].shape[1]
     tgt, off = _token_write_targets(pages, B, S, block_tables, pos,
                                     valid_len)
     tgt, off = tgt.reshape(-1).long(), off.reshape(-1).long()
     keep = tgt < nB
     tgt = torch.clamp(tgt, 0, nB - 1)
-    _masked_put(((pages["k"], k.reshape(B * S, *k.shape[2:])),
-                 (pages["v"], v.reshape(B * S, *v.shape[2:]))),
-                (tgt, off), keep)
+    _masked_put(tuple((dst, vals.reshape(B * S, *vals.shape[2:]))
+                      for dst, vals in pairs), (tgt, off), keep)
     return pages
+
+
+def _scatter_tokens_quant(pages, kq, ks, vq, vs, block_tables, pos,
+                          valid_len=None):
+    """Token scatter of PRE-quantized K/V and their scales, in place.
+    Callers that already round-tripped the suffix for attention pass the
+    same ints here: re-quantizing the dequantized values would drift
+    (the eps of the scale would apply twice)."""
+    return _scatter_tokens(pages, ((pages["k"], kq), (pages["v"], vq),
+                                   (pages["k_scale"], ks),
+                                   (pages["v_scale"], vs)),
+                           block_tables, pos, valid_len)
 
 
 def attention_extend_paged(cfg: ModelConfig, params, x, pos, pages,
@@ -545,16 +632,22 @@ def attention_extend_paged(cfg: ModelConfig, params, x, pos, pages,
     teacher-forced tokens in ONE call (chunked catch-up prefill).
 
     x: (B, S, d) at absolute positions ``pos + i``; block_tables: (B,
-    n_blk) the slot's FULL table.  The context is the PRE-WRITE gathered
-    view masked strictly below ``pos``, and the S new tokens attend each
-    other causally as a suffix.  K/V for rows ``i < valid_len`` is then
-    written into the pages IN PLACE at ``pos + i`` (the gather copies
-    the context first, so the read stays pre-write).  On a float pool
-    the JAX function ignores ``use_pallas`` and so does this one (its
-    fused kernel serves int8 pools only).  Returns (out (B, S, d), pages).
+    n_blk) the slot's FULL table.  The context is the PRE-WRITE view of
+    the pages masked strictly below ``pos``, and the S new tokens attend
+    each other causally as a suffix.  K/V for rows ``i < valid_len`` is
+    then written into the pages IN PLACE at ``pos + i``.  The pre-write
+    view holds by order: the gather copies the context, or the kernel
+    is launched on the stream, before the scatter.
+
+    On an int8 pool the suffix attends its own int8 round trip, the
+    values every later read of those pages sees, and the same ints are
+    then written (``_scatter_tokens_quant``).  There ``use_pallas=True``
+    reads the pages through the hand-written ``paged_extend_attention``
+    kernel on a CUDA tensor (its plain version on a CPU tensor,
+    ``kernels.ops``), which fuses the dequant.  On a float pool the JAX
+    function ignores ``use_pallas`` and so does this one.  Returns
+    (out (B, S, d), pages).
     """
-    if kv_pages_quantized(pages):
-        raise _not_ported("int8 KV pages", "A.7 (int8 serving)")
     B, S, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
@@ -566,12 +659,34 @@ def attention_extend_paged(cfg: ModelConfig, params, x, pos, pages,
 
     q, k, v = _project_seq(cfg, params, x, positions, is_global=True)
 
-    nB, bs = pages["k"].shape[0], pages["k"].shape[1]
-    bt = torch.clamp(block_tables.long(), 0, nB - 1)
-    ck = pages["k"][bt].reshape(B, -1, K, hd)        # gather = a copy
-    cv = pages["v"][bt].reshape(B, -1, K, hd)
-    scatter_kv_tokens(pages, k, v, block_tables, pos, valid_len)
+    quant = kv_pages_quantized(pages)
+    if quant:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k = dequantize_kv(kq, ks, k.dtype)
+        v = dequantize_kv(vq, vs, v.dtype)
 
+    if quant and use_pallas:
+        from repro_torch.kernels import ops as kernel_ops
+        # launched before the scatter below: it reads the pre-write pages
+        out = kernel_ops.paged_extend_attention(
+            q.contiguous(), pages["k"], pages["v"], k.contiguous(),
+            v.contiguous(), block_tables, pos, scale=scale,
+            softcap=cfg.attn_logit_softcap, k_scale=pages["k_scale"],
+            v_scale=pages["v_scale"])
+        _scatter_tokens_quant(pages, kq, ks, vq, vs, block_tables, pos,
+                              valid_len)
+        o = weight_einsum("bshq,hqd->bsd", out.to(x.dtype), params["wo"])
+        return o, pages
+
+    ck, cv = gather_kv_pages(pages, block_tables)     # gather = a copy
+    if quant:
+        _scatter_tokens_quant(pages, kq, ks, vq, vs, block_tables, pos,
+                              valid_len)
+    else:
+        scatter_kv_tokens(pages, k, v, block_tables, pos, valid_len)
+
+    bs = pages["k"].shape[1]
     L = block_tables.shape[1] * bs
     t = torch.arange(L, dtype=torch.int32, device=x.device)
     allocated = torch.repeat_interleave(block_tables >= 0, bs, dim=1)

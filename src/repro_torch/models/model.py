@@ -53,7 +53,11 @@ def init_paged_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                      device: DeviceLike = None):
     """Decode cache with attention KV in a shared page pool of
     ``num_blocks`` x ``block_size`` tokens (no batch axis on pool
-    leaves), on ``device`` (default ``cuda``)."""
+    leaves), on ``device`` (default ``cuda``).  ``kv_dtype="int8"``
+    stores the pool quantized with per-(page, offset, kv-head) float32
+    scales in ``k_scale``/``v_scale`` leaves
+    (``layers.init_kv_pages(quant=True)``); every paged read path
+    dequantizes.  ``None`` keeps the pool in the activation dtype."""
     return family_module(cfg).init_paged_cache(
         cfg, batch_size, max_len, num_blocks, block_size,
         kv_dtype=kv_dtype, device=device)
@@ -76,7 +80,10 @@ def extend_paged(cfg: ModelConfig, params, cache, tokens, pos,
     """Score S tokens against the paged cache in one call (chunked
     catch-up prefill), cache updated in place.  Context read masked
     strictly below ``pos``; K/V for rows ``i < valid_len`` written at
-    ``pos + i``."""
+    ``pos + i``.  On an int8 pool ``use_pallas=True`` reads the pages
+    through the hand-written ``paged_extend_attention`` kernel (CUDA
+    tensors) or its plain version (CPU tensors) instead of the gather;
+    a float pool ignores it, as in JAX."""
     return family_module(cfg).extend_paged(cfg, params, cache, tokens,
                                            pos, block_tables, valid_len,
                                            use_pallas=use_pallas)

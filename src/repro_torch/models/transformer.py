@@ -85,8 +85,12 @@ def _uniform_layers(cfg: ModelConfig, trunk: Params):
     return [_layer(trunk["layers"], i) for i in range(cfg.num_layers)]
 
 
-def _pool_layers(cfg: ModelConfig, cache: Params):
-    return [_layer(cache["layers"], i) for i in range(cfg.num_layers)]
+def paged_layers(cfg: ModelConfig, params: Params, cache: Params):
+    """(layer params, layer pool) view pairs, first layer first: what the
+    paged trunk walks, one ``block_*_paged`` call per pair."""
+    return list(zip(_uniform_layers(cfg, params["trunk"]),
+                    [_layer(cache["layers"], i)
+                     for i in range(cfg.num_layers)]))
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +178,10 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      device: DeviceLike = None) -> Params:
     """Shared page pool for every (global) layer: ``{"layers": {"k", "v"}}``
     of shape (L, num_blocks, block_size, K, hd) in the activation dtype,
-    on ``device`` (default ``cuda``).  ``batch``/``max_len`` size dense
-    ring layers, which this slice does not have; ``kv_dtype="int8"`` is
-    the quantized pool of a later slice."""
+    on ``device`` (default ``cuda``).  ``kv_dtype="int8"`` makes the pool
+    int8 with float32 ``k_scale``/``v_scale`` leaves (L, num_blocks,
+    block_size, K) beside it.  ``batch``/``max_len`` size dense ring
+    layers, which this slice does not have."""
     del batch, max_len
     _uniform_only(cfg)
     return {"layers": L.init_kv_pages(
@@ -190,8 +195,7 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     place).  tokens: (B, 1) int32; pos: (B,) int32 write positions;
     block_tables: (B, n_blk) int32.  Returns (logits (B, 1, V), cache)."""
     x = L.embed(cfg, params["embed"], tokens)
-    for lp, c in zip(_uniform_layers(cfg, params["trunk"]),
-                     _pool_layers(cfg, cache)):
+    for lp, c in paged_layers(cfg, params, cache):
         x, _ = block_decode_paged(cfg, lp, x, c, pos, block_tables,
                                   use_pallas)
     return _logits(cfg, params, x), cache
@@ -209,8 +213,7 @@ def extend_paged(cfg: ModelConfig, params: Params, cache: Params, tokens,
     pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
                                              device=x.device),
                              (x.shape[0],))
-    for lp, c in zip(_uniform_layers(cfg, params["trunk"]),
-                     _pool_layers(cfg, cache)):
+    for lp, c in paged_layers(cfg, params, cache):
         x, _ = block_extend_paged(cfg, lp, x, pos, c, block_tables,
                                   valid_len, use_pallas=use_pallas)
     return _logits(cfg, params, x), cache
@@ -258,8 +261,7 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens, max_len,
     n = broadcast_true_len(true_len, B, x.device)
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-    for lp, pg in zip(_uniform_layers(cfg, params["trunk"]),
-                      _pool_layers(cfg, cache)):
+    for lp, pg in paged_layers(cfg, params, cache):
         x, _ = block_prefill_paged(cfg, lp, x, positions, pg, write_tables,
                                    use_flash=use_flash)
     x = x[:, -1:] if n is None else gather_last(x, n)

@@ -22,8 +22,12 @@ JAX engine's, and on the same weights the greedy tokens are the same:
 * WAVE — one call for every active slot: ``model.extend_paged`` while
   any slot catches up, else ``model.decode_step_paged``, which with
   ``use_pallas_paged`` reads the pages through the hand-written
-  ``paged_attention`` kernel.  The eager calls update the page pool in
-  place (the JAX engine donates its cache to a jitted call instead).
+  ``paged_attention`` kernel.  With ``quant_kv="int8"`` the pool holds
+  int8 pages with per-row float32 scales, and ``use_pallas_paged`` also
+  sends the extend waves' page read through the hand-written
+  ``paged_extend_attention`` kernel.  The eager calls update the page
+  pool in place (the JAX engine donates its cache to a jitted call
+  instead).
 * RETIRE — committed tokens land in ``Request.generated``; EOS, budget,
   the ``max_len`` wall or cancellation free the slot and its pages.
 
@@ -47,8 +51,8 @@ match it in distribution only (the generators differ).
 
 Not ported yet — each raises ``NotImplementedError`` when its
 ``ServeConfig`` field is set: the radix prefix cache and its
-persistence, speculative decoding, int8 KV and int8 draft weights,
-tracing, and the dense ``paged=False`` twin.  ``prefix_cache`` defaults
+persistence, speculative decoding, int8 draft weights, tracing, and
+the dense ``paged=False`` twin.  ``prefix_cache`` defaults
 to True as in the JAX config, so callers pass ``prefix_cache=False``.
 """
 from __future__ import annotations
@@ -65,7 +69,7 @@ from repro_torch.core.scheduler import admission_rank, plan_wave
 from repro_torch.devices import DeviceLike, resolve_device, tensor_device
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVBlockPool, PoolExhausted, \
-    blocks_for_tokens
+    blocks_for_tokens, page_bytes
 from repro_torch.serving.telemetry import MetricsRegistry
 
 
@@ -121,8 +125,7 @@ _NOT_PORTED = {
     "min_match_tokens": (1, "A.5 (prefix cache)"),
     "spec_decode": (False, "A.6 (speculative decoding)"),
     "draft_arch": (None, "A.6 (speculative decoding)"),
-    "quant_kv": (None, "A.7 (int8 serving)"),
-    "quant_draft": (False, "A.7 (int8 draft weights)"),
+    "quant_draft": (False, "A.6 + A.7 (int8 draft weights)"),
     "trace": (False, "A.8 (tracer)"),
     "trace_clock": (None, "A.8 (tracer)"),
 }
@@ -149,7 +152,7 @@ class ServeConfig:
     prefix_persist_path: Optional[str] = None
     # read paged decode KV through the hand-written paged_attention
     # kernel (CUDA tensors; its plain version on CPU tensors) instead of
-    # the gather
+    # the gather, and int8 extend waves through paged_extend_attention
     use_pallas_paged: bool = False
     spec_decode: bool = False
     draft_arch: Optional[str] = None
@@ -194,6 +197,11 @@ class EdgeServingEngine:
         bs = scfg.kv_block_size
         if bs < 1:
             raise ValueError(f"kv_block_size must be >= 1, got {bs}")
+        if scfg.quant_kv not in (None, "int8"):
+            raise ValueError(
+                f"quant_kv must be None or 'int8', got {scfg.quant_kv!r}")
+        # int8 pages with per-row float32 scales: the pool's capacity lever
+        self.quant = scfg.quant_kv == "int8"
         # the logical page view must tile max_len exactly; shrink the
         # block size until it divides rather than reject the config
         while T % bs:
@@ -206,7 +214,8 @@ class EdgeServingEngine:
             n_pool = B * self.n_blk
         self.block_size = bs
         self.pool = KVBlockPool(n_pool, bs)
-        self.cache = M.init_paged_cache(cfg, B, T, n_pool, bs, device=dev)
+        self.cache = M.init_paged_cache(cfg, B, T, n_pool, bs,
+                                        kv_dtype=scfg.quant_kv, device=dev)
         self.block_tables = np.full((B, self.n_blk), -1, np.int32)
         self.slot_blocks: list[list[int]] = [[] for _ in range(B)]
         # static extend-wave width: the catch-up chunk
@@ -760,6 +769,16 @@ class EdgeServingEngine:
         legacy.update(pool_blocks="kv_pool.blocks",
                       pool_free="kv_pool.free",
                       pool_shared="kv_pool.shared")
+        if self.quant:
+            view("quant_kv", "quant.kv", lambda: self.scfg.quant_kv)
+            # int8 draft weights are not ported: never armed
+            view("quant_draft", "quant.draft", lambda: False)
+            # capacity facts: bytes of one page under this layout vs f32
+            view("quant_page_bytes", "quant.page_bytes",
+                 lambda: page_bytes(self.cfg, self.block_size,
+                                    self.scfg.quant_kv))
+            view("quant_f32_page_bytes", "quant.f32_page_bytes",
+                 lambda: page_bytes(self.cfg, self.block_size, None))
         # wave kinds (registry only): decode waves launch the paged
         # decode read once per layer
         view(None, "engine.decode_waves", lambda: self.decode_waves)

@@ -7,8 +7,14 @@ phi3 smoke config at float32, with the JAX weights bridged into the
 port.  Greedy tokens must be equal token for token (at float32 no
 argmax lands on a near-tie), and so must every ``stats()`` counter:
 the two engines make the same schedule.  Pool accounting must hold and
-no page may leak.
+no page may leak.  The same holds on an int8 pool (``quant_kv="int8"``)
+against the JAX int8 engine, gather and kernel reads alike, and the
+capacity leg of ``benchmarks/serving_throughput.py`` replays on the
+port to the counters of ``benchmarks/serving_baseline.json``.
 """
+import json
+import pathlib
+
 import jax
 import numpy as np
 import pytest
@@ -21,6 +27,7 @@ from repro.serving import Request as JaxRequest
 from repro.serving import ServeConfig as JaxServeConfig
 from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config
+from repro_torch.models import model as M
 from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
 from repro_torch.serving.engine import _NOT_PORTED
 
@@ -212,7 +219,7 @@ def test_params_on_another_device_raise(models):
 
 _ON = {"paged": False, "prefix_cache": True, "prefix_persist_path": "x.npz",
        "min_match_tokens": 4, "spec_decode": True, "draft_arch": "self",
-       "quant_kv": "int8", "quant_draft": True, "trace": True,
+       "quant_draft": True, "trace": True,
        "trace_clock": lambda: 0.0}
 
 
@@ -228,3 +235,132 @@ def test_serve_config_keeps_every_jax_field_and_default():
     ours = {f.name: f.default for f in dataclasses.fields(ServeConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JaxServeConfig)}
     assert ours == theirs
+
+
+# ---------------------------------------------------------------------------
+# int8 KV pools
+# ---------------------------------------------------------------------------
+
+# every policy, both reads (gather, and the kernels' plain versions) and
+# the chunked axis on the card's read, in five replays
+QUANT_CASES = {
+    "fifo": dict(policy="fifo"),
+    "priority": dict(policy="priority"),
+    "fifo-kernel": dict(policy="fifo", use_pallas_paged=True),
+    "edf-kernel": dict(policy="edf", use_pallas_paged=True),
+    "chunked-kernel": dict(policy="fifo", use_pallas_paged=True,
+                           **CHUNK_WAVE),
+}
+
+
+@pytest.fixture(scope="module", params=list(QUANT_CASES))
+def quant_replay(request, models):
+    """(case, JAX int8 engine, JAX tokens, port int8 engine, port tokens);
+    with ``use_pallas_paged`` the JAX side reads through its Pallas
+    kernels (interpret mode), the port through the kernels' plain
+    versions (CPU tensors)."""
+    jcfg, jparams, cfg, params = models
+    kw = dict(BASE, quant_kv="int8", **QUANT_CASES[request.param])
+    jeng = JaxEngine(jcfg, jparams, JaxServeConfig(**kw))
+    assert jeng.quant
+    jtok = _drain(jeng, _traffic(JaxRequest, jcfg.vocab_size))
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
+    tok = _drain(eng, _traffic(Request, cfg.vocab_size))
+    return request.param, jeng, jtok, eng, tok
+
+
+def test_int8_greedy_tokens_match_jax_engine(quant_replay):
+    case, _, jtok, _, tok = quant_replay
+    assert len(tok) == 7
+    assert tok == jtok, f"token drift vs the JAX int8 engine ({case})"
+
+
+def test_int8_stats_match_jax_engine(quant_replay):
+    case, jeng, _, eng, _ = quant_replay
+    stats = eng.stats()
+    assert stats == jeng.stats(), case
+    assert stats["quant_kv"] == "int8" and stats["quant_draft"] is False
+    assert stats["quant_page_bytes"] < stats["quant_f32_page_bytes"]
+
+
+def test_int8_pool_consistent_and_no_leak(quant_replay):
+    _, _, _, eng, _ = quant_replay
+    layers = eng.cache["layers"]
+    assert layers["k"].dtype == torch.int8
+    assert layers["k_scale"].shape == layers["k"].shape[:-1]
+    eng.pool.assert_consistent()
+    assert eng.pool.num_free == eng.pool.num_blocks
+    assert (eng.block_tables == -1).all()
+    assert eng.decode_waves + eng.extend_waves == eng.steps
+
+
+def test_int8_preempt_resume_is_exact(models):
+    """Scale leaves live in the same pages as the bytes: a slot preempted
+    and resumed on an int8 pool emits an undisturbed run's tokens."""
+    _, _, cfg, params = models
+    kw = dict(BASE, policy="fifo", quant_kv="int8")
+    ref = _drain(EdgeServingEngine(cfg, params, ServeConfig(**kw),
+                                   device="cpu"),
+                 _traffic(Request, cfg.vocab_size))
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
+    for r in _traffic(Request, cfg.vocab_size):
+        eng.submit(r)
+    for _ in range(3):
+        eng.drain_step()
+    for slot in np.flatnonzero(eng.active):
+        eng.queue.append(eng.preempt(int(slot)))
+    eng.run_until_drained()
+    assert {r.uid: tuple(r.generated) for r in eng.completed} == ref
+
+
+def _baseline():
+    path = (pathlib.Path(__file__).resolve().parents[1] / "benchmarks"
+            / "serving_baseline.json")
+    return json.loads(path.read_text())
+
+
+def test_int8_capacity_matches_serving_baseline():
+    """``serving_throughput._capacity_demo`` on the port: at a pool
+    budget of exactly 12 float32 pages the int8 layout holds 45 pages,
+    and 16 requests run 16 at once instead of 6."""
+    from repro_torch.serving.kv_pool import page_bytes, \
+        pool_blocks_for_budget
+    base = _baseline()
+    cfg = get_smoke_config(ARCH)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    bs, n = 16, base["capacity_requests"]
+    budget = 12 * page_bytes(cfg, bs, None)
+    assert budget == base["capacity_budget_bytes"]
+
+    def traffic():
+        rng = np.random.default_rng(5)
+        return [Request(uid=uid,
+                        prompt=rng.integers(0, cfg.vocab_size,
+                                            int(rng.integers(18, 30)),
+                                            dtype=np.int32),
+                        max_new_tokens=8)
+                for uid in range(n)]
+
+    got = {}
+    for name, kv_dtype in (("f32", None), ("int8", "int8")):
+        blocks = pool_blocks_for_budget(cfg, bs, budget, kv_dtype)
+        eng = EdgeServingEngine(cfg, params, ServeConfig(
+            max_slots=n, max_len=64, prefill_buckets=(16, 32),
+            kv_block_size=bs, kv_pool_blocks=blocks, seed=9,
+            prefix_cache=False, quant_kv=kv_dtype), device="cpu")
+        _drain(eng, traffic())
+        eng.pool.assert_consistent()
+        assert eng.pool.num_free == eng.pool.num_blocks
+        assert len(eng.completed) == n
+        got[f"capacity_{name}_blocks"] = blocks
+        got[f"capacity_{name}_concurrent"] = eng.peak_active
+    assert got == {k: base[k] for k in got}
+
+
+def test_quant_kv_config_errors(models):
+    _, _, cfg, params = models
+    with pytest.raises(ValueError, match="quant_kv"):
+        EdgeServingEngine(cfg, params, ServeConfig(**BASE, quant_kv="int4"),
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServeConfig(**BASE, quant_kv="int8", quant_draft=True)

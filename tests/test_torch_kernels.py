@@ -1,13 +1,16 @@
-"""The port's paged_attention plain version against the JAX oracle and
-the JAX Pallas kernel (run in interpret mode on the CPU, as
-``tests/test_kernels.py`` runs it), plus the device dispatch.
+"""The port's paged_attention and paged_extend_attention plain versions
+against the JAX oracles and the JAX Pallas kernels (run in interpret
+mode on the CPU, as ``tests/test_kernels.py`` runs them), plus the
+device dispatch.
 
 The hand-written CUDA kernel itself runs only on the card: its tests
 are in ``tests/test_torch_kernels_cuda.py``.  Inputs are made from a
 numpy seed and handed to both frameworks.  Tolerances: the port's plain
 version and the JAX oracle are the same float32 math (rtol=atol=1e-5);
-against the Pallas kernel's online softmax the sweep of
-``tests/test_kernels.py`` uses 2e-3, and so does this file.
+against the Pallas kernel's online softmax the decode sweep of
+``tests/test_kernels.py`` uses 2e-3, and so do the decode tests here;
+the extend read is held to the Pallas kernel at rtol=atol=1e-5 (its
+online softmax differs from the full softmax by float rounding only).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,8 +20,9 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import layers as JL
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, checks, ops, ref
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import paged_extend_attention as pea
 
 SHAPES = [(3, 4, 2, 32, 12, 8, 4),       # B, H, K, hd, nB, bs, n_blk
           (2, 8, 8, 64, 10, 16, 2),
@@ -149,13 +153,146 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_build_path_is_keyed_by_source_hash():
-    path = build.library_path("paged_attention")
-    assert path.parent == build.BUILD_DIR
-    assert path.name.startswith("paged_attention-") and path.suffix == ".so"
-    assert path == build.library_path("paged_attention")
-    assert (build.CSRC / "paged_attention.cu").exists()
+    assert set(build.KERNELS) == {"paged_attention",
+                                  "paged_extend_attention"}
+    for name in build.KERNELS:
+        path = build.library_path(name)
+        assert path.parent == build.BUILD_DIR
+        assert path.name.startswith(f"{name}-") and path.suffix == ".so"
+        assert path == build.library_path(name)
+        assert (build.CSRC / build.KERNELS[name][0]).exists()
 
 
 @pytest.mark.parametrize("G,hd,bs", [(4, 128, 16), (8, 256, 16), (1, 64, 8)])
 def test_shared_memory_fits_a_block(G, hd, bs):
-    assert pa.smem_bytes(G, hd, bs) <= pa._SMEM_LIMIT
+    assert pa.smem_bytes(G, hd, bs) <= checks.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# paged_extend_attention
+# ---------------------------------------------------------------------------
+
+EXT_SHAPES = [(3, 4, 8, 2, 32, 14, 8, 4),      # B, S, H, K, hd, nB, bs, n_blk
+              (2, 1, 4, 1, 16, 8, 8, 3)]
+
+
+def _extend_case(seed, B, S, H, kv, hd, nB, bs, n_blk, quant=False,
+                 q_std=0.5):
+    """Random queries, suffix and pool; row 0 has a -1 hole below its
+    pos, the last row sits at pos 0 (no context), stale bytes fill every
+    page past each row's pos."""
+    rng = np.random.default_rng(seed)
+    q = (rng.standard_normal((B, S, H, hd)) * q_std).astype(np.float32)
+    kp = (rng.standard_normal((nB, bs, kv, hd)) * 0.5).astype(np.float32)
+    vp = (rng.standard_normal((nB, bs, kv, hd)) * 0.5).astype(np.float32)
+    kn = (rng.standard_normal((B, S, kv, hd)) * 0.5).astype(np.float32)
+    vn = (rng.standard_normal((B, S, kv, hd)) * 0.5).astype(np.float32)
+    bt = np.full((B, n_blk), -1, np.int32)
+    perm = rng.permutation(nB)
+    pos = np.zeros((B,), np.int32)
+    used = 0
+    for b in range(B - 1):
+        pos[b] = int(rng.integers(bs + 1, n_blk * bs - S + 1))
+        k = -(-(pos[b] + S) // bs)
+        bt[b, :k] = perm[used:used + k]
+        used += k
+    bt[0, 0] = -1                              # hole below pos
+    bt[B - 1, 0] = perm[used]                  # pos 0: its write page only
+    scales = ()
+    if quant:
+        kp, ks = _quantize(kp)
+        vp, vs = _quantize(vp)
+        scales = (ks, vs)
+    return (q, kp, vp, kn, vn, bt, pos), scales
+
+
+def _extend_three(args, scales, **kw):
+    """(port plain, JAX oracle, JAX Pallas) outputs as numpy."""
+    t = [torch.from_numpy(a) for a in args]
+    j = [jnp.asarray(a) for a in args]
+    tk, jk = dict(kw), dict(kw)
+    if scales:
+        tk.update(k_scale=torch.from_numpy(scales[0]),
+                  v_scale=torch.from_numpy(scales[1]))
+        jk.update(k_scale=jnp.asarray(scales[0]),
+                  v_scale=jnp.asarray(scales[1]))
+    mine = ref.paged_extend_attention_ref(*t, **tk).numpy()
+    oracle = np.asarray(jax_ref.paged_extend_attention_ref(*j, **jk))
+    pallas = np.asarray(jax_ops.paged_extend_attention(*j, **jk))
+    return mine, oracle, pallas
+
+
+@pytest.mark.parametrize("shape", EXT_SHAPES)
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_paged_extend_attention_ref_matches_jax(shape, quant, softcap):
+    args, scales = _extend_case(sum(shape) + quant, *shape, quant=quant)
+    mine, oracle, pallas = _extend_three(args, scales,
+                                         scale=shape[4] ** -0.5,
+                                         softcap=softcap)
+    np.testing.assert_allclose(mine, oracle, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mine, pallas, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_paged_extend_attention_ref_binding_softcap(quant):
+    """Queries at 3 x randn and scale 1: scores reach tens, so softcap 20
+    moves the output by more than 0.1 and both sides still agree."""
+    shape = EXT_SHAPES[0]
+    args, scales = _extend_case(7, *shape, quant=quant, q_std=3.0)
+    capped = _extend_three(args, scales, scale=1.0, softcap=20.0)
+    np.testing.assert_allclose(capped[0], capped[1], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(capped[0], capped[2], rtol=1e-5, atol=1e-5)
+    free = ref.paged_extend_attention_ref(
+        *[torch.from_numpy(a) for a in args], scale=1.0,
+        **({} if not scales else dict(
+            k_scale=torch.from_numpy(scales[0]),
+            v_scale=torch.from_numpy(scales[1])))).numpy()
+    assert np.abs(capped[0] - free).max() > 0.1
+
+
+def test_extend_pos_zero_row_sees_only_its_suffix():
+    """A row at pos 0 reads no page: its output is causal attention over
+    the suffix alone, whatever its pages hold."""
+    shape = EXT_SHAPES[0]
+    (q, kp, vp, kn, vn, bt, pos), _ = _extend_case(9, *shape)
+    t = [torch.from_numpy(a) for a in (q, kp, vp, kn, vn, bt, pos)]
+    out = ref.paged_extend_attention_ref(*t, scale=0.25)
+    empty = [torch.from_numpy(a) for a in (q, kp * 0 + 7, vp * 0 - 7, kn,
+                                             vn, bt, pos)]
+    again = ref.paged_extend_attention_ref(*empty, scale=0.25)
+    assert torch.equal(out[-1], again[-1])
+    assert not torch.equal(out[0], again[0])
+
+
+def test_extend_cpu_tensors_dispatch_to_plain_version():
+    args, scales = _extend_case(3, *EXT_SHAPES[0], quant=True)
+    t = [torch.from_numpy(a) for a in args]
+    kw = dict(scale=0.2, k_scale=torch.from_numpy(scales[0]),
+              v_scale=torch.from_numpy(scales[1]))
+    pea.launches = 0
+    out = ops.paged_extend_attention(*t, **kw)
+    assert pea.launches == 0
+    assert torch.equal(out, ref.paged_extend_attention_ref(*t, **kw))
+
+
+def test_extend_kernel_wrapper_refuses_cpu_tensors():
+    t = [torch.from_numpy(a) for a in _extend_case(3, *EXT_SHAPES[0])[0]]
+    pea.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        pea.paged_extend_attention(*t, scale=0.2)
+    assert pea.launches == 0
+
+
+@pytest.mark.parametrize("G,S,hd,bs,fits", [
+    (4, 4, 128, 16, True),          # phi3 on the serving path: ~34 KB
+    (8, 8, 256, 16, True),          # needs the opt-in above 48 KB
+    (1, 1, 64, 16, True),
+    (16, 16, 256, 16, False)])      # R = 256 rows of 256: over 227 KB
+def test_extend_shared_memory(G, S, hd, bs, fits):
+    smem = pea.smem_bytes(G, S, hd, bs)
+    assert (smem <= checks.SMEM_LIMIT) == fits
+    if fits:
+        return
+    with pytest.raises(ValueError, match="does not fit"):
+        checks.shared_memory(pea.NAME, smem)

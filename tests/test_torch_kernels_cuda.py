@@ -1,5 +1,5 @@
-"""The hand-written ``paged_attention`` CUDA kernel against its plain
-PyTorch version, on the card.
+"""The hand-written ``paged_attention`` and ``paged_extend_attention``
+CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: without a GPU every test skips with a reason (the check
 happens inside the fixture, never at import).  On the GPU host:
@@ -9,11 +9,13 @@ happens inside the fixture, never at import).  On the GPU host:
 
 This file imports no JAX (and ``--noconftest`` keeps the JAX package's
 ``tests/conftest.py`` out), so it runs where only PyTorch is installed.
-Tolerances, stated per dtype, against the plain version computed in
-float32 from the same inputs: float32 and int8 pages (float32 queries)
-are the same float32 math summed in another order (rtol=atol=1e-4);
-a bfloat16 output is that float32 result rounded once to bfloat16, so
-it lies within one bfloat16 step of it (rtol=2**-8, atol=1e-5).
+Tolerances, stated per output dtype, against the plain version
+computed in float32 from the same inputs: float32 and int8 pages under
+float32 queries are the same float32 math summed in another order
+(rtol=atol=1e-4); a bfloat16 output (bfloat16 pages, or int8 pages under
+bfloat16 queries as int8 serving runs them) is that float32 result
+rounded once to bfloat16, so it lies within one bfloat16 step of it
+(rtol=2**-8, atol=1e-5).
 Queries at 3 x randn make each softmax peaked, so a skipped page, a
 wrong head or a wrong row length moves the output far past these
 tolerances.
@@ -22,13 +24,18 @@ import pytest
 import torch
 
 from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import paged_extend_attention as pea
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
-       torch.bfloat16: dict(rtol=2 ** -8, atol=1e-5),
-       torch.int8: dict(rtol=1e-4, atol=1e-4)}
+       torch.bfloat16: dict(rtol=2 ** -8, atol=1e-5)}
+# (page dtype, query dtype): the query dtype is the output's; float32
+# queries over int8 pages, and the bfloat16 ones int8 serving runs
+PAGES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+         (torch.int8, torch.float32), (torch.int8, torch.bfloat16)]
+PAGE_IDS = ["float32", "bfloat16", "int8", "int8-bf16q"]
 # a softcap that binds (scores of tens at scale 1) moves the output by
 # more than this, far beyond every tolerance
 CAP_MOVES = 0.1
@@ -48,8 +55,8 @@ def _quantize(x):
     return q.to(torch.int8), scale
 
 
-def _case(device, dtype, B=4, H=40, K=10, hd=128, nB=160, bs=16, n_blk=32,
-          seed=0):
+def _case(device, dtype, q_dtype=None, B=4, H=40, K=10, hd=128, nB=160,
+          bs=16, n_blk=32, seed=0):
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, H, hd), generator=g) * 3.0
     kp = torch.randn((nB, bs, K, hd), generator=g) * 0.5
@@ -72,7 +79,8 @@ def _case(device, dtype, B=4, H=40, K=10, hd=128, nB=160, bs=16, n_blk=32,
         vp, vs = _quantize(vp)
         scales = dict(k_scale=ks.to(device), v_scale=vs.to(device))
     else:
-        q, kp, vp = q.to(dtype), kp.to(dtype), vp.to(dtype)
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q = q.to(q_dtype or (torch.float32 if dtype == torch.int8 else dtype))
     to = dict(device=device)
     return (q.to(**to), kp.to(**to), vp.to(**to), bt.to(**to),
             lengths.to(**to)), scales
@@ -84,11 +92,11 @@ def _plain(args, **kw):
     return ref.paged_attention_ref(q.float(), *rest, **kw)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
 @pytest.mark.parametrize("softcap", [0.0, 50.0])
-def test_kernel_matches_plain_version(device, dtype, softcap):
+def test_kernel_matches_plain_version(device, dtype, q_dtype, softcap):
     """softcap 50 runs at scale 1, where scores reach tens and it binds."""
-    args, scales = _case(device, dtype)
+    args, scales = _case(device, dtype, q_dtype)
     scale = 1.0 if softcap else 128 ** -0.5
     kw = dict(scale=scale, softcap=softcap, **scales)
     before = pa.launches
@@ -96,19 +104,20 @@ def test_kernel_matches_plain_version(device, dtype, softcap):
     torch.cuda.synchronize()
     assert pa.launches == before + 1
     exp = _plain(args, **kw)
-    torch.testing.assert_close(out[:-1].float(), exp[:-1], **TOL[dtype])
+    assert out.dtype == q_dtype
+    torch.testing.assert_close(out[:-1].float(), exp[:-1], **TOL[q_dtype])
     assert torch.all(out[-1] == 0)             # empty row: the kernel's 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
-def test_kernel_softcap_binds(device, dtype):
-    args, scales = _case(device, dtype, seed=3)
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+def test_kernel_softcap_binds(device, dtype, q_dtype):
+    args, scales = _case(device, dtype, q_dtype, seed=3)
     outs = {}
     for softcap in (0.0, 20.0):
         kw = dict(scale=1.0, softcap=softcap, **scales)
         outs[softcap] = pa.paged_attention(*args, **kw)[:-1].float()
         torch.testing.assert_close(outs[softcap], _plain(args, **kw)[:-1],
-                                   **TOL[dtype])
+                                   **TOL[q_dtype])
     assert float((outs[20.0] - outs[0.0]).abs().max()) > CAP_MOVES
 
 
@@ -153,3 +162,134 @@ def test_wrapper_rejects_bad_arguments(device):
     with pytest.raises(ValueError, match="k_scale"):
         pa.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), bt, ln,
                            scale=1.0)
+
+
+# ---------------------------------------------------------------------------
+# paged_extend_attention
+# ---------------------------------------------------------------------------
+
+def _extend_case(device, dtype, q_dtype=None, B=4, S=4, H=40, K=10, hd=128,
+                 nB=160, bs=16, n_blk=32, seed=0):
+    """Queries at 3 x randn, suffix and pool at 0.5 x randn; ragged pos
+    with each row's pages scattered over the pool, a -1 hole below row
+    0's pos, the last row at pos 0, stale bytes past every pos.  The
+    suffix is in q's dtype, as the caller passes it."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g) * 3.0
+    kp = torch.randn((nB, bs, K, hd), generator=g) * 0.5
+    vp = torch.randn((nB, bs, K, hd), generator=g) * 0.5
+    kn = torch.randn((B, S, K, hd), generator=g) * 0.5
+    vn = torch.randn((B, S, K, hd), generator=g) * 0.5
+    perm = torch.randperm(nB, generator=g).to(torch.int32)
+    bt = torch.full((B, n_blk), -1, dtype=torch.int32)
+    pos = torch.zeros((B,), dtype=torch.int32)
+    used = 0
+    for b in range(B - 1):
+        pos[b] = int(torch.randint(bs + 1, n_blk * bs - S + 1, (1,),
+                                   generator=g))
+        k = -(-(int(pos[b]) + S) // bs)
+        bt[b, :k] = perm[used:used + k]
+        used += k
+    bt[0, 0] = -1
+    bt[B - 1, 0] = perm[used]
+    scales = {}
+    if dtype == torch.int8:
+        kp, ks = _quantize(kp)
+        vp, vs = _quantize(vp)
+        scales = dict(k_scale=ks.to(device), v_scale=vs.to(device))
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    q_dtype = q_dtype or (torch.float32 if dtype == torch.int8 else dtype)
+    q, kn, vn = q.to(q_dtype), kn.to(q_dtype), vn.to(q_dtype)
+    to = dict(device=device)
+    return (q.to(**to), kp.to(**to), vp.to(**to), kn.to(**to), vn.to(**to),
+            bt.to(**to), pos.to(**to)), scales
+
+
+def _extend_plain(args, **kw):
+    q, kp, vp, kn, vn, bt, pos = args
+    return ref.paged_extend_attention_ref(q.float(), kp, vp, kn.float(),
+                                          vn.float(), bt, pos, **kw)
+
+
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+def test_extend_kernel_matches_plain_version(device, dtype, q_dtype, softcap):
+    """softcap 50 runs at scale 1, where scores reach tens and it binds;
+    every row, the pos-0 row included, is compared."""
+    args, scales = _extend_case(device, dtype, q_dtype)
+    kw = dict(scale=1.0 if softcap else 128 ** -0.5, softcap=softcap,
+              **scales)
+    before = pea.launches
+    out = pea.paged_extend_attention(*args, **kw)
+    torch.cuda.synchronize()
+    assert pea.launches == before + 1
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    torch.testing.assert_close(out.float(), _extend_plain(args, **kw),
+                               **TOL[q_dtype])
+
+
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+def test_extend_kernel_softcap_binds(device, dtype, q_dtype):
+    args, scales = _extend_case(device, dtype, q_dtype, seed=3)
+    outs = {}
+    for softcap in (0.0, 20.0):
+        kw = dict(scale=1.0, softcap=softcap, **scales)
+        outs[softcap] = pea.paged_extend_attention(*args, **kw).float()
+        torch.testing.assert_close(outs[softcap], _extend_plain(args, **kw),
+                                   **TOL[q_dtype])
+    assert float((outs[20.0] - outs[0.0]).abs().max()) > CAP_MOVES
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("S", [1, 4, 8])
+def test_extend_kernel_shapes(device, G, hd, S):
+    """Up to R = G * S = 64 query rows of head_dim 256 (165 KB of shared
+    memory, past the 48 KB default)."""
+    K = 2
+    args, scales = _extend_case(device, torch.int8, B=3, S=S, H=G * K, K=K,
+                                hd=hd, nB=40, bs=16, n_blk=6,
+                                seed=G * 100 + hd + S)
+    kw = dict(scale=hd ** -0.5, **scales)
+    out = pea.paged_extend_attention(*args, **kw)
+    torch.testing.assert_close(out, _extend_plain(args, **kw),
+                               **TOL[torch.float32])
+
+
+def test_extend_wrapper_rejects_bad_arguments(device):
+    (q, kp, vp, kn, vn, bt, pos), _ = _extend_case(device, torch.float32,
+                                                   B=3, H=8, K=2, hd=32,
+                                                   nB=40, n_blk=6)
+    call = pea.paged_extend_attention
+    with pytest.raises(ValueError, match="CUDA"):
+        call(q.cpu(), kp, vp, kn, vn, bt, pos, scale=1.0)
+    with pytest.raises(ValueError, match="int32"):
+        call(q, kp, vp, kn, vn, bt, pos.long(), scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q.transpose(1, 2), kp, vp, kn, vn, bt, pos, scale=1.0)
+    with pytest.raises(ValueError, match="k_new"):
+        call(q, kp, vp, kn.to(torch.bfloat16), vn, bt, pos, scale=1.0)
+    with pytest.raises(ValueError, match="k_scale"):
+        call(q, kp.to(torch.int8), vp.to(torch.int8), kn, vn, bt, pos,
+             scale=1.0)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        call(q[..., :18].contiguous(), kp[..., :18].contiguous(),
+             vp[..., :18].contiguous(), kn[..., :18].contiguous(),
+             vn[..., :18].contiguous(), bt, pos, scale=1.0)
+    flat = torch.empty(kp.numel() + 1, dtype=kp.dtype, device=device)
+    shifted = flat[1:].view(kp.shape)
+    shifted.copy_(kp)
+    with pytest.raises(ValueError, match="k_pages is not 16-byte aligned"):
+        call(q, shifted, vp, kn, vn, bt, pos, scale=1.0)
+
+
+def test_extend_wrapper_refuses_shapes_that_do_not_fit(device):
+    """G = 16, S = 16, hd = 256: 256 query rows need more shared memory
+    than a block may use; the wrapper says so and launches nothing."""
+    args, _ = _extend_case(device, torch.float32, B=1, S=16, H=32, K=2,
+                           hd=256, nB=8, bs=16, n_blk=2)
+    before = pea.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        pea.paged_extend_attention(*args, scale=1.0)
+    assert pea.launches == before

@@ -1,6 +1,7 @@
 """The port's dense layers against ``repro.models.layers``, function by
 function, on the same float32 inputs made from a numpy seed (phi3 smoke
-widths; gemma3 smoke for qk-norm, softcaps and windows).
+widths; gemma3 smoke for qk-norm, softcaps and windows), on float and
+int8 page pools.
 
 Tolerance: rtol=atol=1e-5 — both sides run the same float32 math, in a
 different summation order.  Integer outputs (masks, write targets) and
@@ -8,7 +9,9 @@ pages a write must leave alone are compared exactly.  The paged writes
 update the port's pool in place; the JAX functions return a new pool,
 and both must end up holding the same bytes — including every write the
 JAX side drops with ``mode="drop"``: -1 tables, pad rows past
-``valid_len`` and writes past ``n_blk * bs``.
+``valid_len`` and writes past ``n_blk * bs``.  int8 bytes and scales
+are compared exactly: ``torch.round`` and ``jnp.round`` both round half
+to even, so the same float32 input quantizes to the same bytes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -192,8 +195,16 @@ def test_init_kv_pages():
     for k in ("k", "v"):
         assert tuple(mine[k].shape) == theirs[k].shape
         assert mine[k].dtype == torch.float32 and not mine[k].any()
-    with pytest.raises(NotImplementedError, match="int8"):
-        L.init_kv_pages(cfg, 7, 8, quant=True)
+    # the int8 layout: int8 pages plus float32 scale leaves (nB, bs, K)
+    mine = L.init_kv_pages(cfg, 7, 8, stack=(2,), quant=True)
+    theirs = JL.init_kv_pages(jcfg, 7, 8, stack=(2,), quant=True)
+    assert set(mine) == set(theirs) == {"k", "v", "k_scale", "v_scale"}
+    assert L.kv_pages_quantized(mine)
+    for k in mine:
+        assert tuple(mine[k].shape) == theirs[k].shape
+        assert str(mine[k].dtype).replace("torch.", "") == \
+            str(theirs[k].dtype)
+        assert not mine[k].any()
 
 
 def test_scatter_kv_pages_drops_unallocated_and_pads():
@@ -403,3 +414,240 @@ def test_weight_einsum():
            JL.weight_einsum("bsd,dhq->bshq", _j(x), _j(w)))
     with pytest.raises(NotImplementedError, match="int8"):
         L.weight_einsum("bsd,dhq->bshq", _t(x), {"q": _t(w), "scale": None})
+
+
+# ---------------------------------------------------------------------------
+# int8 pools: quantization, writes, gather, decode and extend reads
+# ---------------------------------------------------------------------------
+
+def _exact(mine, theirs):
+    assert np.array_equal(mine.detach().numpy(), np.asarray(theirs))
+
+
+def _pools_equal(mine, theirs):
+    assert set(mine) == set(theirs)
+    for key in mine:
+        _exact(mine[key], theirs[key])
+
+
+def _qpools_close(mine, theirs):
+    """Pools written from projected K/V: the projections of the two
+    frameworks differ by float noise, which moves a scale by a few ulps
+    (rtol 1e-6); the int8 bytes must still be equal."""
+    assert set(mine) == set(theirs)
+    for key in ("k", "v"):
+        _exact(mine[key], theirs[key])
+    for key in ("k_scale", "v_scale"):
+        _close(mine[key], theirs[key], rtol=1e-6, atol=0.0)
+
+
+def _qpool(rng, cfg, nB, bs):
+    """A random int8 pool, quantized by the JAX function."""
+    pages = _pool(rng, cfg, nB, bs)
+    kq, ks = JL.quantize_kv(jnp.asarray(pages["k"]))
+    vq, vs = JL.quantize_kv(jnp.asarray(pages["v"]))
+    return {"k": np.array(kq), "v": np.array(vq), "k_scale": np.array(ks),
+            "v_scale": np.array(vs)}
+
+
+@pytest.mark.parametrize("std", [1e-3, 1.0, 300.0])
+def test_quantize_kv_bytes_and_scales_equal(std):
+    x = _f32(_rng(20), 4, 6, 2, 32, s=std)
+    x[0, 0, 0] = 0.0                              # an all-zero row: eps scale
+    for a, b in zip(L.quantize_kv(_t(x)), JL.quantize_kv(_j(x))):
+        assert a.dtype == (torch.int8 if b.dtype == jnp.int8
+                           else torch.float32)
+        _exact(a, b)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dequantize_kv(dtype):
+    q, s = JL.quantize_kv(_j(_f32(_rng(21), 3, 5, 16)))
+    mine = L.dequantize_kv(_t(q), _t(s), getattr(torch, dtype))
+    theirs = JL.dequantize_kv(q, s, getattr(jnp, dtype))
+    assert mine.dtype == getattr(torch, dtype)
+    _exact(mine.float(), np.asarray(theirs, np.float32))
+
+
+def test_scatter_kv_pages_int8_drops_like_jax():
+    """-1 table entries drop bytes and scales alike; the pad of the strip
+    quantizes to zeros with the eps scale, as in JAX."""
+    jcfg, cfg = PHI
+    rng = _rng(22)
+    pages = _qpool(rng, cfg, 9, 4)
+    k = _f32(rng, 3, 10, cfg.num_kv_heads, cfg.head_dim)
+    v = _f32(rng, 3, 10, cfg.num_kv_heads, cfg.head_dim)
+    wt = np.array([[2, 5, -1], [-1, -1, -1], [7, 0, 3]], np.int32)
+    theirs = JL.scatter_kv_pages(_j(pages), _j(k), _j(v), _j(wt))
+    mine = _t(pages)
+    assert L.scatter_kv_pages(mine, _t(k), _t(v), _t(wt)) is mine
+    _pools_equal(mine, theirs)
+    untouched = [b for b in range(9) if b not in wt]
+    for key in mine:
+        assert np.array_equal(mine[key].numpy()[untouched],
+                              pages[key][untouched])
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+def test_scatter_kv_tokens_int8_drops_like_jax(with_valid):
+    """-1 holes, writes past ``n_blk * bs`` and pad rows past
+    ``valid_len`` leave bytes and scales alike untouched."""
+    jcfg, cfg = PHI
+    rng, bt, pos, valid = _token_case(23)
+    pages = _qpool(rng, cfg, 9, 4)
+    k = _f32(rng, 4, 6, cfg.num_kv_heads, cfg.head_dim)
+    v = _f32(rng, 4, 6, cfg.num_kv_heads, cfg.head_dim)
+    vl = valid if with_valid else None
+    theirs = JL.scatter_kv_tokens(_j(pages), _j(k), _j(v), _j(bt), _j(pos),
+                                  None if vl is None else _j(vl))
+    mine = _t(pages)
+    L.scatter_kv_tokens(mine, _t(k), _t(v), _t(bt), _t(pos),
+                        None if vl is None else _t(vl))
+    _pools_equal(mine, theirs)
+    if with_valid:
+        # row 3 keeps 2 of its 6 writes: the rest of its page is untouched
+        for key in mine:
+            assert np.array_equal(mine[key].numpy()[8][2:], pages[key][8][2:])
+
+
+def test_scatter_tokens_quant_writes_the_given_ints():
+    jcfg, cfg = PHI
+    rng, bt, pos, valid = _token_case(24)
+    pages = _qpool(rng, cfg, 9, 4)
+    kq, ks = JL.quantize_kv(_j(_f32(rng, 4, 6, cfg.num_kv_heads,
+                                    cfg.head_dim)))
+    vq, vs = JL.quantize_kv(_j(_f32(rng, 4, 6, cfg.num_kv_heads,
+                                    cfg.head_dim)))
+    theirs = JL._scatter_tokens_quant(_j(pages), kq, ks, vq, vs, _j(bt),
+                                      _j(pos), _j(valid))
+    mine = _t(pages)
+    L._scatter_tokens_quant(mine, _t(kq), _t(ks), _t(vq), _t(vs), _t(bt),
+                            _t(pos), _t(valid))
+    _pools_equal(mine, theirs)
+
+
+def test_int8_all_dropped_writes_leave_pool_unchanged():
+    _, cfg = PHI
+    rng = _rng(25)
+    pages = _qpool(rng, cfg, 5, 4)
+    mine = _t(pages)
+    k = _f32(rng, 2, 8, cfg.num_kv_heads, cfg.head_dim)
+    none = torch.full((2, 2), -1, dtype=torch.int32)
+    L.scatter_kv_pages(mine, _t(k), _t(k), none)
+    L.scatter_kv_tokens(mine, _t(k), _t(k), none,
+                        torch.tensor([0, 3], dtype=torch.int32))
+    for key in mine:
+        assert np.array_equal(mine[key].numpy(), pages[key])
+
+
+def test_gather_kv_pages_int8():
+    jcfg, cfg = PHI
+    pages = _qpool(_rng(26), cfg, 6, 4)
+    ct = np.array([[3, 1, -1], [0, 5, 2]], np.int32)
+    for a, b in zip(L.gather_kv_pages(_t(pages), _t(ct)),
+                    JL.gather_kv_pages(_j(pages), _j(ct))):
+        assert a.dtype == torch.float32
+        _exact(a, b)
+
+
+def _qpaged_state(seed, cfg):
+    rng, pages, bt, pos = _paged_state(seed, cfg)
+    return rng, _qpool(rng, cfg, 12, 4), bt, pos
+
+
+@pytest.mark.parametrize("cfgs", [PHI, GEMMA], ids=["phi3", "gemma3"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_attention_decode_paged_int8(cfgs, use_pallas):
+    """The new token's bytes and scales land in place and the read sees
+    them; row 3 is an inactive slot (its output is each read's own
+    definition, left out)."""
+    jcfg, cfg = cfgs
+    rng, pages, bt, pos = _qpaged_state(27, cfg)
+    bt = np.concatenate([bt, np.full((1, 4), -1, np.int32)])
+    pos = np.concatenate([pos, np.array([3], np.int32)])
+    p = _attn_params(rng, cfg, qk_norm=cfg.use_qk_norm)
+    x = _f32(rng, 4, 1, cfg.d_model)
+    o_j, pg_j = JL.attention_decode_paged(jcfg, _j(p), _j(x), _j(pages),
+                                          _j(pos), _j(bt),
+                                          use_pallas=use_pallas)
+    mine = _t(pages)
+    o, out_pages = L.attention_decode_paged(cfg, _t(p), _t(x), mine, _t(pos),
+                                            _t(bt), use_pallas=use_pallas)
+    assert out_pages is mine
+    _close(o[:3], o_j[:3], rtol=1e-5, atol=1e-4)
+    _qpools_close(mine, pg_j)
+
+
+@pytest.mark.parametrize("cfgs", [PHI, GEMMA], ids=["phi3", "gemma3"])
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_attention_extend_paged_int8(cfgs, use_pallas):
+    """The suffix attends its own int8 round trip and the same ints are
+    written; pad rows past ``valid_len`` drop their writes; a row at
+    pos 0 sees no context."""
+    jcfg, cfg = cfgs
+    rng, pages, bt, pos = _qpaged_state(28, cfg)
+    pos[2] = 0
+    p = _attn_params(rng, cfg, qk_norm=cfg.use_qk_norm)
+    S = 5
+    x = _f32(rng, 3, S, cfg.d_model)
+    valid = np.array([5, 2, 3], np.int32)
+    o_j, pg_j = JL.attention_extend_paged(jcfg, _j(p), _j(x), _j(pos),
+                                          _j(pages), _j(bt), _j(valid),
+                                          use_pallas=use_pallas)
+    mine = _t(pages)
+    o, _ = L.attention_extend_paged(cfg, _t(p), _t(x), _t(pos), mine,
+                                    _t(bt), _t(valid), use_pallas=use_pallas)
+    _close(o, o_j, rtol=1e-5, atol=1e-4)
+    _qpools_close(mine, pg_j)
+
+
+def test_extend_kernel_reads_the_pre_write_pool(monkeypatch):
+    """The kernel read runs before the in-place scatter: at the call the
+    pages still hold their old bytes in the span the extend then writes
+    (stale entries at and past ``pos``), and they hold the new tokens
+    after it.  The output is the gather read's, which copies the old
+    context before its scatter (``test_attention_extend_paged_int8``
+    holds both to JAX)."""
+    from repro_torch.kernels import ops as kernel_ops
+    _, cfg = PHI
+    rng, pages, bt, pos = _qpaged_state(29, cfg)
+    p = _attn_params(rng, cfg)
+    x = _f32(rng, 3, 4, cfg.d_model)
+    seen = {}
+    real = kernel_ops.paged_extend_attention
+
+    def spy(q, k_pages, v_pages, *args, k_scale, v_scale, **kw):
+        seen.update(k=k_pages.clone(), v=v_pages.clone(),
+                    k_scale=k_scale.clone(), v_scale=v_scale.clone())
+        return real(q, k_pages, v_pages, *args, k_scale=k_scale,
+                    v_scale=v_scale, **kw)
+    monkeypatch.setattr(kernel_ops, "paged_extend_attention", spy)
+    mine = _t(pages)
+    o, _ = L.attention_extend_paged(cfg, _t(p), _t(x), _t(pos), mine, _t(bt),
+                                    use_pallas=True)
+    for key in mine:
+        assert np.array_equal(seen[key].numpy(), pages[key])      # pre-write
+        assert not np.array_equal(mine[key].numpy(), pages[key])  # written
+    gathered = _t(pages)
+    o_g, _ = L.attention_extend_paged(cfg, _t(p), _t(x), _t(pos), gathered,
+                                      _t(bt))
+    _close(o, o_g, rtol=1e-5, atol=1e-4)
+    _pools_equal(mine, gathered)
+
+
+def test_float_pool_extend_ignores_use_pallas(monkeypatch):
+    """As in JAX, only an int8 pool sends the extend read to the kernel."""
+    from repro_torch.kernels import ops as kernel_ops
+    _, cfg = PHI
+    rng, pages, bt, pos = _paged_state(30, cfg)
+    p = _attn_params(rng, cfg)
+    x = _t(_f32(rng, 3, 2, cfg.d_model))
+
+    def refuse(*a, **kw):
+        raise AssertionError("float pool reached the extend kernel")
+    monkeypatch.setattr(kernel_ops, "paged_extend_attention", refuse)
+    a, _ = L.attention_extend_paged(cfg, _t(p), x, _t(pos), _t(pages),
+                                    _t(bt), use_pallas=True)
+    b, _ = L.attention_extend_paged(cfg, _t(p), x, _t(pos), _t(pages),
+                                    _t(bt))
+    assert torch.equal(a, b)

@@ -7,7 +7,12 @@ mode) and ``extend_paged`` must give the JAX logits and pools within
 rtol=atol=1e-4 (the same float32 math over two layers, summed in
 another order; 2e-3 against the Pallas kernel's online softmax, the
 tolerance ``tests/test_kernels.py`` uses).  Decode must also reproduce
-the port's own full-sequence forward over several steps.
+the port's own full-sequence forward over several steps.  On an int8
+pool, prefill, decode and extend (gather read, and kernel read through
+the plain versions) give the JAX logits within rtol=atol=1e-4 and the
+same pool bytes, with scales within rtol 1e-5 (a scale is max|k| / 127,
+and the two frameworks' K differ by float noise of ~1e-6 relative after
+two layers).
 """
 import jax
 import jax.numpy as jnp
@@ -44,10 +49,31 @@ def _pool_close(cache, jcache, **tol):
                                    **(tol or TOL))
 
 
+def _qpool_close(cache, jcache):
+    mine, theirs = cache["layers"], jcache["layers"]
+    assert set(mine) == set(theirs) == {"k", "v", "k_scale", "v_scale"}
+    for key in ("k", "v"):
+        assert mine[key].dtype == torch.int8
+        assert np.array_equal(mine[key].numpy(), np.asarray(theirs[key]))
+    for key in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(mine[key].numpy(), np.asarray(theirs[key]),
+                                   rtol=1e-5, atol=0.0)
+
+
+@pytest.fixture(scope="module")
+def prefilled_int8(models):
+    return _prefill(models, "int8")
+
+
 @pytest.fixture(scope="module")
 def prefilled(models):
+    return _prefill(models, None)
+
+
+def _prefill(models, kv_dtype):
     """Both models after one bucketed prefill of three ragged prompts
-    (true lengths 11, 16, 5 in a 16-token bucket)."""
+    (true lengths 11, 16, 5 in a 16-token bucket), into a pool of
+    ``kv_dtype``."""
     jcfg, jparams, cfg, params = models
     rng = np.random.default_rng(0)
     tokens = rng.integers(0, cfg.vocab_size, (B, 16)).astype(np.int32)
@@ -55,18 +81,22 @@ def prefilled(models):
     tables = np.full((B, N_BLK), -1, np.int32)
     tables[0, :2], tables[1, :3], tables[2, :1] = [3, 9], [0, 12, 4], [7]
     wt = tables[:, :2].copy()
-    jc = JM.init_paged_cache(jcfg, B, T, NB, BS)
+    jc = JM.init_paged_cache(jcfg, B, T, NB, BS, kv_dtype=kv_dtype)
     jlog, jc = JM.prefill_paged(jcfg, jparams, {"tokens": jnp.asarray(tokens)},
                                 T, jc, slots=jnp.arange(B),
                                 write_tables=jnp.asarray(wt),
                                 true_len=jnp.asarray(true_len))
-    c = M.init_paged_cache(cfg, B, T, NB, BS, device="cpu")
+    c = M.init_paged_cache(cfg, B, T, NB, BS, kv_dtype=kv_dtype, device="cpu")
     log, c = M.prefill_paged(cfg, params, {"tokens": torch.from_numpy(tokens)},
                              T, c, slots=torch.arange(B),
                              write_tables=torch.from_numpy(wt),
                              true_len=torch.from_numpy(true_len))
     return dict(jlog=jlog, jc=jc, log=log, c=c, tables=tables,
                 pos=true_len.copy(), rng=rng)
+
+
+def _clone(cache):
+    return {"layers": {k: v.clone() for k, v in cache["layers"].items()}}
 
 
 def test_prefill_paged_logits_and_pool(prefilled):
@@ -114,6 +144,54 @@ def test_extend_paged(models, prefilled):
         np.testing.assert_allclose(log[b, :valid[b]].numpy(),
                                    np.asarray(jlog[b, :valid[b]]), **TOL)
     _pool_close(c, jc)
+
+
+def test_int8_prefill_paged_logits_and_pool(prefilled_int8):
+    """Cold prefill attends the float K/V and writes the int8 pool."""
+    pf = prefilled_int8
+    np.testing.assert_allclose(pf["log"].numpy(), np.asarray(pf["jlog"]),
+                               **TOL)
+    _qpool_close(pf["c"], pf["jc"])
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_int8_decode_step_paged(models, prefilled_int8, use_pallas):
+    pf = prefilled_int8
+    jcfg, jparams, cfg, params = models
+    tok = np.random.default_rng(11).integers(0, cfg.vocab_size,
+                                             (B, 1)).astype(np.int32)
+    pos, tables = pf["pos"], pf["tables"]
+    jlog, jc = JM.decode_step_paged(jcfg, jparams, pf["jc"],
+                                    jnp.asarray(tok), jnp.asarray(pos),
+                                    jnp.asarray(tables), use_pallas)
+    c = _clone(pf["c"])
+    log, _ = M.decode_step_paged(cfg, params, c, torch.from_numpy(tok),
+                                 torch.from_numpy(pos),
+                                 torch.from_numpy(tables), use_pallas)
+    np.testing.assert_allclose(log.numpy(), np.asarray(jlog), **TOL)
+    _qpool_close(c, jc)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_int8_extend_paged(models, prefilled_int8, use_pallas):
+    pf = prefilled_int8
+    jcfg, jparams, cfg, params = models
+    S = 4
+    tok = np.random.default_rng(12).integers(0, cfg.vocab_size,
+                                             (B, S)).astype(np.int32)
+    pos, tables = pf["pos"], pf["tables"]
+    valid = np.array([4, 1, 3], np.int32)
+    jlog, jc = JM.extend_paged(jcfg, jparams, pf["jc"], jnp.asarray(tok),
+                               jnp.asarray(pos), jnp.asarray(tables),
+                               jnp.asarray(valid), use_pallas)
+    c = _clone(pf["c"])
+    log, _ = M.extend_paged(cfg, params, c, torch.from_numpy(tok),
+                            torch.from_numpy(pos), torch.from_numpy(tables),
+                            torch.from_numpy(valid), use_pallas)
+    for b in range(B):          # rows past valid_len are garbage on both
+        np.testing.assert_allclose(log[b, :valid[b]].numpy(),
+                                   np.asarray(jlog[b, :valid[b]]), **TOL)
+    _qpool_close(c, jc)
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
