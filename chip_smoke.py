@@ -18,8 +18,13 @@ non-zero without printing a result:
               and under bf16 queries (the pair int8 serving runs),
               softcap 0 and 50 (at scale 1, where it binds), ragged
               lengths, -1 table entries, an empty row (decode) and a
-              row at pos 0 (extend).  Times the kernel, the plain version and a
-              PyTorch library call, next to the bound.
+              row at pos 0 (extend); ``quant_matmul`` at the draft's
+              decode shapes (M=4 against every projection of a
+              phi3-medium-14b layer), its prefill shape (M=512, K=5120,
+              N=17920) and a ragged one, x in bf16 and f32, with two
+              broken versions shown to fall far outside the tolerance.
+              Times the kernel, the plain version and a PyTorch library
+              call, next to the bound.
 4. serve    — the first main path: phi3-medium-14b at full width and
               depth (bf16 weights from a seeded generator, ~29 GB)
               behind ``EdgeServingEngine`` with ``use_pallas_paged=True``
@@ -44,11 +49,27 @@ non-zero without printing a result:
               equal (their logits and the written bytes that differ are
               reported); times one extend and one decode wave of each
               read at bf16.
-8. reference — the phi3 smoke config at float32: the engine on the card
+8. serve_spec — the third main path: the same model and traffic served
+              speculatively on an int8 pool (``spec_decode``,
+              ``spec_gamma=4``, ``quant_draft``) with an explicit draft:
+              the verify model's first 8 layers (copied) under an
+              early-exit norm, quantized to int8 by the engine.  Every
+              wave is a verify extend wave through
+              ``paged_extend_attention`` (40 launches each), no wave
+              decodes through ``paged_attention``, and every draft
+              forward call (decode steps and admission prefills, counted
+              here around ``SpecDecoder``) runs its 7 x 8 projections
+              through ``quant_matmul``.  Times one draft step with int8
+              and with bf16 weights.
+9. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
-              equal, longest common prefix >= 60% of the tokens).
+              equal, longest common prefix >= 60% of the tokens); the
+              speculative engine with an int8 draft on the card (the
+              verify model's first layer of 2) must emit the CPU vanilla
+              engine's tokens exactly on the float pool and meet the
+              int8 gate on the int8 pool.
 
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
@@ -86,6 +107,23 @@ CASES = (("bfloat16", "bfloat16", "bfloat16", "bfloat16"),
 # softcap 50 is checked at scale 1, where scores reach tens and the cap
 # binds: it must move the output by more than this, far past every TOL
 CAP_MOVES = 0.1
+# quant_matmul against its plain version, both fed x already rounded to
+# bfloat16 (the kernel rounds x, the plain version does not), so only the
+# summation order differs: float32 outputs of order 1 over K <= 17920
+# within 1e-4; a bfloat16 output within one bfloat16 step (2**-8) of the
+# float32 result
+QM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
+          "bfloat16": dict(rtol=2 ** -8, atol=1e-4)}
+# a broken kernel must land this far from the plain version, far past
+# QM_TOL: the scale applied along K instead of N, or K cut short by one
+# 32-row tile
+QM_BROKEN_MOVES = 0.1
+# phi3-medium-14b's projections (K, N), d=5120, K/V 10 x 128, d_ff 17920
+QM_DECODE = {"wq / wo": (5120, 5120), "wk / wv": (5120, 1280),
+             "w_gate / w_up": (5120, 17920), "w_down": (17920, 5120)}
+QM_PREFILL = (512, 5120, 17920)
+DRAFT_LAYERS = 8
+SPEC = dict(spec_decode=True, spec_gamma=4, quant_draft=True)
 # kernel vs gather read of the whole 40-layer model, as a share of
 # max |logit|: at float32 activations only the summation order differs;
 # at bf16 the gather path also rounds its probabilities to bf16, and
@@ -484,7 +522,107 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-8
+# phase 3: quant_matmul against its plain version
+# ---------------------------------------------------------------------------
+
+def _qm_inputs(torch, qm, M, K, N, x_dtype, seed, dev="cuda"):
+    """x at randn rounded to bfloat16 (held in ``x_dtype``), and a randn /
+    sqrt(K) weight quantized per output channel (outputs of order 1)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((M, K), generator=g).to(torch.bfloat16).to(x_dtype)
+    w = (torch.randn((K, N), generator=g) * K ** -0.5).to(dev)
+    wq, scale = qm.quantize_weights(w)
+    return x.to(dev), wq, scale
+
+
+def _qm_bound(M, K, N, x_elt: int):
+    """Least time (ms) of one call: x, the int8 weight and the scales
+    read once, the output (x's dtype) written once, against 2MNK
+    operations at the bfloat16 tensor-core rate."""
+    nbytes = M * K * x_elt + K * N + 4 * N + M * N * x_elt
+    return _roofline(nbytes, 2 * M * N * K, "bfloat16")
+
+
+def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
+    """Hold the kernel against its plain version at the draft's shapes
+    (x in bf16 and f32, out_dtype = x's); show two broken versions fall
+    outside the tolerance; time kernel, plain version and the bf16
+    yardstick at the decode w_gate shape and at the prefill shape."""
+    errs, worst = {}, 0.0
+    shapes = {f"decode {n}": (4, k, nn) for n, (k, nn) in QM_DECODE.items()}
+    shapes["prefill w_gate"] = QM_PREFILL
+    shapes["ragged"] = (3, 200, 72)
+    for i, (name, (M, K, N)) in enumerate(shapes.items()):
+        for dt in ("bfloat16", "float32"):
+            x_dtype = getattr(torch, dt)
+            x, wq, scale = _qm_inputs(torch, qm, M, K, N, x_dtype, seed=i,
+                                      dev=dev)
+            out = qm.quant_matmul(x, wq, scale, out_dtype=x_dtype)
+            _sync(torch)
+            exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+            err = float((out.float() - exp).abs().max())
+            if out.dtype != x_dtype or not torch.allclose(
+                    out.float(), exp, **QM_TOL[dt]):
+                raise AssertionError(f"quant_matmul {name} {dt}: max abs err "
+                                     f"{err} beyond tolerance {QM_TOL[dt]}")
+            errs[f"{name} {M}x{K}x{N} {dt}"] = err
+            worst = max(worst, err)
+
+    # what two broken kernels would return, from the plain version: the
+    # scale along K (the square wq shape), and K short by one 32-row tile
+    M, K, N = 4, *QM_DECODE["wq / wo"]
+    x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.float32, seed=0,
+                              dev=dev)
+    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+    broken = {
+        "scale_on_k_axis": x @ (wq.float() * scale[:, None]),
+        "k_short_one_tile": ref.quant_matmul_ref(
+            x[:, :K - 32], wq[:K - 32], scale, out_dtype=torch.float32),
+    }
+    moves = {k: float((v - exp).abs().max()) for k, v in broken.items()}
+    for k, v in broken.items():
+        if torch.allclose(v, exp, **QM_TOL["float32"]) \
+                or moves[k] <= QM_BROKEN_MOVES:
+            raise AssertionError(f"quant_matmul: the broken version {k} "
+                                 f"moves the output by only {moves[k]}")
+
+    # timing: bf16 x as the draft runs it; the yardstick (never called by
+    # the port) is torch.matmul on the weight dequantized to bf16
+    # beforehand: the same product without int8 weights, reading twice the
+    # weight bytes
+    times = {}
+    for name, (M, K, N) in (("decode w_gate", (4, *QM_DECODE["w_gate / w_up"])),
+                            ("prefill w_gate", QM_PREFILL)):
+        x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.bfloat16,
+                                  seed=7, dev=dev)
+        w_bf16 = (wq.float() * scale[None, :]).to(torch.bfloat16)
+        ms = timer(torch, lambda i: qm.quant_matmul(x, wq, scale,
+                                                    out_dtype=torch.bfloat16))
+        plain_ms = timer(torch, lambda i: ref.quant_matmul_ref(
+            x, wq, scale, out_dtype=torch.bfloat16), iters=20, warmup=3)
+        library_ms = timer(torch, lambda i: torch.matmul(x, w_bf16))
+        bound_ms, bound_by = _qm_bound(M, K, N, 2)
+        times[name] = {"shape": [M, K, N], "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+        del w_bf16
+    row = times["decode w_gate"]
+    return {
+        "name": "quant_matmul", "route": "cuda",
+        "source": "src/repro_torch/csrc/quant_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:50",
+        "max_abs_err": worst, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    }, {"errors": errs, "tolerance": QM_TOL, "broken_moves": moves,
+        "timed": times, "row_shape": "decode w_gate, M=4 bf16",
+        "library_call": "torch.matmul(x_bf16, w_bf16) with w dequantized to "
+        "bf16 beforehand (twice the int8 weight bytes; not the same "
+        "rounding)"}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-9
 # ---------------------------------------------------------------------------
 
 def serve_phase(torch, kernels, serve, scale="full", dev="cuda"):
@@ -495,7 +633,11 @@ def serve_phase(torch, kernels, serve, scale="full", dev="cuda"):
     t0 = clock()
     cfg, eng = serve.build_engine(ARCH, scale, SERVE, dev)
     init_s = clock() - t0
-    fields = _drive(torch, kernels, serve, eng, cfg, expect_extend=False)
+    L = cfg.num_layers
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_attention": L * eng.decode_waves,
+        "paged_extend_attention": 0, "quant_matmul": 0},
+        needs=("paged_attention",))
     fields["init_s"] = init_s
     return eng, cfg, fields
 
@@ -507,16 +649,19 @@ def serve_int8_phase(torch, kernels, serve, eng0, cfg):
     eng = EdgeServingEngine(cfg, eng0.params, ServeConfig(
         prefix_cache=False, use_pallas_paged=True, quant_kv="int8",
         **SERVE), device=eng0.device)
-    return eng, _drive(torch, kernels, serve, eng, cfg, expect_extend=True)
+    L = cfg.num_layers
+    return eng, _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_attention": L * eng.decode_waves,
+        "paged_extend_attention": L * eng.extend_waves, "quant_matmul": 0},
+        needs=("paged_attention", "paged_extend_attention"))
 
 
-def _drive(torch, kernels, serve, eng, cfg, *, expect_extend):
+def _drive(torch, kernels, serve, eng, cfg, expected, needs):
     """Serve the phase's traffic through ``eng`` with every kernel count
-    zeroed just before and read just after; check the output and that
-    each layer of each decode wave went through ``paged_attention`` and
-    each layer of each extend wave through ``paged_extend_attention``
-    exactly when ``expect_extend`` (int8 pools) — never on a float
-    pool."""
+    zeroed just before and read just after; check the output, that each
+    kernel made exactly the launches ``expected()`` gives after the run
+    (one per layer of each wave that reads through it), and that every
+    kernel of ``needs`` — the phase's path — launched at all."""
     dev = eng.device
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -533,17 +678,16 @@ def _drive(torch, kernels, serve, eng, cfg, *, expect_extend):
                              f"{[len(r.generated) for r in done]}")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
         raise AssertionError("serve: token id outside the vocabulary")
-    L = cfg.num_layers
-    expect = {"paged_attention": L * eng.decode_waves,
-              "paged_extend_attention": (L * eng.extend_waves
-                                         if expect_extend else 0)}
-    if eng.decode_waves == 0 or (expect_extend and eng.extend_waves == 0) \
-            or launches != expect:
+    expect = expected()
+    if launches != expect or any(launches[n] == 0 for n in needs):
         raise AssertionError(
             f"serve: kernel launches {launches} for {eng.decode_waves} "
-            f"decode and {eng.extend_waves} extend waves x {L} layers "
-            f"(expected {expect})")
+            f"decode and {eng.extend_waves} extend waves x "
+            f"{cfg.num_layers} layers (expected {expect}, none 0 of "
+            f"{needs})")
     eng.pool.assert_consistent()
+    if eng.pool.num_free != eng.pool.num_blocks:
+        raise AssertionError(f"serve: {eng.pool.num_used} pages leaked")
     ttft = raw["ttft_ms"]
     return {
         "arch": ARCH, "depth": cfg.num_layers, "depth_cut": False,
@@ -752,54 +896,185 @@ def model_int8_phase(torch, M, eng, cfg, dev="cuda"):
     return res
 
 
-def reference_phase(torch, M, serve_mod, get_smoke_config):
+def _tree(fn, tree):
+    return {k: (_tree(fn, v) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
+def make_draft(cfg, params, n: int):
+    """The explicit draft of the speculative phases: the verify model's
+    first ``n`` trunk layers, copied out of the stacked trunk, its
+    embedding and unembedding by reference, and an early-exit norm as
+    the final norm (``core.earlyexit.init_exit_heads``).  Built here, not
+    in the package: the engine refuses ``quant_draft`` for the
+    by-reference self-draft, and quantizing a reference to the whole
+    trunk would make an int8 copy of all of it."""
+    from repro_torch.core.earlyexit import init_exit_heads
+    from repro_torch.devices import tensor_device
+    dparams = dict(params)
+    dparams["trunk"] = {"layers": _tree(lambda t: t[:n].clone(),
+                                        params["trunk"]["layers"])}
+    dparams["final_norm"] = init_exit_heads(
+        cfg, [n - 1], device=tensor_device(params))["exits"][0]["ln"]
+    return cfg.replace(num_layers=n, name=f"{cfg.name}-draft{n}"), dparams
+
+
+def _count_calls(obj, names, counter: dict) -> None:
+    """Wrap the methods ``names`` of ``obj`` (on the instance) so each
+    call adds one to ``counter[name]``."""
+    for name in names:
+        fn = getattr(obj, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            counter[_name] += 1
+            return _fn(*a, **kw)
+        setattr(obj, name, counted)
+
+
+def _projection_bytes(tree) -> int:
+    """Bytes of the projection weights of a (draft) parameter tree: the
+    int8 bytes plus scales of {"q", "scale"} leaves, or the float
+    leaves' bytes."""
+    from repro_torch.models.layers import QUANT_WEIGHT_DIMS
+    total = 0
+    for name, sub in tree.items():
+        if name in QUANT_WEIGHT_DIMS:
+            leaves = sub.values() if isinstance(sub, dict) else [sub]
+            total += sum(t.numel() * t.element_size() for t in leaves)
+        elif isinstance(sub, dict):
+            total += _projection_bytes(sub)
+    return total
+
+
+def serve_spec_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
+    """Drive the third main path: the served model and traffic with
+    speculative decoding on an int8 pool and an int8 draft of its first
+    DRAFT_LAYERS layers.  Every wave is a verify extend wave; the draft's
+    forward calls are counted around ``SpecDecoder._decode`` /
+    ``_prefill``, each of which must run its 7 projections per layer
+    through ``quant_matmul``.  Also times one draft decode step with the
+    same layers in bf16 (before serving) and in int8 (after).  Returns
+    phase fields."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    dcfg, dparams = make_draft(cfg, params, DRAFT_LAYERS)
+    # one draft decode step (4 rows) on a dense cache of the path's size,
+    # bf16 weights first: the bf16 copy is dropped before serving
+    cache = M.init_cache(dcfg, 4, SERVE["max_len"], dev)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    pos = torch.tensor([300, 211, 97, 33], dtype=torch.int32, device=dev)
+
+    def draft_step_ms(p):
+        return cuda_ms(torch, lambda i: M.decode_step(dcfg, p, cache, tok,
+                                                      pos),
+                       iters=10, warmup=2)
+    bf16 = {"draft_bf16_projection_bytes": _projection_bytes(dparams),
+            "draft_step_ms_bf16": draft_step_ms(dparams)}
+    eng = EdgeServingEngine(cfg, params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, quant_kv="int8", **SPEC,
+        **SERVE), device=dev, draft=(dcfg, dparams))
+    del dparams
+    calls = {"_decode": 0, "_prefill": 0}
+    _count_calls(eng.spec, calls, calls)
+    L = cfg.num_layers
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_attention": 0,
+        "paged_extend_attention": L * eng.extend_waves,
+        "quant_matmul": 7 * DRAFT_LAYERS * sum(calls.values())},
+        needs=("paged_extend_attention", "quant_matmul"))
+    st = eng.stats()
+    if st["spec_rounds"] < 1 or not st["quant_draft"] \
+            or eng.decode_waves != 0:
+        raise AssertionError(f"serve_spec: {st} with {eng.decode_waves} "
+                             "decode waves")
+    fields.update(
+        draft_layers=DRAFT_LAYERS, draft_calls=dict(calls),
+        spec_rounds=st["spec_rounds"], spec_proposed=st["spec_proposed"],
+        spec_accepted=st["spec_accepted"],
+        spec_acceptance=st["spec_acceptance"],
+        spec_tokens_per_round=st["spec_tokens_per_round"],
+        acceptance_note="both models have random weights: acceptance near "
+        "0 is expected and is no target",
+        draft_int8_projection_bytes=_projection_bytes(eng.spec.params),
+        draft_step_ms_int8=draft_step_ms(eng.spec.params), **bf16)
+    fields["draft_step_profile_int8"] = _device_profile(
+        torch, lambda: M.decode_step(dcfg, eng.spec.params, cache, tok, pos))
+    return fields
+
+
+def reference_phase(torch, M, serve_mod, get_smoke_config, qm, dev="cuda"):
     """Small input: the engine on the card (hand kernels) and on the CPU
     (plain versions) at float32.  On a float pool the greedy tokens must
     be equal; on an int8 pool, where one int8 level can move with the
     summation order, every first token must be equal and the longest
     common prefix at least INT8_LCP_SHARE of the tokens (the JAX
-    package's int8 gate)."""
+    package's int8 gate).  The speculative engine on the card, with an
+    int8 draft of the first layer (of 2), is held the same way against
+    the CPU's vanilla engine: equal tokens on the float pool (the
+    verify model alone decides them), the int8 gate on the int8 pool;
+    it must have run speculative rounds through ``quant_matmul``."""
     from repro_torch.serving import EdgeServingEngine, ServeConfig
     cfg = get_smoke_config(ARCH).replace(dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    res = {"arch": f"{ARCH} smoke, float32", "requests": 6}
+    dcfg, dparams = make_draft(cfg, params, 1)
+    res = {"arch": f"{ARCH} smoke, float32", "requests": 6,
+           "spec_draft": f"first layer of {cfg.num_layers}, int8"}
     for pool in ("float32", "int8"):
-        scfg = ServeConfig(max_slots=3, max_len=192, prefix_cache=False,
-                           use_pallas_paged=True, policy="priority",
-                           quant_kv="int8" if pool == "int8" else None)
+        base = dict(max_slots=3, max_len=192, prefix_cache=False,
+                    use_pallas_paged=True, policy="priority",
+                    quant_kv="int8" if pool == "int8" else None)
         tokens, waves = {}, {}
-        for dev in ("cpu", "cuda"):
-            eng = EdgeServingEngine(cfg, _to(params, dev), scfg, device=dev)
+        for leg, leg_dev in (("cpu", "cpu"), ("card", dev), ("spec", dev)):
+            spec = leg == "spec"
+            eng = EdgeServingEngine(
+                cfg, _to(params, leg_dev),
+                ServeConfig(**base, **(SPEC if spec else {})),
+                device=leg_dev,
+                draft=(dcfg, _to(dparams, leg_dev)) if spec else None)
             reqs = serve_mod.make_requests(cfg, 6, 4, 150, 8, "priority")
+            qm.launches = 0
             serve_mod.run_drain(eng, reqs)
-            tokens[dev] = {r.uid: list(r.generated) for r in eng.completed}
-            waves[dev] = (eng.decode_waves, eng.extend_waves)
-        cpu, card = tokens["cpu"], tokens["cuda"]
-        if len(card) != 6 or set(card) != set(cpu):
-            raise AssertionError(f"reference {pool}: requests {sorted(card)}"
-                                 f" on the card, {sorted(cpu)} on the CPU")
-        if pool == "float32":
-            if card != cpu:
-                raise AssertionError(f"reference: card tokens {card} != "
-                                     f"CPU tokens {cpu}")
-            res["float32_tokens_equal"] = True
-            continue
-        first = sum(card[u][0] == cpu[u][0] for u in cpu)
-        lcp = total = 0
-        for u in cpu:
-            total += len(cpu[u])
-            for a, b in zip(cpu[u], card[u]):
-                if a != b:
-                    break
-                lcp += 1
-        res.update(int8_first_tokens_equal=f"{first}/{len(cpu)}",
-                   int8_lcp_share=lcp / total,
-                   int8_tokens_equal=card == cpu,
-                   int8_waves_decode_extend=list(waves["cuda"]))
-        if first != len(cpu) or lcp < INT8_LCP_SHARE * total:
-            raise AssertionError(f"reference int8: first tokens {first}/"
-                                 f"{len(cpu)}, LCP {lcp}/{total}: card "
-                                 f"{card} vs CPU {cpu}")
+            tokens[leg] = {r.uid: list(r.generated) for r in eng.completed}
+            waves[leg] = (eng.decode_waves, eng.extend_waves)
+            if spec:
+                st = eng.stats()
+                res[f"{pool}_spec"] = {
+                    "rounds": st["spec_rounds"],
+                    "acceptance": st["spec_acceptance"],
+                    "quant_matmul_launches": qm.launches}
+                if st["spec_rounds"] < 1 or qm.launches == 0:
+                    raise AssertionError(f"reference {pool} spec: {st}, "
+                                         f"{qm.launches} quant_matmul "
+                                         "launches")
+        cpu = tokens["cpu"]
+        for leg in ("card", "spec"):
+            card = tokens[leg]
+            name = pool if leg == "card" else f"{pool}_spec"
+            if len(card) != 6 or set(card) != set(cpu):
+                raise AssertionError(f"reference {name}: requests "
+                                     f"{sorted(card)} on the card, "
+                                     f"{sorted(cpu)} on the CPU")
+            if pool == "float32":
+                if card != cpu:
+                    raise AssertionError(f"reference {name}: card tokens "
+                                         f"{card} != CPU tokens {cpu}")
+                res[f"{name}_tokens_equal"] = True
+                continue
+            first = sum(card[u][0] == cpu[u][0] for u in cpu)
+            lcp = total = 0
+            for u in cpu:
+                total += len(cpu[u])
+                for a, b in zip(cpu[u], card[u]):
+                    if a != b:
+                        break
+                    lcp += 1
+            res.update({f"{name}_first_tokens_equal": f"{first}/{len(cpu)}",
+                        f"{name}_lcp_share": lcp / total,
+                        f"{name}_tokens_equal": card == cpu,
+                        f"{name}_waves_decode_extend": list(waves[leg])})
+            if first != len(cpu) or lcp < INT8_LCP_SHARE * total:
+                raise AssertionError(f"reference {name}: first tokens "
+                                     f"{first}/{len(cpu)}, LCP {lcp}/{total}"
+                                     f": card {card} vs CPU {cpu}")
     return res
 
 
@@ -818,6 +1093,7 @@ def main() -> int:
     from repro_torch.kernels import build, ref
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_extend_attention as pea
+    from repro_torch.kernels import quant_matmul as qm
     from repro_torch.launch import serve
     from repro_torch.models import model as M
 
@@ -841,14 +1117,16 @@ def main() -> int:
 
     t0 = clock()
     rows, details = {}, {}
-    for name, check, mod in (
-            ("paged_attention", check_paged_attention, pa),
-            ("paged_extend_attention", check_paged_extend_attention, pea)):
-        rows[name], details[name] = check(torch, mod, ref, cuda_ms)
+    kernels = {"paged_attention": pa, "paged_extend_attention": pea,
+               "quant_matmul": qm}
+    checks = {"paged_attention": check_paged_attention,
+              "paged_extend_attention": check_paged_extend_attention,
+              "quant_matmul": check_quant_matmul}
+    for name, check in checks.items():
+        rows[name], details[name] = check(torch, kernels[name], ref, cuda_ms)
     emit("kernels", seconds=clock() - t0,
          **{n: dict(rows[n], **details[n]) for n in rows})
 
-    kernels = {"paged_attention": pa, "paged_extend_attention": pea}
     t0 = clock()
     eng, cfg, fields = serve_phase(torch, kernels, serve)
     launches = dict(fields["launches"])
@@ -869,11 +1147,20 @@ def main() -> int:
     t0 = clock()
     fields = model_int8_phase(torch, M, eng8, cfg)
     emit("model_int8", seconds=clock() - t0, **fields)
+    params = eng8.params
     del eng8
     torch.cuda.empty_cache()
 
     t0 = clock()
-    fields = reference_phase(torch, M, serve, get_smoke_config)
+    fields = serve_spec_phase(torch, kernels, serve, M, params, cfg)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    del params
+    torch.cuda.empty_cache()
+    emit("serve_spec", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = reference_phase(torch, M, serve, get_smoke_config, qm)
     emit("reference", seconds=clock() - t0, **fields)
 
     emit("done", seconds=clock() - t_start)
@@ -881,7 +1168,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name, row in rows.items():
-        # main-path launches: both serve phases, each counted from zero
+        # main-path launches: the three serve phases, each counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))

@@ -10,7 +10,8 @@ PyTorch version beside it in ``kernels.ref``.  Entry points run on the
 card unless the caller passes ``device="cpu"``.
 
 Ported so far: configs, the weight bridge, the dense family's paged
-serving path (``models``), the paged engine (``serving``) and the drain
-CLI (``python -m repro_torch.launch.serve``).  See ROADMAP.md for the
-queue.
+serving path and dense decode cache (``models``), int8 projection
+weights, the paged engine with speculative decoding (``serving``) and
+the drain CLI (``python -m repro_torch.launch.serve``).  See ROADMAP.md
+for the queue.
 """

@@ -49,6 +49,14 @@ KERNELS = {
              _P],                                 # stream
             _I),
     }),
+    "quant_matmul": ("quant_matmul.cu", {
+        "repro_quant_matmul": (
+            [_P, _P, _P, _P,                      # x wq scale out
+             _I, _I, _I,                          # M K N
+             _I, _I,                              # x dtype, out dtype
+             _P],                                 # stream
+            _I),
+    }),
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

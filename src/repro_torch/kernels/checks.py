@@ -1,4 +1,4 @@
-"""Argument checks shared by the wrappers of the paged-attention kernels.
+"""Argument checks shared by the wrappers of the hand-written kernels.
 
 Each check raises on what the kernels do not take, with the kernel's
 name first in the message.  Nothing here launches or allocates.

@@ -7,9 +7,25 @@ only, never a CUDA call that failed.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_extend_attention as _pea
+from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref
+
+
+def quant_matmul(x, wq, scale, out_dtype=torch.bfloat16):
+    """W8A16 product ``x (M, K) @ (wq (K, N) int8 * scale (N,))`` in
+    ``out_dtype``.  The kernel rounds x to bfloat16 and accumulates in
+    float32 (the TPU kernel's semantics); the plain version, which CPU
+    tensors take, keeps x in float32 (the JAX package's branch off the
+    TPU, ``ref.quant_matmul_ref``)."""
+    if x.device.type == "cuda":
+        return _qm.quant_matmul(x, wq, scale, out_dtype=out_dtype)
+    if x.device.type == "cpu":
+        return ref.quant_matmul_ref(x, wq, scale, out_dtype=out_dtype)
+    raise ValueError(f"quant_matmul: no kernel for device {x.device}")
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,

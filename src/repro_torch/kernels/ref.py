@@ -12,6 +12,16 @@ from __future__ import annotations
 import torch
 
 
+def quant_matmul_ref(x, wq, scale, out_dtype=torch.bfloat16):
+    """x (M, K) @ dequant(wq (K, N) int8, scale (N,)): the weight
+    dequantized to float32, a float32 product, then the cast.  x is not
+    rounded to bfloat16 here (the kernel rounds it, as the TPU kernel
+    does)."""
+    w = wq.float() * scale[None, :].float()
+    out = torch.matmul(x.float(), w)
+    return out.to(out_dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
                         scale, softcap: float = 0.0,
                         k_scale=None, v_scale=None):

@@ -10,6 +10,9 @@ random, from a seeded ``torch.Generator`` on the device.  On a CUDA
 device the engine reads paged decode KV through the hand-written
 ``paged_attention`` kernel and stores weights in the activation dtype
 (every weight is cast to it before use, so the math is unchanged).
+``--spec`` serves speculatively (``--draft self`` for the early-exit
+self-draft or a registry id, ``--gamma`` tokens a round) and adds the
+acceptance numbers to the line.
 """
 from __future__ import annotations
 
@@ -98,6 +101,14 @@ def main() -> None:
     ap.add_argument("--policy", choices=("fifo", "priority", "edf"),
                     default="priority",
                     help="QoE admission ordering (core.scheduler)")
+    ap.add_argument("--spec", action="store_true",
+                    help="speculative decoding (serving.spec_decode)")
+    ap.add_argument("--draft", default="self",
+                    help="draft arch for --spec: a registry id, or "
+                         "'self' for the early-exit self-draft")
+    ap.add_argument("--gamma", type=int, default=4,
+                    help="speculation width (proposals per round + 1); "
+                         "also the multi-token catch-up chunk")
     ap.add_argument("--chunked", action="store_true",
                     help="chunked prefill: admit prompts as wave spans "
                          "interleaved with decode (no blocking prefill)")
@@ -108,7 +119,9 @@ def main() -> None:
     cfg, eng = build_engine(args.arch, args.scale, dict(
         max_slots=args.slots, max_len=args.max_len,
         temperature=args.temperature, top_k=args.top_k,
-        policy=args.policy, chunked_prefill=args.chunked), args.device)
+        policy=args.policy, spec_decode=args.spec,
+        draft_arch=args.draft if args.spec else None,
+        spec_gamma=args.gamma, chunked_prefill=args.chunked), args.device)
     reqs = make_requests(cfg, args.requests, args.min_prompt,
                          args.max_prompt, args.max_new, args.policy)
     raw = run_drain(eng, reqs)
@@ -122,8 +135,14 @@ def main() -> None:
                                       int(0.99 * len(ttft)))], 1),
         "policy": args.policy,
     }
+    st = eng.stats()
+    if args.spec:
+        out.update({
+            "spec_active": st["spec_active"],
+            "spec_accept_rate": round(st["spec_acceptance"], 3),
+            "spec_tokens_per_step": round(st["spec_tokens_per_round"], 3),
+        })
     if args.chunked:
-        st = eng.stats()
         out.update({"mixed_waves": st["mixed_waves"],
                     "wave_admitted": st["wave_admitted"]})
     print(json.dumps(out))

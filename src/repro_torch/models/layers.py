@@ -17,10 +17,15 @@ Conventions
   dict.
 * Paged pools come in the activation dtype or as int8 with one float32
   scale per (page, offset, kv head) head_dim vector (``quantize_kv``).
-* Not ported yet, raising ``NotImplementedError``: int8 weights, dense
-  ring/strip caches, the long-sequence and local-window prefill
-  branches, the prefix-hit prefill and the ``flash_attention`` kernel
-  path.
+* Projection weights may be int8 with one float32 scale per output
+  channel (``quantize_matmul_params``): ``weight_einsum`` sends them to
+  the hand-written ``quant_matmul`` kernel on a CUDA tensor, to its
+  plain version on a CPU tensor.
+* The dense decode cache (``init_kv_cache`` / ``attention_decode``)
+  covers global strips and is updated IN PLACE like the pool.
+* Not ported yet, raising ``NotImplementedError``: local ring caches,
+  the long-sequence and local-window prefill branches, the prefix-hit
+  prefill and the ``flash_attention`` kernel path.
 """
 from __future__ import annotations
 
@@ -97,6 +102,55 @@ def dequantize_kv(q, scale, dtype=torch.float32):
 
 
 # ---------------------------------------------------------------------------
+# int8 projection weights
+# ---------------------------------------------------------------------------
+
+# weight name -> (contraction dims, output dims), counted from the end
+# of the leaf shape (any leading dims are stacked-layer axes)
+QUANT_WEIGHT_DIMS = {
+    "wq": (1, 2), "wk": (1, 2), "wv": (1, 2), "wo": (2, 1),
+    "w_gate": (1, 1), "w_up": (1, 1), "w_down": (1, 1),
+    "w_in": (1, 1), "w_out": (1, 1),
+}
+
+
+def quantize_weight(w, n_in: int, n_out: int):
+    """Per-output-channel symmetric int8 quantization of one projection
+    weight: the trailing ``n_in`` + ``n_out`` dims are the matmul dims,
+    anything before is a stack prefix, kept on BOTH leaves so a layer
+    slice of the stack is a quantized layer.  ``scale = max|w| / 127 +
+    1e-12`` over the contracted dims, ``q = clamp(round(w / scale))``:
+    the JAX function's bytes and scales on the same float32 input."""
+    in_axes = tuple(range(w.dim() - n_in - n_out, w.dim() - n_out))
+    wf = w.float()
+    scale = torch.amax(torch.abs(wf), dim=in_axes, keepdim=True) / KV_QMAX \
+        + 1e-12
+    q = torch.clamp(torch.round(wf / scale), -KV_QMAX, KV_QMAX)
+    return {"q": q.to(torch.int8), "scale": scale.squeeze(in_axes)}
+
+
+def quantize_matmul_params(params):
+    """Copy of ``params`` with every attention/MLP projection weight
+    replaced by its int8 quantization ({"q", "scale"} dict leaves, which
+    ``weight_einsum`` dispatches on).  Norms, embeddings and biases stay
+    full precision and are shared with ``params``, not copied.  Used to
+    quantize a resident draft model's weights."""
+    def walk(node):
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for name, sub in node.items():
+            dims = QUANT_WEIGHT_DIMS.get(name)
+            if (dims is not None and not isinstance(sub, dict)
+                    and sub.dim() >= sum(dims)):
+                out[name] = quantize_weight(sub, *dims)
+            else:
+                out[name] = walk(sub)
+        return out
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
 # projections
 # ---------------------------------------------------------------------------
 
@@ -111,12 +165,27 @@ def weight_einsum(eq, x, w):
     equations, which contract x's trailing dims against w's leading dims
     in order and append w's remaining dims (as the JAX function
     assumes): one matmul over the flattened dims, without einsum's
-    per-call planning on the host.  The JAX twin also takes
-    int8-quantized ``{"q", "scale"}`` weights; those are not ported."""
-    if isinstance(w, dict):
-        raise _not_ported("int8 projection weights", "B.4 (quant_matmul)")
+    per-call planning on the host.
+
+    ``w`` may be an int8-quantized weight ({"q", "scale"}, see
+    ``quantize_weight``): x flattens to (M, kd) and q to (kd, nd), where
+    kd is the product of q's first ``n`` dims (those that appear in x's
+    spec) and nd of the rest, and the product runs through
+    ``kernels.ops.quant_matmul`` with ``out_dtype = x.dtype``: the
+    hand-written kernel on a CUDA tensor (x rounded to bfloat16, float32
+    accumulation), the plain float32 dequant product on a CPU tensor
+    (the JAX function's branch off the TPU)."""
     n = _n_contracted(eq)
     lead = x.shape[:x.dim() - n]
+    if isinstance(w, dict):
+        from repro_torch.kernels import ops as kernel_ops
+        q, scale = w["q"], w["scale"]
+        kd = math.prod(q.shape[:n])
+        nd = math.prod(q.shape[n:])
+        out = kernel_ops.quant_matmul(
+            x.reshape(-1, kd).contiguous(), q.reshape(kd, nd),
+            scale.reshape(nd).float(), out_dtype=x.dtype)
+        return out.reshape(*lead, *q.shape[n:])
     kd = math.prod(w.shape[:n])
     out = torch.matmul(x.reshape(*lead, kd), w.to(x.dtype).reshape(kd, -1))
     return out.reshape(*lead, *w.shape[n:])
@@ -347,6 +416,84 @@ def _decode_project(cfg: ModelConfig, params, x, pos, *, is_global: bool):
         sin, cos = _rope_angles(posb, q.shape[-1], theta)       # q and k
         q, knew = _rotate(q, sin, cos), _rotate(knew, sin, cos)
     return q, knew, vnew
+
+
+# ---------------------------------------------------------------------------
+# dense decode cache (global strips)
+# ---------------------------------------------------------------------------
+
+def init_kv_cache(cfg: ModelConfig, batch: int, length: int, stack=(),
+                  dtype=None, device=None):
+    """Empty dense cache with a stacking prefix: ``k``/``v`` (stack...,
+    batch, length, K, hd) in ``dtype`` (default the activation dtype)
+    and ``slots`` (stack..., batch, length) int32, -1 = empty; ``slots``
+    holds the position each strip entry was written for."""
+    dtype = dtype or cfg.activation_dtype
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": _zeros((batch, length, K, hd), stack, dtype, device),
+        "v": _zeros((batch, length, K, hd), stack, dtype, device),
+        "slots": torch.full(tuple(stack) + (batch, length), -1,
+                            dtype=torch.int32, device=device),
+    }
+
+
+def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
+                     is_global: bool, cross_kv=None):
+    """Single-token decode against a dense cache of GLOBAL strips.
+
+    x: (B, 1, d); pos: (B,) int32 per-row write positions (a scalar is
+    broadcast); cache: this layer's dict(k=(B, T, K, hd), v=..., slots=
+    (B, T)) with T the strip length.  The new token's K/V and position
+    are written IN PLACE at ``pos % T`` (== pos on a global strip), then
+    the row attends every entry whose slot lies in [0, pos].  A row that
+    writes past its frontier (the draft's parked writes) only ever
+    overwrites entries above that frontier.  Local ring windows
+    (``is_global=False``) and enc-dec cross attention are later slices.
+    Returns (out (B, 1, d), cache).
+    """
+    if not is_global:
+        raise _not_ported("local ring-window decode cache",
+                          "A.2 (gemma ring layers)")
+    if cross_kv is not None:
+        raise _not_ported("cross-attention decode", "A.9.3 (encdec family)")
+    B, S, d = x.shape
+    assert S == 1
+    pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                             device=x.device), (B,))
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+
+    q, knew, vnew = _decode_project(cfg, params, x, pos, is_global=True)
+
+    kc, vc, slots = cache["k"], cache["v"], cache["slots"]
+    T = kc.shape[1]
+    rows = torch.arange(B, device=x.device)
+    at = (pos % T).long()
+    kc[rows, at] = knew[:, 0].to(kc.dtype)
+    vc[rows, at] = vnew[:, 0].to(vc.dtype)
+    slots[rows, at] = pos
+
+    valid = (slots >= 0) & (slots <= pos[:, None])
+    mask = valid[:, None, None, None, :]          # (B,1,1,1,T)
+    qg = q.reshape(B, 1, K, G, hd)
+    out = attention_weights_and_out(qg, kc.to(x.dtype), vc.to(x.dtype),
+                                    mask, scale=scale,
+                                    softcap=cfg.attn_logit_softcap)
+    o = weight_einsum("bshq,hqd->bsd", out.reshape(B, 1, H, hd),
+                      params["wo"])
+    return o, cache
+
+
+def scatter_rows(full, rows, slots, axis: int):
+    """Write ``m`` single-request rows into a batched cache leaf IN PLACE:
+    ``full`` has the slot axis at ``axis``, ``rows`` the same leaf with
+    ``m`` entries there; ``slots`` (m,) distinct slot indices.  Returns
+    ``full``."""
+    idx = (slice(None),) * axis + (slots.long(),)
+    full[idx] = rows.to(full.dtype)
+    return full
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,10 @@ the dense family (``models.transformer``), and every other family raises
 
     init_params(cfg, generator, device)           -> params
     forward(cfg, params, tokens)                  -> logits (B, S, V)
+    init_cache(cfg, b, max_len, device)           -> cache (dense strips)
+    prefill(cfg, params, batch, max_len,
+            true_len=...)                         -> (logits, cache)
+    decode_step(cfg, params, cache, toks, pos)    -> (logits, cache)
     init_paged_cache(cfg, b, max_len, nB, bs)     -> cache (paged pool)
     prefill_paged(cfg, params, batch, max_len,
                   cache, slots=..., write_tables=..., true_len=...)
@@ -17,7 +21,8 @@ the dense family (``models.transformer``), and every other family raises
     extendable / spec_decodable / prefix_sharable -> bool
 
 The JAX entry points return new caches; these update the cache's
-tensors in place and return the same cache.
+tensors in place and return the same cache (``prefill`` makes a new
+one, as in JAX).
 """
 from __future__ import annotations
 
@@ -46,6 +51,34 @@ def init_params(cfg: ModelConfig, generator=None, device: DeviceLike = None):
 
 def forward(cfg: ModelConfig, params, tokens):
     return family_module(cfg).forward(cfg, params, tokens)
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device: DeviceLike = None):
+    """Dense decode cache: one ``max_len`` strip per row and layer (the
+    speculative draft's cache), on ``device`` (default ``cuda``)."""
+    return family_module(cfg).init_cache(cfg, batch_size, max_len, device)
+
+
+def prefill(cfg: ModelConfig, params, batch: dict, max_len: int, *,
+            use_flash: bool = False, use_kernel: bool = False,
+            true_len=None):
+    """Run the prompt and build a dense decode cache of its rows.
+    ``true_len`` (int | (B,) int32): the true token count of each
+    right-padded row; logits come from each row's true last token and
+    pad positions stay out of the decode state, so padded prefill
+    decodes exactly like an unpadded one.  ``use_kernel`` is the ssm
+    families' switch and is ignored here."""
+    del use_kernel
+    return family_module(cfg).prefill(cfg, params, batch["tokens"], max_len,
+                                      use_flash=use_flash,
+                                      true_len=true_len)
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
+    """One decode token per row against the dense cache (updated in
+    place); pos: (B,) int32 or a scalar write position."""
+    return family_module(cfg).decode_step(cfg, params, cache, tokens, pos)
 
 
 def init_paged_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -3,10 +3,11 @@
 
 Layers are stacked along a leading axis exactly like the JAX trunk, and
 the ``lax.scan`` over them becomes a Python loop over layer slices (views,
-no copies).  The paged KV pool is updated IN PLACE: every ``*_paged``
-function writes into the cache tensors it was given and returns that
-same cache.  Configs with a local:global pattern (``pattern_period > 1``,
-the gemma rings) raise ``NotImplementedError`` until their slice.
+no copies).  Caches are updated IN PLACE: every ``*_paged`` function
+writes into the pool tensors it was given, and ``decode_step`` into the
+dense strips of ``init_cache``; each returns that same cache.  Configs
+with a local:global pattern (``pattern_period > 1``, the gemma rings)
+raise ``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
 
@@ -120,6 +121,22 @@ def block_fwd(cfg: ModelConfig, p: Params, x, positions, *, is_global,
     return out
 
 
+def block_prefill(cfg: ModelConfig, p: Params, x, positions, *, is_global,
+                  use_flash=False):
+    """Like ``block_fwd`` but also returns (k, v) for cache construction."""
+    def attend(h):
+        o, k, v = L.attention_fwd(cfg, p["attn"], h, positions,
+                                  is_global=is_global, use_flash=use_flash)
+        return o, (k, v)
+    return _block(cfg, p, x, attend)
+
+
+def block_decode(cfg: ModelConfig, p: Params, x, cache, pos, *, is_global):
+    """A layer's decode step against its dense cache (in place)."""
+    return _block(cfg, p, x, lambda h: L.attention_decode(
+        cfg, p["attn"], h, cache, pos, is_global=is_global))
+
+
 def block_decode_paged(cfg: ModelConfig, p: Params, x, cache, pos,
                        block_tables, use_pallas: bool = False):
     """A GLOBAL layer's decode step whose KV lives in the paged pool
@@ -167,6 +184,40 @@ def _logits(cfg: ModelConfig, params: Params, x):
     _, norm = L.make_norm(cfg)
     x = norm(params["final_norm"], x)
     return L.unembed(cfg, params["embed"], params["unembed"], x)
+
+
+# ---------------------------------------------------------------------------
+# dense cache + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Params:
+    """Dense decode cache, one ``max_len`` strip per row and layer:
+    ``{"layers": {"k", "v", "slots"}}`` stacked over the layers, on
+    ``device`` (default ``cuda``; ``"meta"`` gives shapes only)."""
+    _uniform_only(cfg)
+    return {"layers": L.init_kv_cache(cfg, batch, max_len,
+                                      stack=(cfg.num_layers,),
+                                      device=resolve_device(device))}
+
+
+def trunk_decode(cfg: ModelConfig, trunk: Params, cache: Params, x, pos):
+    """x: (B, 1, d); pos: (B,) int32 write positions.  Returns (x,
+    cache), the cache updated in place."""
+    layers = [_layer(cache["layers"], i) for i in range(cfg.num_layers)]
+    for lp, c in zip(_uniform_layers(cfg, trunk), layers):
+        x, _ = block_decode(cfg, lp, x, c, pos, is_global=True)
+    return x, cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens,
+                pos):
+    """One decode token per row against the dense cache (updated in
+    place).  tokens: (B, 1) int32; pos: (B,) int32 (or a scalar) write
+    positions.  Returns (logits (B, 1, V), cache)."""
+    x = L.embed(cfg, params["embed"], tokens)
+    x, cache = trunk_decode(cfg, params["trunk"], cache, x, pos)
+    return _logits(cfg, params, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -235,6 +286,61 @@ def gather_last(x, n):
     """x: (B, S, d); n: (B,) true lengths -> (B, 1, d) at index n-1."""
     idx = torch.clamp(n - 1, min=0).long()[:, None, None]
     return torch.gather(x, 1, idx.expand(-1, 1, x.shape[-1]))
+
+
+def _fill_global(cache: Params, k, v, n=None) -> None:
+    """Fill one layer's dense cache (strips of ``max_len``) from prefill
+    K/V (B, S, K, hd) in place: k/v at [0, S), and ``slots`` marking
+    positions below ``n`` (the true lengths; all S without it) valid and
+    the right-padding -1, so pad K/V is never attended and is
+    overwritten in sequence order by later decodes."""
+    B, S = k.shape[0], k.shape[1]
+    cache["k"][:, :S] = k
+    cache["v"][:, :S] = v
+    max_len = cache["slots"].shape[1]
+    pos = torch.arange(max_len, dtype=torch.int32, device=k.device)
+    limit = (torch.full((B,), S, dtype=torch.int32, device=k.device)
+             if n is None else n)
+    cache["slots"].copy_(torch.where(pos[None, :] < limit[:, None],
+                                     pos[None, :], -1))
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
+            prefix_embeds=None, use_flash=False, true_len=None):
+    """Run the prompt and return (last-token logits (B, 1, V), a dense
+    cache of B rows sized ``max_len``).  ``true_len`` (int | (B,) int32)
+    marks right-padded rows: logits come from each row's true last
+    token and pad positions stay invalid in the cache, so a padded
+    prefill decodes exactly like an unpadded one.  VLM prefix
+    embeddings belong to the vlm slice."""
+    if prefix_embeds is not None:
+        raise L._not_ported("prefix embeddings", "A.9.2 (vlm family)")
+    x = L.embed(cfg, params["embed"], tokens)
+    B, S, _ = x.shape
+    n = broadcast_true_len(true_len, B, x.device)
+    positions = torch.broadcast_to(
+        torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+    cache = {"layers": L.init_kv_cache(cfg, B, max_len,
+                                       stack=(cfg.num_layers,),
+                                       dtype=x.dtype, device=x.device)}
+    for i, lp in enumerate(_uniform_layers(cfg, params["trunk"])):
+        x, (k, v) = block_prefill(cfg, lp, x, positions, is_global=True,
+                                  use_flash=use_flash)
+        _fill_global(_layer(cache["layers"], i), k, v, n)
+    x = x[:, -1:] if n is None else gather_last(x, n)
+    return _logits(cfg, params, x), cache
+
+
+def scatter_cache_rows(full, rows, slots, axis: int):
+    """Scatter an ``m``-row cache subtree into the batched engine cache
+    at ``slots`` IN PLACE (every leaf shares the batch ``axis``);
+    returns ``full``."""
+    for key, leaf in full.items():
+        if isinstance(leaf, dict):
+            scatter_cache_rows(leaf, rows[key], slots, axis)
+        else:
+            L.scatter_rows(leaf, rows[key], slots, axis)
+    return full
 
 
 def prefill_paged(cfg: ModelConfig, params: Params, tokens, max_len,

@@ -15,21 +15,35 @@ JAX engine's, and on the same weights the greedy tokens are the same:
   catch up teacher-forced through extend waves.  With
   ``ServeConfig.chunked_prefill`` admission is bookkeeping only and the
   whole prompt enters as wave spans (``_admit_wave``).
-* PLAN — each active slot gets ``(mode, width)``: ``catch`` (up to
+* PLAN — each active slot gets ``(mode, width)``: ``spec`` (a
+  draft-backed verify of up to ``spec_gamma`` tokens), ``catch`` (up to
   ``max(spec_gamma, catch_chunk)`` prompt tokens) or ``plain`` (one
   decode token), budgeted by ``wave_tokens`` through
   ``core.scheduler.plan_wave``.  ``engine.last_plan`` keeps the plan.
 * WAVE — one call for every active slot: ``model.extend_paged`` while
-  any slot catches up, else ``model.decode_step_paged``, which with
-  ``use_pallas_paged`` reads the pages through the hand-written
-  ``paged_attention`` kernel.  With ``quant_kv="int8"`` the pool holds
-  int8 pages with per-row float32 scales, and ``use_pallas_paged`` also
-  sends the extend waves' page read through the hand-written
-  ``paged_extend_attention`` kernel.  The eager calls update the page
-  pool in place (the JAX engine donates its cache to a jitted call
-  instead).
+  any slot speculates or catches up, else ``model.decode_step_paged``,
+  which with ``use_pallas_paged`` reads the pages through the
+  hand-written ``paged_attention`` kernel.  With ``quant_kv="int8"`` the
+  pool holds int8 pages with per-row float32 scales, and
+  ``use_pallas_paged`` also sends the extend waves' page read through
+  the hand-written ``paged_extend_attention`` kernel.  The eager calls
+  update the page pool in place (the JAX engine donates its cache to a
+  jitted call instead).
 * RETIRE — committed tokens land in ``Request.generated``; EOS, budget,
   the ``max_len`` wall or cancellation free the slot and its pages.
+
+Speculative decoding (``spec_decode``, ``serving.spec_decode``): on a
+``model.spec_decodable`` config every wave is an extend wave.  The draft
+(an explicit ``draft=(cfg, params)``, the early-exit self-draft, or a
+registry smoke config drawn from a ``torch.Generator`` seeded with
+``ServeConfig.seed``) proposes up to ``spec_gamma - 1`` tokens per slot
+from its own dense cache; one ``extend_paged`` call verifies them; greedy
+or rejection-sampling acceptance commits ``n_accepted + 1`` tokens and
+``_truncate_slot`` returns the rejected tail's pages.  Greedy output is
+the vanilla engine's token for token.  ``quant_draft`` quantizes the
+draft's projection weights to int8 (``layers.quantize_matmul_params``),
+which then run through the hand-written ``quant_matmul`` kernel on the
+card.
 
 Paged KV: every slot holds an ordered list of pool pages
 (``kv_pool.KVBlockPool``), mirrored into the ``(max_slots, max_len //
@@ -51,9 +65,11 @@ match it in distribution only (the generators differ).
 
 Not ported yet — each raises ``NotImplementedError`` when its
 ``ServeConfig`` field is set: the radix prefix cache and its
-persistence, speculative decoding, int8 draft weights, tracing, and
-the dense ``paged=False`` twin.  ``prefix_cache`` defaults
-to True as in the JAX config, so callers pass ``prefix_cache=False``.
+persistence, tracing, and the dense ``paged=False`` twin.
+``prefix_cache`` defaults to True as in the JAX config, so callers pass
+``prefix_cache=False``.  Without the prefix cache no page is ever
+shared, so the JAX engine's copy-on-write backstop (``_cow_guard``) has
+nothing to do and is left out.
 """
 from __future__ import annotations
 
@@ -70,33 +86,72 @@ from repro_torch.devices import DeviceLike, resolve_device, tensor_device
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVBlockPool, PoolExhausted, \
     blocks_for_tokens, page_bytes
+from repro_torch.serving.spec_decode import (SpecDecoder, accept_greedy,
+                                             accept_proposals,
+                                             make_self_draft,
+                                             sample_from_logits,
+                                             validate_spec)
 from repro_torch.serving.telemetry import MetricsRegistry
 
 
 # ---------------------------------------------------------------------------
-# host-side sampling (copied from repro.serving.spec_decode)
+# per-slot rows of a dense cache (the draft's)
 # ---------------------------------------------------------------------------
 
-def processed_dist(logits: np.ndarray, temp: float, top_k: int) -> np.ndarray:
-    """The serving sampling distribution: top-k filter, then temperature
-    softmax, in float64."""
-    lg = np.asarray(logits, np.float64)
-    if top_k and top_k > 0:
-        thresh = np.sort(lg)[::-1][min(top_k, lg.size) - 1]
-        lg = np.where(lg < thresh, -np.inf, lg)
-    lg = lg / max(temp, 1e-6)
-    lg -= lg.max()
-    p = np.exp(lg)
-    return p / p.sum()
+# batch-axis discovery: the cache is built on the meta device at two
+# batch sizes and the batch axis is the one whose extent changed
+_PROBE_A, _PROBE_B = 3, 5
 
 
-def sample_from_logits(logits: np.ndarray, temp: float, top_k: int,
-                       rng) -> int:
-    """Greedy argmax at temp<=0, else a draw from ``processed_dist``."""
-    if temp <= 0:
-        return int(np.argmax(logits))
-    p = processed_dist(logits, temp, top_k)
-    return int(rng.choice(p.size, p=p))
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _diff_axis(a, b) -> int:
+    """Axis where the two probe shapes differ; -1 when none does (a
+    batchless shared-pool leaf)."""
+    diffs = [i for i, (p, q) in enumerate(zip(a.shape, b.shape)) if p != q]
+    if not diffs:
+        return -1
+    if len(diffs) > 1:
+        raise ValueError(
+            f"ambiguous batch axis: shapes {tuple(a.shape)} / "
+            f"{tuple(b.shape)} differ on {diffs}")
+    return diffs[0]
+
+
+def cache_batch_axes(cfg: ModelConfig, max_len: int):
+    """Nested dict of ints: which axis of each dense cache leaf is the
+    batch axis, found by building the cache (shapes only) at two batch
+    sizes."""
+    s1 = M.init_cache(cfg, _PROBE_A, max_len, device="meta")
+    s2 = M.init_cache(cfg, _PROBE_B, max_len, device="meta")
+    return _tree_map(_diff_axis, s1, s2)
+
+
+def insert_slot(cache, one, slot: int, axes):
+    """Copy a batch=1 cache ``one`` into row ``slot`` of the batched
+    ``cache`` IN PLACE (pool leaves, axis -1, are left untouched) and
+    return ``cache``."""
+    def put(full, single, ax):
+        if ax >= 0:
+            full.narrow(ax, slot, 1).copy_(single)
+    _tree_map(put, cache, one, axes)
+    return cache
+
+
+def extract_slot(cache, slot: int, axes):
+    """A copy of row ``slot`` of ``cache`` as a batch=1 cache (the
+    inverse of ``insert_slot``); pool leaves yield an empty
+    placeholder."""
+    return _tree_map(
+        lambda full, ax: (full.new_zeros((0,)) if ax < 0
+                          else full.narrow(ax, slot, 1).clone()),
+        cache, axes)
 
 
 @dataclass
@@ -123,9 +178,6 @@ _NOT_PORTED = {
     "prefix_cache": (False, "A.5 (prefix cache)"),
     "prefix_persist_path": (None, "A.5 (prefix-store persistence)"),
     "min_match_tokens": (1, "A.5 (prefix cache)"),
-    "spec_decode": (False, "A.6 (speculative decoding)"),
-    "draft_arch": (None, "A.6 (speculative decoding)"),
-    "quant_draft": (False, "A.6 + A.7 (int8 draft weights)"),
     "trace": (False, "A.8 (tracer)"),
     "trace_clock": (None, "A.8 (tracer)"),
 }
@@ -178,10 +230,14 @@ class ServeConfig:
 
 class EdgeServingEngine:
     """Continuous-batching decode engine for one model on one device
-    (``device`` default ``cuda``; ``params`` must lie there)."""
+    (``device`` default ``cuda``; ``params`` must lie there).
+
+    ``draft``: optional ``(draft_cfg, draft_params)`` for speculative
+    decoding, on the same device; it overrides
+    ``ServeConfig.draft_arch``."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, draft=None):
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -222,6 +278,7 @@ class EdgeServingEngine:
         self.K = max(scfg.spec_gamma, scfg.catch_chunk or 0)
         self.extend_ok = bool(M.extendable(cfg) and self.K >= 2)
         self.chunked = bool(scfg.chunked_prefill)
+        self.spec = self._make_spec(draft)
         self.tokens = np.zeros((B, 1), np.int32)
         self.pos = np.zeros((B,), np.int32)
         self.temps = np.zeros((B,), np.float32)
@@ -246,8 +303,56 @@ class EdgeServingEngine:
         self.peak_pool_used = 0
         self.exhaust_preempts = 0
         self.reclaims = 0
+        # speculative decoding: rounds = (slot, wave) drafting
+        # participations; emitted includes each round's correction/bonus
+        self.spec_steps = 0
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
         self.metrics = MetricsRegistry()
         self._legacy_stats = self._register_metrics()
+
+    def _make_spec(self, draft) -> Optional[SpecDecoder]:
+        """The draft runtime, or None.  Speculation engages only on a
+        ``model.spec_decodable`` config (a quiet vanilla fallback
+        otherwise, as in JAX); an incompatible draft or gamma, and
+        ``quant_draft`` without a separate draft, are errors."""
+        scfg, cfg, dev = self.scfg, self.cfg, self.device
+        if not (scfg.spec_decode and M.spec_decodable(cfg)):
+            if scfg.quant_draft and not scfg.spec_decode:
+                raise ValueError("quant_draft without spec_decode: there "
+                                 "is no draft model to quantize")
+            return None
+        if draft is not None:
+            dcfg, dparams = draft
+            ddev = tensor_device(dparams)
+            if ddev is not None and ddev.type != dev.type:
+                raise ValueError(f"draft params lie on {ddev}, the engine "
+                                 f"runs on {dev}")
+        elif scfg.draft_arch in (None, "self"):
+            if scfg.quant_draft:
+                # the self-draft trunk IS the verify trunk (shared by
+                # reference): quantizing it would make a private copy
+                raise ValueError(
+                    "quant_draft requires a separate draft model "
+                    "(draft_arch or an explicit draft); the early-exit "
+                    "self-draft shares the verify trunk by reference")
+            dcfg, dparams = make_self_draft(cfg, self.params)
+        else:
+            from repro_torch.configs import get_smoke_config
+            dcfg = get_smoke_config(scfg.draft_arch)
+            gen = torch.Generator(device=dev).manual_seed(scfg.seed)
+            dparams = M.init_params(dcfg, gen, dev)
+        problems = validate_spec(cfg, dcfg, scfg.spec_gamma, scfg.max_len)
+        if problems:
+            raise ValueError("spec_decode misconfigured: "
+                             + "; ".join(problems))
+        if scfg.quant_draft:
+            from repro_torch.models.layers import quantize_matmul_params
+            dparams = quantize_matmul_params(dparams)
+        return SpecDecoder(dcfg, dparams, scfg.max_slots, scfg.max_len,
+                           device=dev)
 
     # ------------------------------------------------------------------
     # admission
@@ -349,6 +454,8 @@ class EdgeServingEngine:
         if need:  # feasibility pre-checked by the admission scan
             blocks += self.pool.alloc(need)
         self._set_table(slot, blocks)
+        if self.spec is not None:
+            self.spec.insert(slot, st.get("draft"))
         self.pos[slot] = st["pos"]
         self.tokens[slot, 0] = st["last_tok"]
         self.pending[slot] = st["pending"]
@@ -361,6 +468,10 @@ class EdgeServingEngine:
         ``_ensure_blocks`` allocates its pages."""
         self._set_table(slot, [])
         prompt = np.asarray(req.prompt, np.int32)
+        if self.spec is not None:
+            # the draft prefills the full prompt (it never chunks), so
+            # the slot is draft-complete once its prompt is consumed
+            self.spec.admit_group([req], [slot])
         self.pos[slot] = 0
         self.tokens[slot, 0] = int(prompt[0])
         self.pending[slot] = prompt[1:]
@@ -442,6 +553,11 @@ class EdgeServingEngine:
                                device=dev),
             write_tables=torch.from_numpy(tables).to(dev),
             true_len=torch.from_numpy(true_len).to(dev))
+        if self.spec is not None:
+            # the draft prefills the FULL prompt (it never chunks), so
+            # catch-up slots are draft-complete once their prompt is in
+            self.spec.admit_group([r for r, _ in group],
+                                  [s for _, s in group])
         logits_host = logits[:, -1].float().cpu().numpy()      # (m, V)
         for i, (req, slot) in enumerate(group):
             n1 = int(true_len[i])
@@ -564,8 +680,14 @@ class EdgeServingEngine:
                             "uid": r.uid})
         widths = plan_wave(self.scfg.policy, entries,
                            self.scfg.wave_tokens, metrics=self.metrics)
-        return {s: (mode, min(want, widths[s]))
-                for s, (mode, want) in plan.items()}
+        out = {}
+        for s, (mode, want) in plan.items():
+            v = min(want, widths[s])
+            if mode == "spec" and v < 2:
+                # a 1-wide speculative round is just a decode
+                mode, v = "plain", 1
+            out[s] = (mode, v)
+        return out
 
     def _record_plan(self, plan: dict) -> None:
         """Keep the committed plan (``last_plan``) and count waves where
@@ -577,12 +699,14 @@ class EdgeServingEngine:
 
     def step(self) -> int:
         """ONE step of the serving core: admit, plan, one wave (extend
-        while any slot catches up, decode otherwise), retire.  When
+        while any slot speculates or catches up, decode otherwise),
+        retire.  When
         nothing stepped, requests are queued and detached requests hold
         every page, the worst-ranked holder is reclaimed.  Returns the
         number of active slots stepped (0 = idle)."""
         self._admit_batch()
-        if self.extend_ok and self._has_pending():
+        if self.extend_ok and (self.spec is not None
+                               or self._has_pending()):
             stepped = self._extend_step()
         else:
             stepped = self._decode_wave()
@@ -644,11 +768,42 @@ class EdgeServingEngine:
         self.decode_waves += 1
         return n_active
 
+    def _truncate_slot(self, slot: int) -> None:
+        """KV rollback: free the slot's pages past its write frontier
+        (block-boundary granular).  Rejected verify writes above ``pos``
+        are already invisible (every context read masks strictly below
+        the frontier), so rollback returns whole tail pages and keeps
+        the partial one the next write lands in."""
+        keep = blocks_for_tokens(int(self.pos[slot]) + 1, self.block_size)
+        blocks = self.slot_blocks[slot]
+        if len(blocks) > keep:
+            self.pool.free(blocks[keep:])
+            self._set_table(slot, blocks[:keep])
+
+    def _retire(self, s: int, req: Request, tok: int) -> None:
+        """Commit one sampled token to slot ``s`` (already advanced);
+        finish on budget, EOS or the ``max_len`` wall."""
+        self.tokens[s, 0] = tok
+        req.generated.append(tok)
+        eos = self.scfg.eos_id
+        if (len(req.generated) >= req.max_new_tokens
+                or (eos >= 0 and tok == eos)
+                or int(self.pos[s]) >= self.scfg.max_len - 1):
+            self._finish(s, req)
+
     def _extend_step(self) -> int:
-        """One multi-token wave: ``catch`` slots teacher-force up to
-        ``K`` pending prompt tokens (sampled rows discarded until the
-        prompt is consumed), ``plain`` slots ride along at width 1."""
+        """One multi-token wave: plan per-slot widths, draft proposals
+        for speculative slots, verify/teacher-force everything in a
+        single ``extend_paged`` call, then accept and roll back.
+
+        Slot modes — ``spec`` (no pending prompt, speculative engine):
+        feed ``[t0, d_1..d_{v-1}]``, judge the proposals, emit
+        ``n_accepted + 1`` tokens; ``catch``: teacher-force up to ``K``
+        pending prompt tokens (sampled rows discarded until the prompt
+        is consumed); ``plain``: one decode token (a slot out of room
+        for proposals, or a vanilla engine's decoding slot)."""
         B, K = self.scfg.max_slots, self.K
+        gamma = self.scfg.spec_gamma
         eos = self.scfg.eos_id
         plan: dict[int, tuple] = {}
         for s in range(B):
@@ -657,8 +812,12 @@ class EdgeServingEngine:
             pend = self.pending[s]
             npend = 0 if pend is None else int(pend.size)
             room = self.scfg.max_len - 1 - int(self.pos[s])
-            plan[s] = (("catch", max(1, min(1 + npend, K, room))) if npend
-                       else ("plain", 1))
+            if npend:
+                plan[s] = ("catch", max(1, min(1 + npend, K, room)))
+            elif self.spec is not None and min(gamma, room) >= 2:
+                plan[s] = ("spec", min(gamma, room))
+            else:
+                plan[s] = ("plain", 1)
         plan = self._apply_budget(plan)
         self._ensure_blocks({s: v for s, (_, v) in plan.items()})
         plan = {s: p for s, p in plan.items() if self.active[s]}
@@ -669,16 +828,30 @@ class EdgeServingEngine:
         self.peak_active = max(self.peak_active, n_active)
         self.peak_pool_used = max(self.peak_pool_used, self.pool.num_used)
 
+        spec_slots = [s for s, (m, _) in plan.items() if m == "spec"]
+        proposals, dists = {}, {}
+        if spec_slots:
+            # draft only as wide as the widest planned spec span: a
+            # budget-shrunk round must not burn draft steps it cannot
+            # verify
+            k_spec = max(v for m, v in plan.values() if m == "spec")
+            proposals, dists = self.spec.propose(
+                spec_slots, self.tokens[:, 0], self.temps, self.topks,
+                k_spec, self._rng)
+
         fed = np.zeros((B, K), np.int32)
         valid = np.ones((B,), np.int32)
         for s, (mode, v) in plan.items():
             seq = [int(self.tokens[s, 0])]
             if mode == "catch":
                 seq += [int(t) for t in self.pending[s][:v - 1]]
+            elif mode == "spec":
+                seq += proposals[s][:v - 1]
             fed[s, :len(seq)] = seq
             fed[s, len(seq):] = seq[-1]       # pad (write-dropped)
             valid[s] = v
 
+        # all-greedy waves bring only the (B, K) argmax ids to the host
         need_logits = bool((self.temps[self.active] > 0).any())
         fed_t, pos_t, valid_t, tables = self._device_tensors(
             fed, self.pos, valid, self.block_tables)
@@ -693,6 +866,7 @@ class EdgeServingEngine:
             return sample_from_logits(logits[s, row], temp, top_k,
                                       self._rng)
 
+        any_spec = False
         for s in range(B):
             if s not in plan or not self.active[s]:
                 continue
@@ -702,25 +876,55 @@ class EdgeServingEngine:
             if mode == "catch":
                 self.pos[s] += v
                 rest = self.pending[s][v - 1:]
-                out_of_room = int(self.pos[s]) >= self.scfg.max_len - 1
                 if rest.size:
                     self.tokens[s, 0] = int(rest[0])
                     self.pending[s] = rest[1:]
-                    if out_of_room:
+                    if int(self.pos[s]) >= self.scfg.max_len - 1:
                         self._finish(s, req)
                     continue
                 self.pending[s] = None
-                tok = sample(s, v - 1, temp, top_k)
-            else:
+                self._retire(s, req, sample(s, v - 1, temp, top_k))
+                continue
+            if mode == "plain":
                 self.pos[s] += 1
-                out_of_room = int(self.pos[s]) >= self.scfg.max_len - 1
-                tok = sample(s, 0, temp, top_k)
-            self.tokens[s, 0] = tok
-            req.generated.append(tok)
-            hit_eos = eos >= 0 and tok == eos
-            if (len(req.generated) >= req.max_new_tokens or hit_eos
-                    or out_of_room):
+                self._retire(s, req, sample(s, 0, temp, top_k))
+                continue
+            # speculative round
+            any_spec = True
+            if temp <= 0:
+                n_acc, emitted = accept_greedy(proposals[s][:v - 1],
+                                               greedy[s, :v])
+            else:
+                n_acc, emitted = accept_proposals(
+                    proposals[s][:v - 1], dists[s][:v - 1],
+                    logits[s, :v], temp, top_k, self._rng)
+            self.spec.advance(s, n_acc + 1)
+            self.spec_rounds += 1
+            self.spec_proposed += v - 1
+            self.spec_accepted += n_acc
+            # acceptance by draft depth (registry counters)
+            for j in range(v - 1):
+                self.metrics.counter(f"spec.depth{j}.proposed").inc()
+            for j in range(n_acc):
+                self.metrics.counter(f"spec.depth{j}.accepted").inc()
+            # budget / EOS truncation (both finish the request)
+            emit = emitted[:req.max_new_tokens - len(req.generated)]
+            if eos >= 0 and eos in emit:
+                emit = emit[:emit.index(eos) + 1]
+            req.generated.extend(emit)
+            self.spec_emitted += len(emit)
+            # frontier: every emitted token but a final correction/bonus
+            # was fed (and written) this wave
+            self.pos[s] += min(len(emit) + 1, n_acc + 1)
+            if (len(req.generated) >= req.max_new_tokens
+                    or (eos >= 0 and emit and emit[-1] == eos)
+                    or int(self.pos[s]) >= self.scfg.max_len - 1):
                 self._finish(s, req)
+            else:
+                self.tokens[s, 0] = emit[-1]
+                self._truncate_slot(s)   # rejected-tail pages back
+        if any_spec:
+            self.spec_steps += 1
         self.steps += 1
         self.extend_waves += 1
         return n_active
@@ -769,16 +973,37 @@ class EdgeServingEngine:
         legacy.update(pool_blocks="kv_pool.blocks",
                       pool_free="kv_pool.free",
                       pool_shared="kv_pool.shared")
-        if self.quant:
-            view("quant_kv", "quant.kv", lambda: self.scfg.quant_kv)
-            # int8 draft weights are not ported: never armed
-            view("quant_draft", "quant.draft", lambda: False)
+        if self.quant or self.scfg.quant_draft:
+            view("quant_kv", "quant.kv", lambda: self.scfg.quant_kv or "")
+            view("quant_draft", "quant.draft",
+                 lambda: bool(self.scfg.quant_draft
+                              and self.spec is not None))
             # capacity facts: bytes of one page under this layout vs f32
             view("quant_page_bytes", "quant.page_bytes",
                  lambda: page_bytes(self.cfg, self.block_size,
-                                    self.scfg.quant_kv))
+                                    self.scfg.quant_kv
+                                    if self.quant else None))
             view("quant_f32_page_bytes", "quant.f32_page_bytes",
                  lambda: page_bytes(self.cfg, self.block_size, None))
+        if self.scfg.spec_decode:
+            view("spec_active", "spec.active",
+                 lambda: self.spec is not None)
+            view("spec_steps", "spec.steps", lambda: self.spec_steps)
+            view("spec_rounds", "spec.rounds", lambda: self.spec_rounds)
+            view("spec_proposed", "spec.proposed",
+                 lambda: self.spec_proposed)
+            view("spec_accepted", "spec.accepted",
+                 lambda: self.spec_accepted)
+            view("spec_emitted", "spec.emitted", lambda: self.spec_emitted)
+            view("spec_acceptance", "spec.acceptance",
+                 lambda: self.spec_accepted / max(self.spec_proposed, 1))
+            # mean verify-model tokens per round per slot (1.0 = vanilla)
+            view("spec_tokens_per_round", "spec.tokens_per_round",
+                 lambda: self.spec_emitted / max(self.spec_rounds, 1))
+            # acceptance by draft depth, bumped in _extend_step
+            for j in range(max(self.scfg.spec_gamma - 1, 0)):
+                m.counter(f"spec.depth{j}.proposed")
+                m.counter(f"spec.depth{j}.accepted")
         # wave kinds (registry only): decode waves launch the paged
         # decode read once per layer
         view(None, "engine.decode_waves", lambda: self.decode_waves)
@@ -828,9 +1053,9 @@ class EdgeServingEngine:
         """Evict a running request, taking its decode position with it;
         its KV pages stay in the pool, DETACHED onto the request —
         re-submission restores the block table and resumes decode where
-        it stopped, with no re-prefill and no page copies.  (The dense
-        trunk keeps no per-slot cache rows, so there is nothing else to
-        save.)"""
+        it stopped, with no re-prefill and no page copies.  The dense
+        trunk keeps no per-slot cache rows; a speculative engine also
+        saves a copy of the slot's draft row and frontier."""
         req = self.slot_req[slot]
         if req is None:
             return None
@@ -840,6 +1065,8 @@ class EdgeServingEngine:
             "pending": self.pending[slot],
             "blocks": self.slot_blocks[slot],
         }
+        if self.spec is not None:
+            req.saved_state["draft"] = self.spec.extract(slot)
         self._set_table(slot, [])
         self.active[slot] = False
         self.slot_req[slot] = None

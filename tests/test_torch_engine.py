@@ -362,5 +362,9 @@ def test_quant_kv_config_errors(models):
     with pytest.raises(ValueError, match="quant_kv"):
         EdgeServingEngine(cfg, params, ServeConfig(**BASE, quant_kv="int4"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(**BASE, quant_kv="int8", quant_draft=True)
+    # quant_draft is ported: without spec_decode there is no draft to
+    # quantize, which the engine refuses as the JAX engine does
+    with pytest.raises(ValueError, match="quant_draft"):
+        EdgeServingEngine(cfg, params, ServeConfig(**BASE, quant_kv="int8",
+                                                   quant_draft=True),
+                          device="cpu")

@@ -39,6 +39,10 @@ def test_importing_every_module_loads_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["n"] >= 20
     assert res["bad"] == []
+    swept = set(_modules())
+    assert {"repro_torch.serving.spec_decode",
+            "repro_torch.kernels.quant_matmul",
+            "repro_torch.core.earlyexit"} <= swept
 
 
 def test_no_source_imports_jax_or_repro():
@@ -72,3 +76,6 @@ def test_kernel_sources_live_in_csrc():
     assert (PKG / "csrc" / "paged_attention.cu").exists()
     text = (PKG / "csrc" / "paged_attention.cu").read_text()
     assert "flash_attention.py" in text and "3.35 TB/s" in text
+    text = (PKG / "csrc" / "quant_matmul.cu").read_text()
+    assert "src/repro/kernels/quant_matmul.py" in text and "`_kernel`" in text
+    assert "3.35 TB/s" in text and "989 TFLOP/s" in text

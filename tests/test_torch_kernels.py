@@ -1,7 +1,7 @@
-"""The port's paged_attention and paged_extend_attention plain versions
-against the JAX oracles and the JAX Pallas kernels (run in interpret
-mode on the CPU, as ``tests/test_kernels.py`` runs them), plus the
-device dispatch.
+"""The port's paged_attention, paged_extend_attention and quant_matmul
+plain versions against the JAX oracles and the JAX Pallas kernels (run
+in interpret mode on the CPU, as ``tests/test_kernels.py`` runs them),
+plus the device dispatch.
 
 The hand-written CUDA kernel itself runs only on the card: its tests
 are in ``tests/test_torch_kernels_cuda.py``.  Inputs are made from a
@@ -11,6 +11,12 @@ against the Pallas kernel's online softmax the decode sweep of
 ``tests/test_kernels.py`` uses 2e-3, and so do the decode tests here;
 the extend read is held to the Pallas kernel at rtol=atol=1e-5 (its
 online softmax differs from the full softmax by float rounding only).
+``quant_matmul``: the port's plain version and the JAX oracle are the
+same float32 dequant product (rtol=atol=1e-5; a bfloat16 output within
+one bfloat16 step).  The Pallas kernel rounds x to bfloat16 first: fed x
+already rounded, it differs in summation order only (rtol=atol=1e-5);
+fed float32 x, each output lies within 2**-8 x (|x| @ |w|) of the plain
+version (a bfloat16 rounding moves each x by at most 2**-9 of itself).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +29,7 @@ from repro.models import layers as JL
 from repro_torch.kernels import build, checks, ops, ref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_extend_attention as pea
+from repro_torch.kernels import quant_matmul as qm
 
 SHAPES = [(3, 4, 2, 32, 12, 8, 4),       # B, H, K, hd, nB, bs, n_blk
           (2, 8, 8, 64, 10, 16, 2),
@@ -154,7 +161,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_build_path_is_keyed_by_source_hash():
     assert set(build.KERNELS) == {"paged_attention",
-                                  "paged_extend_attention"}
+                                  "paged_extend_attention", "quant_matmul"}
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR
@@ -296,3 +303,99 @@ def test_extend_shared_memory(G, S, hd, bs, fits):
         return
     with pytest.raises(ValueError, match="does not fit"):
         checks.shared_memory(pea.NAME, smem)
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul
+# ---------------------------------------------------------------------------
+
+def _qm_case(seed, m, k, n, bits=8):
+    """x at randn, a randn / sqrt(k) weight quantized per output channel
+    by the JAX host helper (outputs of order 1)."""
+    from repro.kernels.quant_matmul import quantize_weights
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) * k ** -0.5).astype(np.float32)
+    wq, scale = quantize_weights(jnp.asarray(w), bits)
+    return x, np.array(wq), np.array(scale)
+
+
+def _bf16_round(x):
+    return np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 64, 128), (3, 200, 72), (130, 96, 8),
+                                   (1, 33, 17)])
+@pytest.mark.parametrize("out_dtype", ["float32", "bfloat16"])
+def test_quant_matmul_ref_equals_jax_ref(m, k, n, out_dtype):
+    """Ragged shapes included (the Pallas kernel needs divisible blocks,
+    the oracle does not)."""
+    x, wq, scale = _qm_case(m * 7 + n, m, k, n)
+    mine = ref.quant_matmul_ref(torch.from_numpy(x), torch.from_numpy(wq),
+                                torch.from_numpy(scale),
+                                out_dtype=getattr(torch, out_dtype))
+    theirs = jax_ref.quant_matmul_ref(jnp.asarray(x), jnp.asarray(wq),
+                                      jnp.asarray(scale),
+                                      out_dtype=getattr(jnp, out_dtype))
+    assert str(mine.dtype) == f"torch.{out_dtype}"
+    tol = (dict(rtol=1e-5, atol=1e-5) if out_dtype == "float32"
+           else dict(rtol=2 ** -8, atol=1e-5))
+    np.testing.assert_allclose(mine.float().numpy(),
+                               np.asarray(theirs, np.float32), **tol)
+
+
+@pytest.mark.parametrize("m,k,n", [(32, 64, 128), (8, 512, 256),
+                                   (16, 128, 64)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_ref_close_to_pallas(m, k, n, bits):
+    """The Pallas kernel in interpret mode: on x rounded to bfloat16
+    beforehand it is the plain version up to summation order; on float32
+    x it is within the bfloat16-input bound."""
+    x, wq, scale = _qm_case(m + k + bits, m, k, n, bits)
+    t = [torch.from_numpy(a) for a in (wq, scale)]
+    xb = _bf16_round(x)
+    pallas = np.asarray(jax_ops.quant_matmul(
+        jnp.asarray(xb), jnp.asarray(wq), jnp.asarray(scale),
+        out_dtype=jnp.float32))
+    mine = ref.quant_matmul_ref(torch.from_numpy(xb), *t,
+                                out_dtype=torch.float32).numpy()
+    np.testing.assert_allclose(mine, pallas, rtol=1e-5, atol=1e-5)
+    pallas32 = np.asarray(jax_ops.quant_matmul(
+        jnp.asarray(x), jnp.asarray(wq), jnp.asarray(scale),
+        out_dtype=jnp.float32))
+    mine32 = ref.quant_matmul_ref(torch.from_numpy(x), *t,
+                                  out_dtype=torch.float32).numpy()
+    bound = 2 ** -8 * (np.abs(x) @ np.abs(wq * scale[None, :])) + 1e-6
+    assert (np.abs(mine32 - pallas32) <= bound).all()
+    assert np.abs(mine32 - pallas32).max() > 0     # the rounding is seen
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_weights_equal_jax(bits):
+    from repro.kernels.quant_matmul import quantize_weights
+    w = np.random.default_rng(bits).standard_normal((64, 48)).astype(
+        np.float32)
+    q, s = qm.quantize_weights(torch.from_numpy(w), bits)
+    jq, js = quantize_weights(jnp.asarray(w), bits)
+    assert q.dtype == torch.int8 and s.dtype == torch.float32
+    assert np.array_equal(q.numpy(), np.asarray(jq))
+    assert np.array_equal(s.numpy(), np.asarray(js))
+
+
+def test_quant_matmul_cpu_tensors_dispatch_to_plain_version():
+    x, wq, scale = [torch.from_numpy(a) for a in _qm_case(1, 4, 64, 72)]
+    qm.launches = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        out = ops.quant_matmul(x.to(dtype), wq, scale, out_dtype=dtype)
+        assert out.dtype == dtype
+        assert torch.equal(out, ref.quant_matmul_ref(x.to(dtype), wq, scale,
+                                                     out_dtype=dtype))
+    assert qm.launches == 0
+
+
+def test_quant_matmul_kernel_wrapper_refuses_cpu_tensors():
+    x, wq, scale = [torch.from_numpy(a) for a in _qm_case(1, 4, 64, 72)]
+    qm.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        qm.quant_matmul(x, wq, scale)
+    assert qm.launches == 0

@@ -1,5 +1,6 @@
-"""The hand-written ``paged_attention`` and ``paged_extend_attention``
-CUDA kernels against their plain PyTorch versions, on the card.
+"""The hand-written ``paged_attention``, ``paged_extend_attention`` and
+``quant_matmul`` CUDA kernels against their plain PyTorch versions, on
+the card.
 
 Marked ``cuda``: without a GPU every test skips with a reason (the check
 happens inside the fixture, never at import).  On the GPU host:
@@ -18,13 +19,18 @@ rounded once to bfloat16, so it lies within one bfloat16 step of it
 (rtol=2**-8, atol=1e-5).
 Queries at 3 x randn make each softmax peaked, so a skipped page, a
 wrong head or a wrong row length moves the output far past these
-tolerances.
+tolerances.  ``quant_matmul`` is fed x already rounded to bfloat16 (the
+kernel rounds x, the plain version does not), so only the summation
+order differs: float32 outputs of order 1 within rtol=atol=1e-4, and a
+bfloat16 output within one bfloat16 step of the float32 result
+(rtol=2**-8, atol=1e-4).
 """
 import pytest
 import torch
 
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_extend_attention as pea
+from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.cuda
@@ -293,3 +299,89 @@ def test_extend_wrapper_refuses_shapes_that_do_not_fit(device):
     with pytest.raises(ValueError, match="does not fit"):
         pea.paged_extend_attention(*args, scale=1.0)
     assert pea.launches == before
+
+
+# ---------------------------------------------------------------------------
+# quant_matmul
+# ---------------------------------------------------------------------------
+
+QM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+          torch.bfloat16: dict(rtol=2 ** -8, atol=1e-4)}
+
+
+def _qm_case(device, M, K, N, x_dtype, seed=0):
+    """x at randn rounded to bfloat16 (then held in ``x_dtype``), and a
+    randn / sqrt(K) weight quantized per output channel, so outputs are
+    of order 1."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((M, K), generator=g).to(torch.bfloat16).to(x_dtype)
+    w = torch.randn((K, N), generator=g) * K ** -0.5
+    wq, scale = qm.quantize_weights(w)
+    return x.to(device), wq.to(device), scale.to(device)
+
+
+@pytest.mark.parametrize("M", [1, 4, 16, 130])
+@pytest.mark.parametrize("K", [64, 200, 5120])
+@pytest.mark.parametrize("N", [8, 72, 1280])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quant_matmul_matches_plain_version(device, M, K, N, x_dtype):
+    """Both kernels (M <= 8 and M > 8) over ragged K and N; out_dtype is
+    x's, as ``weight_einsum`` asks."""
+    x, wq, scale = _qm_case(device, M, K, N, x_dtype, seed=M + K + N)
+    before = qm.launches
+    out = qm.quant_matmul(x, wq, scale, out_dtype=x_dtype)
+    torch.cuda.synchronize()
+    assert qm.launches == before + 1
+    assert out.dtype == x_dtype and out.shape == (M, N)
+    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+    torch.testing.assert_close(out.float(), exp, **QM_TOL[x_dtype])
+
+
+def test_quant_matmul_rounds_x_to_bfloat16(device):
+    """On float32 x the kernel computes with x rounded to bfloat16, as
+    the TPU kernel does: it matches the plain version on the rounded x,
+    not on x."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    x = torch.randn((4, 512), generator=g).to(device)
+    w = torch.randn((512, 64), generator=g) * 512 ** -0.5
+    wq, scale = [t.to(device) for t in qm.quantize_weights(w)]
+    out = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+    xb = x.to(torch.bfloat16).float()
+    torch.testing.assert_close(
+        out, ref.quant_matmul_ref(xb, wq, scale, out_dtype=torch.float32),
+        **QM_TOL[torch.float32])
+    assert float((out - ref.quant_matmul_ref(x, wq, scale,
+                                             out_dtype=torch.float32))
+                 .abs().max()) > 1e-4
+
+
+def test_quant_matmul_unaligned_weight_rows(device):
+    """A weight that starts 1 byte past an aligned base takes the masked
+    scalar loads, with the same result."""
+    x, wq, scale = _qm_case(device, 4, 96, 80, torch.float32, seed=5)
+    flat = torch.empty(wq.numel() + 1, dtype=torch.int8, device=device)
+    shifted = flat[1:].view(wq.shape)
+    shifted.copy_(wq)
+    for M in (4, 40):
+        xm = x.repeat(M // 4, 1).contiguous()
+        torch.testing.assert_close(
+            qm.quant_matmul(xm, shifted, scale, out_dtype=torch.float32),
+            qm.quant_matmul(xm, wq, scale, out_dtype=torch.float32))
+
+
+def test_quant_matmul_wrapper_rejects_bad_arguments(device):
+    x, wq, scale = _qm_case(device, 4, 64, 72, torch.float32)
+    call = qm.quant_matmul
+    with pytest.raises(ValueError, match="CUDA"):
+        call(x.cpu(), wq, scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(x, wq.t().contiguous().t(), scale)
+    with pytest.raises(TypeError, match="int8"):
+        call(x, wq.float(), scale)
+    with pytest.raises(ValueError, match="scale"):
+        call(x, wq, scale[:-1])
+    with pytest.raises(ValueError, match="x must be"):
+        call(x[:, :-1].contiguous(), wq, scale)
+    with pytest.raises(TypeError, match="out_dtype"):
+        call(x, wq, scale, out_dtype=torch.float16)

@@ -408,12 +408,146 @@ def test_embed_and_unembed(cfgs):
 
 
 def test_weight_einsum():
+    """Float weights, and an int8 {"q", "scale"} leaf, which the port
+    takes now: on CPU tensors both equal the JAX function's result."""
     rng = _rng(18)
     x, w = _f32(rng, 2, 3, 8), _f32(rng, 8, 2, 4)
     _close(L.weight_einsum("bsd,dhq->bshq", _t(x), _t(w)),
            JL.weight_einsum("bsd,dhq->bshq", _j(x), _j(w)))
-    with pytest.raises(NotImplementedError, match="int8"):
-        L.weight_einsum("bsd,dhq->bshq", _t(x), {"q": _t(w), "scale": None})
+    qw = JL.quantize_weight(jnp.asarray(w), 1, 2)
+    _close(L.weight_einsum("bsd,dhq->bshq", _t(x), _t(qw)),
+           JL.weight_einsum("bsd,dhq->bshq", _j(x), qw), **QTOL)
+
+
+# ---------------------------------------------------------------------------
+# int8 projection weights
+# ---------------------------------------------------------------------------
+
+# the same float32 dequant product on both sides, summed in another order
+QTOL = dict(rtol=1e-6, atol=1e-6)
+
+# every projection of the dense family: (equation, weight shape, x shape)
+_PROJ = {
+    "wq": ("bsd,dhq->bshq", (16, 4, 8), (2, 3, 16)),
+    "wk_seq": ("btd,dkq->btkq", (16, 2, 8), (2, 3, 16)),
+    "wk_decode": ("bsd,dkq->bskq", (16, 2, 8), (3, 1, 16)),
+    "wo": ("bshq,hqd->bsd", (4, 8, 16), (2, 3, 4, 8)),
+    "w_gate": ("bsd,df->bsf", (16, 40), (2, 3, 16)),
+    "w_down": ("bsf,fd->bsd", (40, 16), (2, 3, 40)),
+}
+_DIMS = {"wq": "wq", "wk_seq": "wk", "wk_decode": "wk", "wo": "wo",
+         "w_gate": "w_gate", "w_down": "w_down"}
+
+
+@pytest.mark.parametrize("name", sorted(_PROJ))
+def test_weight_einsum_quantized_matches_jax(name):
+    """A layer slice of a stacked int8 leaf, as the trunk loop takes it,
+    through every projection equation: the JAX function's CPU branch
+    (float32 dequant, float32 product) within 1e-6."""
+    eq, wshape, xshape = _PROJ[name]
+    rng = _rng(31)
+    stack = _f32(rng, 3, *wshape, s=wshape[0] ** -0.5)
+    x = _f32(rng, *xshape)
+    dims = JL.QUANT_WEIGHT_DIMS[_DIMS[name]]
+    jq = JL.quantize_weight(jnp.asarray(stack), *dims)
+    q = L.quantize_weight(torch.from_numpy(stack), *dims)
+    assert q["scale"].shape == tuple(jq["scale"].shape)
+    layer = {k: v[1] for k, v in q.items()}
+    jlayer = {k: v[1] for k, v in jq.items()}
+    out = L.weight_einsum(eq, _t(x), layer)
+    assert out.dtype == torch.float32
+    _close(out, JL.weight_einsum(eq, _j(x), jlayer), **QTOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_matmul_params_equal_jax(dtype):
+    """quantize_matmul_params of the phi3 smoke parameters: the same
+    keys and shapes as JAX's, the same int8 bytes and the same scales,
+    and the leaves it does not quantize shared, not copied."""
+    import jax
+    from repro.models import model as JM
+    from repro_torch.bridge import params_from_numpy
+    jcfg = jax_smoke_config("phi3-medium-14b").replace(param_dtype=dtype)
+    jparams = JM.init_params(jcfg, jax.random.PRNGKey(2))
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    jq = JL.quantize_matmul_params(jparams)
+    q = L.quantize_matmul_params(params)
+    jflat = dict(jax.tree_util.tree_flatten_with_path(jq)[0])
+    flat = dict(jax.tree_util.tree_flatten_with_path(
+        q, is_leaf=torch.is_tensor)[0])
+    assert flat.keys() == jflat.keys()
+    n_quant = 0
+    for path, leaf in flat.items():
+        theirs = np.asarray(jflat[path])
+        assert tuple(leaf.shape) == theirs.shape, path
+        if path[-1].key == "q":
+            n_quant += 1
+            assert leaf.dtype == torch.int8
+            assert np.array_equal(leaf.numpy(), theirs), path
+        elif path[-1].key == "scale" and path[-2].key in L.QUANT_WEIGHT_DIMS:
+            assert leaf.dtype == torch.float32
+            assert np.array_equal(leaf.numpy(), theirs), path
+    assert n_quant == 7
+    assert q["embed"]["table"] is params["embed"]["table"]
+    assert q["trunk"]["layers"]["ln1"]["scale"] is \
+        params["trunk"]["layers"]["ln1"]["scale"]
+
+
+# ---------------------------------------------------------------------------
+# dense decode cache
+# ---------------------------------------------------------------------------
+
+def test_init_kv_cache():
+    jcfg, cfg = PHI
+    mine = L.init_kv_cache(cfg, 3, 10, stack=(2,), device="cpu")
+    theirs = JL.init_kv_cache(jcfg, 3, 10, stack=(2,))
+    assert mine.keys() == theirs.keys()
+    for k in mine:
+        _exact(mine[k], theirs[k])
+        assert str(mine[k].dtype).replace("torch.", "") == \
+            str(theirs[k].dtype)
+
+
+def _dense_state(rng, cfg, B=3, T=12):
+    """A dense cache with rows at frontiers 5, 0 and 11 (the last at the
+    strip's end): written entries below each frontier, stale entries
+    from rejected writes above it (slots holding their positions)."""
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    k, v = _f32(rng, B, T, K, hd), _f32(rng, B, T, K, hd)
+    slots = np.full((B, T), -1, np.int32)
+    slots[0, :8] = np.arange(8)               # 5..7 are stale
+    slots[2, :11] = np.arange(11)
+    return {"k": k, "v": v, "slots": slots}, np.array([5, 0, 11], np.int32)
+
+
+@pytest.mark.parametrize("cfgs", [PHI, GEMMA], ids=["phi3", "gemma3"])
+def test_attention_decode_dense(cfgs):
+    """One token per row written in place at ``pos`` and read over the
+    slots in [0, pos]: the JAX output and returned cache."""
+    jcfg, cfg = cfgs
+    rng = _rng(40)
+    p = _attn_params(rng, cfg, qk_norm=cfg.use_qk_norm)
+    cache, pos = _dense_state(rng, cfg)
+    x = _f32(rng, 3, 1, cfg.d_model)
+    mine = _t(cache)
+    out, ret = L.attention_decode(cfg, _t(p), _t(x), mine,
+                                  torch.from_numpy(pos), is_global=True)
+    jout, jcache = JL.attention_decode(jcfg, _j(p), _j(x), _j(cache),
+                                       jnp.asarray(pos), is_global=True)
+    assert ret is mine
+    _close(out, jout)
+    for k in ("k", "v", "slots"):
+        _close(mine[k], jcache[k])
+
+
+def test_attention_decode_local_ring_raises():
+    _, cfg = GEMMA
+    cache, pos = _dense_state(_rng(41), cfg)
+    p = _t(_attn_params(_rng(42), cfg, qk_norm=True))
+    with pytest.raises(NotImplementedError, match="A.2"):
+        L.attention_decode(cfg, p, torch.zeros((3, 1, cfg.d_model)),
+                           _t(cache), torch.from_numpy(pos), is_global=False)
 
 
 # ---------------------------------------------------------------------------

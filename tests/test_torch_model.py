@@ -267,3 +267,116 @@ def test_default_device_raises_without_cuda():
         M.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         M.init_paged_cache(cfg, 2, 32, 4, 8)
+
+
+# ---------------------------------------------------------------------------
+# dense decode cache (the speculative draft's)
+# ---------------------------------------------------------------------------
+
+DENSE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _dense_close(cache, jcache):
+    assert cache.keys() == jcache.keys() == {"layers"}
+    assert cache["layers"].keys() == jcache["layers"].keys()
+    for key in ("k", "v"):
+        np.testing.assert_allclose(cache["layers"][key].numpy(),
+                                   np.asarray(jcache["layers"][key]),
+                                   **DENSE_TOL)
+    assert np.array_equal(cache["layers"]["slots"].numpy(),
+                          np.asarray(jcache["layers"]["slots"]))
+
+
+@pytest.fixture(scope="module")
+def dense_prefilled(models):
+    """Both models after a dense prefill of three ragged prompts (true
+    lengths 11, 16, 5 right-padded to 16 tokens) into caches of T."""
+    jcfg, jparams, cfg, params = models
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, cfg.vocab_size, (B, 16)).astype(np.int32)
+    true_len = np.array([11, 16, 5], np.int32)
+    jlog, jc = JM.prefill(jcfg, jparams, {"tokens": jnp.asarray(tokens)}, T,
+                          true_len=jnp.asarray(true_len))
+    log, c = M.prefill(cfg, params, {"tokens": torch.from_numpy(tokens)}, T,
+                       true_len=torch.from_numpy(true_len))
+    return dict(tokens=tokens, true_len=true_len, jlog=jlog, jc=jc,
+                log=log, c=c)
+
+
+def test_init_cache_matches_jax(models):
+    jcfg, _, cfg, _ = models
+    mine, theirs = M.init_cache(cfg, B, T, "cpu"), JM.init_cache(jcfg, B, T)
+    assert mine["layers"].keys() == theirs["layers"].keys()
+    for key, leaf in mine["layers"].items():
+        assert np.array_equal(leaf.numpy(), np.asarray(theirs["layers"][key]))
+
+
+def test_dense_prefill_true_len_matches_jax(dense_prefilled):
+    d = dense_prefilled
+    assert d["log"].shape == (B, 1, d["log"].shape[-1])
+    np.testing.assert_allclose(d["log"].numpy(), np.asarray(d["jlog"]),
+                               **DENSE_TOL)
+    _dense_close(d["c"], d["jc"])
+
+
+def test_dense_decode_step_matches_jax(models, dense_prefilled):
+    """Three decode steps from the prefilled caches, rows at their own
+    positions (the ragged true lengths): logits and caches stay JAX's."""
+    jcfg, jparams, cfg, params = models
+    d = dense_prefilled
+    c = {"layers": {k: v.clone() for k, v in d["c"]["layers"].items()}}
+    jc = d["jc"]
+    pos = d["true_len"].copy()
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        tok = rng.integers(0, cfg.vocab_size, (B, 1)).astype(np.int32)
+        jlog, jc = JM.decode_step(jcfg, jparams, jc, jnp.asarray(tok),
+                                  jnp.asarray(pos))
+        log, ret = M.decode_step(cfg, params, c, torch.from_numpy(tok),
+                                 torch.from_numpy(pos))
+        assert ret is c
+        np.testing.assert_allclose(log.numpy(), np.asarray(jlog),
+                                   **DENSE_TOL)
+        pos += 1
+    _dense_close(c, jc)
+
+
+def test_dense_decode_after_prefill_equals_forward(models):
+    """Prefill a 6-token prompt, then decode 4 tokens one at a time: each
+    step's logits are the full-sequence forward's at that position."""
+    _, _, cfg, params = models
+    rng = np.random.default_rng(5)
+    seq = torch.from_numpy(
+        rng.integers(0, cfg.vocab_size, (2, 10)).astype(np.int32))
+    full = M.forward(cfg, params, seq)
+    log, c = M.prefill(cfg, params, {"tokens": seq[:, :6]}, T)
+    np.testing.assert_allclose(log[:, 0].numpy(), full[:, 5].numpy(),
+                               **DENSE_TOL)
+    for i in range(6, 10):
+        log, c = M.decode_step(cfg, params, c, seq[:, i:i + 1],
+                               torch.full((2,), i, dtype=torch.int32))
+        np.testing.assert_allclose(log[:, 0].numpy(), full[:, i].numpy(),
+                                   **DENSE_TOL)
+
+
+def test_dense_cache_of_a_local_ring_config_raises():
+    cfg = get_smoke_config("gemma3-1b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.init_cache(cfg, 2, 32, "cpu")
+
+
+def test_scatter_cache_rows_matches_jax(models, dense_prefilled):
+    """Prefilled rows scattered into a 4-slot dense cache at slots
+    2, 0, 3 (in place on the port's side)."""
+    from repro.models import transformer as JT
+    from repro_torch.models import transformer as PT
+    jcfg, _, cfg, _ = models
+    d = dense_prefilled
+    slots = np.array([2, 0, 3], np.int32)
+    full = M.init_cache(cfg, 4, T, "cpu")
+    ret = PT.scatter_cache_rows(full, d["c"], torch.from_numpy(slots), 1)
+    theirs = JT.scatter_cache_rows(JM.init_cache(jcfg, 4, T), d["jc"],
+                                   jnp.asarray(slots), 1)
+    assert ret is full
+    _dense_close(full, theirs)
+    assert (full["layers"]["slots"][:, 1] == -1).all()
