@@ -22,9 +22,14 @@ non-zero without printing a result:
               decode shapes (M=4 against every projection of a
               phi3-medium-14b layer), its prefill shape (M=512, K=5120,
               N=17920) and a ragged one, x in bf16 and f32, with two
-              broken versions shown to fall far outside the tolerance.
+              broken versions shown to fall far outside the tolerance;
+              ``ssd_scan`` against the plain chunked path in float32 at
+              mamba2-370m's width (h=32, p=64, n=128, chunk 256) for b 1
+              and 4, l 16 / 256 / 300 / 1024, x in bf16 and f32, a split
+              sequence continued through ``h0``, and two broken versions
+              (state dropped between chunks, decay left out).
               Times the kernel, the plain version and a PyTorch library
-              call, next to the bound.
+              call (none for the scan), next to the bound.
 4. serve    — the first main path: phi3-medium-14b at full width and
               depth (bf16 weights from a seeded generator, ~29 GB)
               behind ``EdgeServingEngine`` with ``use_pallas_paged=True``
@@ -61,7 +66,20 @@ non-zero without printing a result:
               here around ``SpecDecoder``) runs its 7 x 8 projections
               through ``quant_matmul``.  Times one draft step with int8
               and with bf16 weights.
-9. reference — the phi3 smoke config at float32: the engine on the card
+9. serve_ssm — the fourth main path: mamba2-370m at full width and
+              depth (bf16, ~0.74 GB) behind the engine's pool-free path
+              (no page pool: ``eng.paged`` False) with
+              ``use_pallas_paged=True``, prefill buckets up to 1024, 8
+              greedy requests of 16-1000 prompt tokens x 32 new tokens:
+              every layer of every admission prefill (calls counted
+              around ``_admit_group``) scans through ``ssd_scan``, and no
+              paged or quant kernel launches.  Profiles one decode wave.
+10. model_ssm — one 4-row bucket-1024 ``ssm.prefill`` with ragged
+              ``true_len`` through the kernel and through the plain
+              chunked path at float32: logits and final states within
+              the stated share of their max, greedy tokens equal; one
+              bf16 prefill of each timed.
+11. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -69,7 +87,9 @@ non-zero without printing a result:
               speculative engine with an int8 draft on the card (the
               verify model's first layer of 2) must emit the CPU vanilla
               engine's tokens exactly on the float pool and meet the
-              int8 gate on the int8 pool.
+              int8 gate on the int8 pool; the mamba2 smoke config behind
+              the pool-free engine, with prompts past the largest
+              bucket, must emit the CPU's tokens on the card.
 
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
@@ -77,6 +97,7 @@ Before the last line it prints the kernels JSON object and the
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -123,6 +144,22 @@ QM_DECODE = {"wq / wo": (5120, 5120), "wk / wv": (5120, 1280),
              "w_gate / w_up": (5120, 17920), "w_down": (17920, 5120)}
 QM_PREFILL = (512, 5120, 17920)
 DRAFT_LAYERS = 8
+# the fourth main path: mamba2-370m behind the pool-free engine; prompts
+# of 513-1000 tokens walk 4 chunks of the scan in one admission prefill
+SSM_ARCH = "mamba2-370m"
+SSM_SERVE = dict(max_slots=4, max_len=2048, policy="priority",
+                 prefill_buckets=(16, 32, 64, 128, 256, 512, 1024))
+SSM_TRAFFIC = (8, 16, 1000, 32)               # requests, prompts, new
+# ssd_scan at mamba2-370m's width and the model's chunk (cfg.ssm_chunk)
+SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 256
+# the kernel against the plain chunked path, both float32 on the same
+# inputs: the same sums in another order (and exp of cumsum differences
+# taken from another cumsum order), of order 1e-6 x max |y|; allowed
+# 1e-4 x max |y|.  A bfloat16 y is that result rounded once: one
+# bfloat16 step (2**-8 of the value) on top
+SSD_F32_REL = 1e-4
+SSD_BF16_STEP = 2 ** -8
+SSD_BROKEN_MOVES = 0.1
 SPEC = dict(spec_decode=True, spec_gamma=4, quant_draft=True)
 # kernel vs gather read of the whole 40-layer model, as a share of
 # max |logit|: at float32 activations only the summation order differs;
@@ -153,6 +190,15 @@ def _sync(torch) -> None:
     """Bring a fault of the kernels launched so far to light here."""
     if torch.cuda.is_available():
         torch.cuda.synchronize()
+
+
+def _release(torch) -> None:
+    """Free what the last phase held before the next one measures its
+    peak memory: the call counters of ``_count_calls`` close reference
+    cycles through the engine they wrap, which only the cycle collector
+    frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _clock_ms() -> float:
@@ -622,7 +668,170 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-9
+# phase 3: ssd_scan against the plain chunked path
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(torch, b, l, dtype, *, seed=0, dev="cuda"):
+    """x, dt, A, B, C at mamba2-370m's width, with x, B and C as strided
+    views into one (b, l, h*p + 2n) tensor, as the model hands them to
+    the scan.  dt in [0.001, 0.021] and A in [-2, -0.5] keep a chunk's
+    decay at ~0.1, so the carried state moves the next chunk's rows by
+    about their own size: a dropped state or a missing decay shows."""
+    h, p, n = SSD_H, SSD_P, SSD_N
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xbc = torch.cat([torch.randn((b, l, h * p), generator=g),
+                     torch.randn((b, l, 2 * n), generator=g) * n ** -0.5],
+                    dim=-1).to(dtype).to(dev)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    B, C = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = (torch.rand((b, l, h), generator=g) * 0.02 + 0.001).to(dev)
+    A = -(torch.rand((h,), generator=g) * 1.5 + 0.5).to(dev)
+    return x, dt, A, B, C
+
+
+def _ssd_ops(b, l, h, p, n, Q) -> int:
+    """Operations one scan needs: per (b, h) chunk, the two intra-chunk
+    products over the causal pairs j <= i only, Q (Q + 1) / 2 of them,
+    at n (scores) and p (scores x x) multiply-adds each, plus the
+    inter-chunk product and the state update at Q p n each."""
+    nc = -(-l // Q)
+    return 2 * b * h * nc * (Q * (Q + 1) // 2 * (n + p) + 2 * Q * p * n)
+
+
+def _ssd_bound(b, l, h, p, n, Q, x_elt: int, rate="float32"):
+    """Least time (ms) of one scan: x, dt, A, B, C read once, y and the
+    float32 final state written once, against ``_ssd_ops`` at the peak
+    rate of ``rate``.  The row takes the float32 rate: the TPU kernel
+    and this port do the scan's math in float32 whatever the operands'
+    type; the bfloat16 tensor-core rate gives the bound of a kernel
+    that would run the products there."""
+    nbytes = (2 * b * l * h * p * x_elt + b * l * h * 4 + h * 4
+              + 2 * b * l * n * x_elt + b * h * p * n * 4)
+    return _roofline(nbytes, _ssd_ops(b, l, h, p, n, Q), rate)
+
+
+def _ssd_err(torch, got, want, dtype) -> tuple:
+    """(max |got - want|, whether it is within SSD_TOL): float32 within
+    SSD_F32_REL x max |want|; a bfloat16 y within one bfloat16 step of
+    each value on top of that."""
+    scale = float(want.abs().max())
+    diff = (got.float() - want).abs()
+    allowed = SSD_F32_REL * scale
+    if dtype == torch.bfloat16:
+        allowed = allowed + SSD_BF16_STEP * want.abs()
+    return float(diff.max()), bool((diff <= allowed).all())
+
+
+def check_ssd_scan(torch, ssd, ref, ssm, timer, dev="cuda"):
+    """Hold the kernel against the model's plain chunked path in float32
+    (``ssm.ssd_chunked`` without the kernel, on the same inputs rounded
+    to the kernel's input type) at b 1 and 4, l 16 / 256 / 300 (ragged)
+    / 1024 (4 chunks), x in bf16 and f32, at mamba2-370m's width and
+    chunk; a split sequence continued through ``h0`` must equal the
+    whole; two broken versions (the carried state dropped between
+    chunks, the decay left out) must land more than SSD_BROKEN_MOVES x
+    max |y| away.  Times the kernel, its plain version (the sequential
+    recurrence) and the plain chunked path at b=4, l=1024 (bf16, as the
+    model serves); no single PyTorch call computes this function."""
+    errs, worst = {}, 0.0
+    for b in (1, 4):
+        for l in (16, 256, 300, 1024):
+            for dt_name in ("bfloat16", "float32"):
+                dtype = getattr(torch, dt_name)
+                x, dt, A, B, C = _ssd_inputs(torch, b, l, dtype, seed=b * l,
+                                             dev=dev)
+                y, hf = ssd.ssd_scan(x, dt, A, B, C, chunk=SSD_CHUNK)
+                _sync(torch)
+                yr, hr = ssm.ssd_chunked(x.float(), dt, A, B.float(),
+                                         C.float(), SSD_CHUNK)
+                ey, oky = _ssd_err(torch, y, yr, dtype)
+                eh, okh = _ssd_err(torch, hf, hr, torch.float32)
+                if y.dtype != dtype or not (oky and okh) \
+                        or not bool(torch.isfinite(y.float()).all()):
+                    raise AssertionError(
+                        f"ssd_scan b={b} l={l} {dt_name}: |y - plain| "
+                        f"{ey}, |h - plain| {eh} (max |y| "
+                        f"{float(yr.abs().max())})")
+                errs[f"b{b} l{l} {dt_name}"] = {"y": ey, "h_final": eh}
+                worst = max(worst, ey)
+    # a split sequence: [0, 300) then [300, 1024) from its final state
+    for dt_name in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt_name)
+        x, dt, A, B, C = _ssd_inputs(torch, 4, 1024, dtype, seed=5, dev=dev)
+        y_all, h_all = ssm.ssd_chunked(x.float(), dt, A, B.float(),
+                                       C.float(), SSD_CHUNK)
+        _, h1 = ssd.ssd_scan(x[:, :300], dt[:, :300], A, B[:, :300],
+                             C[:, :300], chunk=SSD_CHUNK)
+        y2, h2 = ssd.ssd_scan(x[:, 300:], dt[:, 300:], A, B[:, 300:],
+                              C[:, 300:], chunk=SSD_CHUNK, h0=h1)
+        _sync(torch)
+        ey, oky = _ssd_err(torch, y2, y_all[:, 300:], dtype)
+        eh, okh = _ssd_err(torch, h2, h_all, torch.float32)
+        if not (oky and okh):
+            raise AssertionError(f"ssd_scan h0 continuation {dt_name}: "
+                                 f"|y - whole| {ey}, |h - whole| {eh}")
+        errs[f"h0 continuation {dt_name}"] = {"y": ey, "h_final": eh}
+
+    # broken versions, from the plain chunked path
+    x, dt, A, B, C = _ssd_inputs(torch, 4, 1024, torch.float32, seed=9,
+                                 dev=dev)
+    want, _ = ssm.ssd_chunked(x, dt, A, B, C, SSD_CHUNK)
+    got, _ = ssd.ssd_scan(x, dt, A, B, C, chunk=SSD_CHUNK)
+    scale = float(want.abs().max())
+    broken = {
+        "state_dropped": torch.cat([ssm.ssd_chunked(
+            x[:, i:i + SSD_CHUNK], dt[:, i:i + SSD_CHUNK], A,
+            B[:, i:i + SSD_CHUNK], C[:, i:i + SSD_CHUNK], SSD_CHUNK)[0]
+            for i in range(0, 1024, SSD_CHUNK)], dim=1),
+        "no_decay": ssm.ssd_chunked(x, dt, torch.zeros_like(A), B, C,
+                                    SSD_CHUNK)[0],
+    }
+    moves = {k: float((v - want).abs().max()) / scale
+             for k, v in broken.items()}
+    for k, v in moves.items():
+        if v <= SSD_BROKEN_MOVES or _ssd_err(torch, broken[k], want,
+                                             torch.float32)[1]:
+            raise AssertionError(f"ssd_scan: the broken version {k} moves "
+                                 f"y by only {v} x max |y|")
+    if not _ssd_err(torch, got, want, torch.float32)[1]:
+        raise AssertionError("ssd_scan: kernel off the plain chunked path")
+
+    # timing at the serving path's largest prefill, bf16 as served
+    b, l = 4, 1024
+    x, dt, A, B, C = _ssd_inputs(torch, b, l, torch.bfloat16, seed=7,
+                                 dev=dev)
+    ms = timer(torch, lambda i: ssd.ssd_scan(x, dt, A, B, C,
+                                             chunk=SSD_CHUNK))
+    plain_ms = timer(torch, lambda i: ref.ssd_scan_ref(x, dt, A, B, C),
+                     iters=3, warmup=1)
+    chunked_ms = timer(torch, lambda i: ssm.ssd_chunked(x, dt, A, B, C,
+                                                        SSD_CHUNK),
+                       iters=5, warmup=1)
+    Q = min(SSD_CHUNK, l)
+    bound_ms, bound_by = _ssd_bound(b, l, SSD_H, SSD_P, SSD_N, Q, 2)
+    tc_ms, tc_by = _ssd_bound(b, l, SSD_H, SSD_P, SSD_N, Q, 2, "bfloat16")
+    return {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:69",
+        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+    }, {"errors": errs,
+        "tolerance": f"{SSD_F32_REL} x max |y| (float32); plus one bf16 "
+        f"step ({SSD_BF16_STEP} x |y|) for a bf16 y",
+        "broken_moves_share_of_max_y": moves,
+        "row_shape": f"b={b} l={l} h={SSD_H} p={SSD_P} n={SSD_N} "
+        f"chunk={SSD_CHUNK}, bf16 x/B/C as strided views",
+        "ops": _ssd_ops(b, l, SSD_H, SSD_P, SSD_N, Q),
+        "bound_bf16_tensor_cores_ms": tc_ms,
+        "bound_bf16_tensor_cores_by": tc_by,
+        "plain": "ref.ssd_scan_ref, the sequential recurrence",
+        "chunked_path_ms": chunked_ms,
+        "library_call": "none: no single PyTorch call computes the scan"}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-12
 # ---------------------------------------------------------------------------
 
 def serve_phase(torch, kernels, serve, scale="full", dev="cuda"):
@@ -636,7 +845,7 @@ def serve_phase(torch, kernels, serve, scale="full", dev="cuda"):
     L = cfg.num_layers
     fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
         "paged_attention": L * eng.decode_waves,
-        "paged_extend_attention": 0, "quant_matmul": 0},
+        "paged_extend_attention": 0, "quant_matmul": 0, "ssd_scan": 0},
         needs=("paged_attention",))
     fields["init_s"] = init_s
     return eng, cfg, fields
@@ -652,28 +861,31 @@ def serve_int8_phase(torch, kernels, serve, eng0, cfg):
     L = cfg.num_layers
     return eng, _drive(torch, kernels, serve, eng, cfg, lambda: {
         "paged_attention": L * eng.decode_waves,
-        "paged_extend_attention": L * eng.extend_waves, "quant_matmul": 0},
+        "paged_extend_attention": L * eng.extend_waves, "quant_matmul": 0,
+        "ssd_scan": 0},
         needs=("paged_attention", "paged_extend_attention"))
 
 
-def _drive(torch, kernels, serve, eng, cfg, expected, needs):
-    """Serve the phase's traffic through ``eng`` with every kernel count
-    zeroed just before and read just after; check the output, that each
-    kernel made exactly the launches ``expected()`` gives after the run
-    (one per layer of each wave that reads through it), and that every
+def _drive(torch, kernels, serve, eng, cfg, expected, needs,
+           traffic=(N_REQ, MIN_PROMPT, MAX_PROMPT, MAX_NEW)):
+    """Serve the phase's traffic (requests, shortest and longest prompt,
+    new tokens) through ``eng`` with every kernel count zeroed just
+    before and read just after; check the output, that each kernel made
+    exactly the launches ``expected()`` gives after the run (one per
+    layer of each wave or prefill that goes through it), and that every
     kernel of ``needs`` — the phase's path — launched at all."""
     dev = eng.device
+    n_req, _, _, max_new = traffic
     if dev.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    reqs = serve.make_requests(cfg, N_REQ, MIN_PROMPT, MAX_PROMPT, MAX_NEW,
-                               SERVE["policy"])
+    reqs = serve.make_requests(cfg, *traffic, eng.scfg.policy)
     for mod in kernels.values():
         mod.launches = 0
     raw = serve.run_drain(eng, reqs)
     launches = {name: mod.launches for name, mod in kernels.items()}
     done = eng.completed
-    if len(done) != N_REQ or any(len(r.generated) != MAX_NEW for r in done):
+    if len(done) != n_req or any(len(r.generated) != max_new for r in done):
         raise AssertionError(f"serve: {len(done)} requests done, lengths "
                              f"{[len(r.generated) for r in done]}")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
@@ -685,15 +897,17 @@ def _drive(torch, kernels, serve, eng, cfg, expected, needs):
             f"decode and {eng.extend_waves} extend waves x "
             f"{cfg.num_layers} layers (expected {expect}, none 0 of "
             f"{needs})")
-    eng.pool.assert_consistent()
-    if eng.pool.num_free != eng.pool.num_blocks:
-        raise AssertionError(f"serve: {eng.pool.num_used} pages leaked")
+    if eng.paged:
+        eng.pool.assert_consistent()
+        if eng.pool.num_free != eng.pool.num_blocks:
+            raise AssertionError(f"serve: {eng.pool.num_used} pages leaked")
     ttft = raw["ttft_ms"]
     return {
-        "arch": ARCH, "depth": cfg.num_layers, "depth_cut": False,
+        "arch": cfg.name, "depth": cfg.num_layers, "depth_cut": False,
         "d_model": cfg.d_model, "params": cfg.param_count(),
         "param_dtype": cfg.param_dtype,
-        "kv_pool": str(eng.cache["layers"]["k"].dtype).replace("torch.", ""),
+        "kv_pool": (str(eng.cache["layers"]["k"].dtype).replace("torch.", "")
+                    if eng.paged else "none (pool-free)"),
         "requests": raw["requests"], "tokens": raw["tokens"],
         "steps": raw["decode_steps"], "decode_waves": eng.decode_waves,
         "extend_waves": eng.extend_waves, "elapsed_s": raw["elapsed_s"],
@@ -710,7 +924,11 @@ def _drive(torch, kernels, serve, eng, cfg, expected, needs):
 
 def _device_profile(torch, fn) -> dict:
     """One profiled call of ``fn``: wall ms, device-busy ms (sum of the
-    kernels' own times), idle share, and the top ops by device time."""
+    kernels' own times), idle share, and the top ops by device time.
+    Busy time sums the device events only: an operator's row repeats the
+    time of the kernels it launched, so summing every row counts each
+    kernel twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -724,7 +942,8 @@ def _device_profile(torch, fn) -> dict:
         return getattr(ev, "self_device_time_total",
                        getattr(ev, "self_cuda_time_total", 0.0))
     evs = sorted(prof.key_averages(), key=dev_us, reverse=True)
-    busy = sum(dev_us(e) for e in evs) / 1e3
+    busy = sum(dev_us(e) for e in evs if e.device_type != DeviceType.CPU) \
+        / 1e3
     if busy <= 0:
         return {"wall_ms": wall, "device_ms": "not measured"}
     return {"wall_ms": wall, "device_busy_ms": busy,
@@ -979,7 +1198,8 @@ def serve_spec_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
     fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
         "paged_attention": 0,
         "paged_extend_attention": L * eng.extend_waves,
-        "quant_matmul": 7 * DRAFT_LAYERS * sum(calls.values())},
+        "quant_matmul": 7 * DRAFT_LAYERS * sum(calls.values()),
+        "ssd_scan": 0},
         needs=("paged_extend_attention", "quant_matmul"))
     st = eng.stats()
     if st["spec_rounds"] < 1 or not st["quant_draft"] \
@@ -999,6 +1219,122 @@ def serve_spec_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
     fields["draft_step_profile_int8"] = _device_profile(
         torch, lambda: M.decode_step(dcfg, eng.spec.params, cache, tok, pos))
     return fields
+
+
+def serve_ssm_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
+    """Drive the fourth main path: mamba2-370m at full width and depth
+    behind the pool-free engine (``use_pallas_paged=True``: admission
+    prefills scan through ``ssd_scan``).  Admission prefill calls are
+    counted around the engine's ``_admit_group`` (one fused prefill each,
+    no pool to refuse a row), and ``ssd_scan`` must have launched once
+    per layer of each; no paged or quant kernel runs.  Also profiles one
+    4-row decode wave.  Returns (engine, cfg, phase fields)."""
+    clock = serve.default_clock
+    t0 = clock()
+    cfg, eng = serve.build_engine(SSM_ARCH, scale, SSM_SERVE, dev)
+    init_s = clock() - t0
+    if eng.paged or eng.pool is not None:
+        raise AssertionError("serve_ssm: the ssm engine has a page pool")
+    calls = {"_admit_group": 0}
+    _count_calls(eng, calls, calls)
+    L = cfg.num_layers
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_attention": 0, "paged_extend_attention": 0,
+        "quant_matmul": 0, "ssd_scan": L * calls["_admit_group"]},
+        needs=("ssd_scan",), traffic=SSM_TRAFFIC)
+    tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
+    pos = torch.zeros((4,), dtype=torch.int32, device=dev)
+
+    def wave():
+        return M.decode_step(cfg, eng.params, eng.cache, tok, pos)
+    fields.update(
+        init_s=init_s, paged=eng.paged, prefill_calls=calls["_admit_group"],
+        prefill_buckets=list(SSM_SERVE["prefill_buckets"]),
+        decode_wave_ms=cuda_ms(torch, lambda i: wave(), iters=10, warmup=2),
+        decode_wave_profile=_device_profile(torch, wave))
+    return eng, cfg, fields
+
+
+def model_ssm_phase(torch, M, eng, cfg, dev="cuda"):
+    """``ssm.prefill`` of one 4-row bucket-1024 batch with ragged
+    ``true_len`` through the kernel and through the plain chunked path:
+    at float32 activations the logits must agree within F32_REL_TOL x
+    max |logit|, every layer's final SSM state within F32_REL_TOL x max
+    |state|, and the greedy next tokens must be equal; then one such
+    prefill of each is timed at the serving bf16 activations."""
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1024), generator=g,
+                           dtype=torch.int32).to(dev)
+    true_len = torch.tensor([1000, 777, 513, 300], dtype=torch.int32,
+                            device=dev)
+    batch = {"tokens": tokens}
+
+    def run(c, use_kernel):
+        return M.prefill(c, eng.params, batch, SSM_SERVE["max_len"],
+                         true_len=true_len, use_kernel=use_kernel)
+    cfg32 = cfg.replace(dtype="float32")
+    ker, ker_cache = run(cfg32, True)
+    gat, gat_cache = run(cfg32, False)
+    ker, gat = ker[:, 0].float(), gat[:, 0].float()
+    if not bool(torch.isfinite(ker).all() and torch.isfinite(gat).all()):
+        raise AssertionError("model_ssm: non-finite logits")
+    scale = float(gat.abs().max())
+    d_logit = float((ker - gat).abs().max())
+    st_k, st_g = ker_cache["layers"]["ssm"], gat_cache["layers"]["ssm"]
+    st_scale = float(st_g.abs().max())
+    d_state = float((st_k - st_g).abs().max())
+    same = int((ker.argmax(-1) == gat.argmax(-1)).sum())
+    if d_logit > F32_REL_TOL * scale or d_state > F32_REL_TOL * st_scale \
+            or same != 4:
+        raise AssertionError(
+            f"model_ssm: kernel vs plain chunked prefill: logits differ by "
+            f"{d_logit} (max {scale}), states by {d_state} (max "
+            f"{st_scale}), greedy tokens agree {same}/4")
+    del ker_cache, gat_cache
+    times = {k: cuda_ms(torch, lambda i, k=k: run(cfg, k), iters=5, warmup=1)
+             for k in (True, False)}
+    return {"rows": 4, "bucket": 1024, "true_len": true_len.tolist(),
+            "max_abs_logit_f32": scale, "f32_kernel_vs_plain": d_logit,
+            "f32_tolerance": f"{F32_REL_TOL} x max |logit|",
+            "max_abs_state_f32": st_scale, "f32_state_kernel_vs_plain":
+            d_state, "state_tolerance": f"{F32_REL_TOL} x max |state|",
+            "greedy_agree_f32": f"{same}/4",
+            "prefill_ms_bf16_kernel": times[True],
+            "prefill_ms_bf16_plain_chunked": times[False],
+            "prefill_profile_bf16_kernel": _device_profile(
+                torch, lambda: run(cfg, True))}
+
+
+def reference_ssm(torch, serve_mod, get_smoke_config, ssd, dev="cuda"):
+    """The mamba2 smoke config at float32 behind the pool-free engine,
+    with prompts past the largest bucket (they catch up one token a
+    decode wave): the card (``ssd_scan``) and the CPU (the sequential
+    plain version) must emit the same greedy tokens."""
+    from repro_torch.models import model as M
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    cfg = get_smoke_config(SSM_ARCH).replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens, launches = {}, 0
+    for leg, leg_dev in (("cpu", "cpu"), ("card", dev)):
+        eng = EdgeServingEngine(cfg, _to(params, leg_dev), ServeConfig(
+            max_slots=3, max_len=192, prefix_cache=False,
+            use_pallas_paged=True, policy="priority",
+            prefill_buckets=(16, 32, 64)), device=leg_dev)
+        reqs = serve_mod.make_requests(cfg, 6, 4, 150, 8, "priority")
+        ssd.launches = 0
+        serve_mod.run_drain(eng, reqs)
+        tokens[leg] = {r.uid: list(r.generated) for r in eng.completed}
+        if leg == "card":
+            launches = ssd.launches
+            catch = max(len(r.prompt) for r in reqs) > 64
+    if tokens["card"] != tokens["cpu"] or len(tokens["cpu"]) != 6 \
+            or launches == 0 or not catch:
+        raise AssertionError(f"reference ssm: card tokens {tokens['card']} "
+                             f"vs CPU {tokens['cpu']}, {launches} ssd_scan "
+                             "launches")
+    return {"ssm_arch": f"{SSM_ARCH} smoke, float32",
+            "ssm_tokens_equal": True, "ssm_ssd_scan_launches": launches,
+            "ssm_longest_prompt_past_bucket_64": catch}
 
 
 def reference_phase(torch, M, serve_mod, get_smoke_config, qm, dev="cuda"):
@@ -1094,8 +1430,10 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_extend_attention as pea
     from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import serve
     from repro_torch.models import model as M
+    from repro_torch.models import ssm
 
     clock = serve.default_clock
     t_start = clock()
@@ -1118,10 +1456,12 @@ def main() -> int:
     t0 = clock()
     rows, details = {}, {}
     kernels = {"paged_attention": pa, "paged_extend_attention": pea,
-               "quant_matmul": qm}
+               "quant_matmul": qm, "ssd_scan": ssd}
     checks = {"paged_attention": check_paged_attention,
               "paged_extend_attention": check_paged_extend_attention,
-              "quant_matmul": check_quant_matmul}
+              "quant_matmul": check_quant_matmul,
+              "ssd_scan": lambda torch, k, r, t: check_ssd_scan(torch, k, r,
+                                                                ssm, t)}
     for name, check in checks.items():
         rows[name], details[name] = check(torch, kernels[name], ref, cuda_ms)
     emit("kernels", seconds=clock() - t0,
@@ -1141,7 +1481,7 @@ def main() -> int:
     for name, n in fields["launches"].items():
         launches[name] += n
     del eng
-    torch.cuda.empty_cache()
+    _release(torch)
     emit("serve_int8", seconds=clock() - t0, **fields)
 
     t0 = clock()
@@ -1149,18 +1489,31 @@ def main() -> int:
     emit("model_int8", seconds=clock() - t0, **fields)
     params = eng8.params
     del eng8
-    torch.cuda.empty_cache()
+    _release(torch)
 
     t0 = clock()
     fields = serve_spec_phase(torch, kernels, serve, M, params, cfg)
     for name, n in fields["launches"].items():
         launches[name] += n
     del params
-    torch.cuda.empty_cache()
+    _release(torch)
     emit("serve_spec", seconds=clock() - t0, **fields)
 
     t0 = clock()
+    eng_ssm, cfg_ssm, fields = serve_ssm_phase(torch, kernels, serve, M)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_ssm", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = model_ssm_phase(torch, M, eng_ssm, cfg_ssm)
+    del eng_ssm
+    _release(torch)
+    emit("model_ssm", seconds=clock() - t0, **fields)
+
+    t0 = clock()
     fields = reference_phase(torch, M, serve, get_smoke_config, qm)
+    fields.update(reference_ssm(torch, serve, get_smoke_config, ssd))
     emit("reference", seconds=clock() - t0, **fields)
 
     emit("done", seconds=clock() - t_start)
@@ -1168,7 +1521,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name, row in rows.items():
-        # main-path launches: the three serve phases, each counted from 0
+        # main-path launches: the four serve phases, each counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))

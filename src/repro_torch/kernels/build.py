@@ -29,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 KERNELS = {
     "paged_attention": ("paged_attention.cu", {
         "repro_paged_attention": (
@@ -46,6 +47,15 @@ KERNELS = {
              _I, _I, _I, _I, _I, _I, _I,          # B S H K hd bs n_blk
              _F, _F,                              # scale softcap
              _I, _I,                              # q dtype, page dtype
+             _P],                                 # stream
+            _I),
+    }),
+    "ssd_scan": ("ssd_scan.cu", {
+        "repro_ssd_scan": (
+            [_P, _P, _P, _P, _P, _P, _P, _P,      # x dt A B C h0 y hout
+             _I, _I, _I, _I, _I, _I,              # batch L H P N Q
+             _L, _L, _L, _L, _L, _L, _L, _L,      # x dt B C batch/row strides
+             _I,                                  # dtype of x, B, C, y
              _P],                                 # stream
             _I),
     }),

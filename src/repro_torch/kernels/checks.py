@@ -12,16 +12,18 @@ SMEM_LIMIT = 232_448           # bytes of shared memory a block may use
 MAX_HEAD_DIM = 256
 
 
-def on_one_cuda_device(kernel: str, tensors: dict, device) -> None:
-    """Every tensor of ``tensors`` ({name: tensor}) is a contiguous
-    tensor on the CUDA device ``device``."""
+def on_one_cuda_device(kernel: str, tensors: dict, device,
+                       contiguous: bool = True) -> None:
+    """Every tensor of ``tensors`` ({name: tensor}) is a tensor on the
+    CUDA device ``device``, and a contiguous one unless ``contiguous`` is
+    False."""
     for name, t in tensors.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{kernel}: {name} must be a tensor")
         if t.device.type != "cuda" or t.device != device:
             raise ValueError(f"{kernel}: {name} is on {t.device}; "
                              f"the kernel takes tensors on one CUDA device")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 

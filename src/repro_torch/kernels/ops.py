@@ -13,6 +13,7 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import paged_extend_attention as _pea
 from repro_torch.kernels import quant_matmul as _qm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def quant_matmul(x, wq, scale, out_dtype=torch.bfloat16):
@@ -57,3 +58,17 @@ def paged_extend_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
         return ref.paged_extend_attention_ref(*args, **kw)
     raise ValueError(f"paged_extend_attention: no kernel for device "
                      f"{q.device}")
+
+
+def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, h0=None):
+    """Mamba2 SSD scan: (y (b, l, h, p) in x's dtype, final state
+    (b, h, p, n) float32); see ``ref.ssd_scan_ref`` for the semantics.
+    The kernel walks chunks of ``min(chunk, l)`` positions (``chunk``
+    changes the summation order only; the models pass
+    ``cfg.ssm_chunk``); the plain version, which CPU tensors take, runs
+    the recurrence one position at a time."""
+    if x.device.type == "cuda":
+        return _ssd.ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0)
+    if x.device.type == "cpu":
+        return ref.ssd_scan_ref(x, dt, A, B, C, h0=h0)
+    raise ValueError(f"ssd_scan: no kernel for device {x.device}")

@@ -106,3 +106,30 @@ def paged_extend_attention_ref(q, k_pages, v_pages, k_new, v_new,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", p, v_all)
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def ssd_scan_ref(x, dt, A, B, C, h0=None):
+    """Sequential SSD recurrence (the definition, O(l) steps).
+
+    x (b,l,h,p); dt (b,l,h) post-softplus; A (h,) negative; B, C (b,l,n)
+    (one group, shared by every head); h0 (b,h,p,n) or None.  Per step
+    the float32 state decays by ``exp(dt * A)`` and takes
+    ``dt * x ⊗ B``; ``y = state · C``.  Returns (y (b,l,h,p) in
+    ``x.dtype``, final state (b,h,p,n) float32).  No chunking: the
+    chunk width of the kernel changes the summation order only.
+    """
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    hs = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+          if h0 is None else h0.float())
+    xf, dtf, Bf, Cf, Af = x.float(), dt.float(), B.float(), C.float(), \
+        A.float()
+    ys = []
+    for t in range(l):
+        a = torch.exp(dtf[:, t] * Af)                        # (b,h)
+        upd = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], Bf[:, t])
+        hs = hs * a[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", hs, Cf[:, t]))
+    y = (torch.stack(ys, dim=1) if ys
+         else torch.zeros((b, 0, h, p), dtype=torch.float32, device=x.device))
+    return y.to(x.dtype), hs

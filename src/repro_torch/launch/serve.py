@@ -1,14 +1,16 @@
-"""Serve a model through the port's paged engine: the drain-mode CLI
-(PyTorch port of ``repro.launch.serve``; the asyncio frontend is a later
-slice).
+"""Serve a model through the port's engine: the drain-mode CLI (PyTorch
+port of ``repro.launch.serve``; the asyncio frontend is a later slice).
 
     python -m repro_torch.launch.serve --arch phi3-medium-14b --scale full
+    python -m repro_torch.launch.serve --arch mamba2-370m --scale full
 
 submits ``--requests`` random prompts, steps the engine until it drains
 and prints one JSON line (the JAX CLI's drain-mode keys).  Weights are
 random, from a seeded ``torch.Generator`` on the device.  On a CUDA
 device the engine reads paged decode KV through the hand-written
-``paged_attention`` kernel and stores weights in the activation dtype
+``paged_attention`` kernel (an ssm model, served without a page pool,
+runs its admission prefills' scan through ``ssd_scan`` instead) and
+stores weights in the activation dtype
 (every weight is cast to it before use, so the math is unchanged).
 ``--spec`` serves speculatively (``--draft self`` for the early-exit
 self-draft or a registry id, ``--gamma`` tokens a round) and adds the

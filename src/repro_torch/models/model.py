@@ -1,19 +1,20 @@
 """Unified model API (PyTorch port of ``repro.models.model``).
 
-The same entry points, dispatched on ``cfg.family``; this slice ports
-the dense family (``models.transformer``), and every other family raises
+The same entry points, dispatched on ``cfg.family``; the port has the
+dense family (``models.transformer``) and the ssm family
+(``models.ssm``), and every other family raises
 ``NotImplementedError`` naming its ROADMAP item:
 
     init_params(cfg, generator, device)           -> params
-    forward(cfg, params, tokens)                  -> logits (B, S, V)
+    forward(cfg, params, tokens, use_kernel=...)  -> logits (B, S, V)
     init_cache(cfg, b, max_len, device)           -> cache (dense strips)
     prefill(cfg, params, batch, max_len,
             true_len=...)                         -> (logits, cache)
     decode_step(cfg, params, cache, toks, pos)    -> (logits, cache)
     init_paged_cache(cfg, b, max_len, nB, bs)     -> cache (paged pool)
     prefill_paged(cfg, params, batch, max_len,
-                  cache, slots=..., write_tables=..., true_len=...)
-                                                  -> (logits, cache)
+                  cache, slots=..., write_tables=..., true_len=...,
+                  use_kernel=...)                 -> (logits, cache)
     decode_step_paged(cfg, params, cache,
                       toks, pos, block_tables)    -> (logits, cache)
     extend_paged(cfg, params, cache, toks[B,S],
@@ -28,15 +29,16 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import DeviceLike
-from repro_torch.models import transformer
+from repro_torch.models import ssm, transformer
 
+_FAMILIES = {"dense": transformer, "ssm": ssm}
 _FAMILY_ITEMS = {"moe": "A.9.1", "vlm": "A.9.2", "encdec": "A.9.3",
-                 "ssm": "A.9.4", "hybrid": "A.9.5"}
+                 "hybrid": "A.9.5"}
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family == "dense":
-        return transformer
+    if cfg.family in _FAMILIES:
+        return _FAMILIES[cfg.family]
     item = _FAMILY_ITEMS.get(cfg.family)
     if item is None:
         raise ValueError(cfg.family)
@@ -49,7 +51,12 @@ def init_params(cfg: ModelConfig, generator=None, device: DeviceLike = None):
     return family_module(cfg).init_params(cfg, generator, device)
 
 
-def forward(cfg: ModelConfig, params, tokens):
+def forward(cfg: ModelConfig, params, tokens, *, use_kernel: bool = False):
+    """Full-sequence logits.  ``use_kernel`` sends the ssm family's scan
+    through ``kernels.ops.ssd_scan`` (as JAX ``apply(use_kernel=)``);
+    the dense family ignores it."""
+    if cfg.family == "ssm":
+        return ssm.forward(cfg, params, tokens, use_kernel=use_kernel)
     return family_module(cfg).forward(cfg, params, tokens)
 
 
@@ -67,9 +74,12 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int, *,
     ``true_len`` (int | (B,) int32): the true token count of each
     right-padded row; logits come from each row's true last token and
     pad positions stay out of the decode state, so padded prefill
-    decodes exactly like an unpadded one.  ``use_kernel`` is the ssm
-    families' switch and is ignored here."""
-    del use_kernel
+    decodes exactly like an unpadded one.  ``use_kernel`` sends the ssm
+    family's scan through ``kernels.ops.ssd_scan``; ``use_flash`` is the
+    attention families' switch."""
+    if cfg.family == "ssm":
+        return ssm.prefill(cfg, params, batch["tokens"], max_len,
+                           use_kernel=use_kernel, true_len=true_len)
     return family_module(cfg).prefill(cfg, params, batch["tokens"], max_len,
                                       use_flash=use_flash,
                                       true_len=true_len)
@@ -124,10 +134,18 @@ def extend_paged(cfg: ModelConfig, params, cache, tokens, pos,
 
 def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
                   slots, write_tables=None, ctx_tables=None, ctx_len=None,
-                  true_len=None, use_flash: bool = False):
+                  true_len=None, use_flash: bool = False,
+                  use_kernel: bool = False):
     """Admission prefill fused with cache insertion: prompt K/V is
-    written directly into the page pool through ``write_tables``.
+    written directly into the page pool through ``write_tables``; the
+    ssm family (no pages) writes each row's state at ``slots`` and runs
+    its scan through ``kernels.ops.ssd_scan`` with ``use_kernel``.
     Returns (last-true-token logits, cache)."""
+    if cfg.family == "ssm":
+        return ssm.prefill_paged(
+            cfg, params, batch["tokens"], max_len, cache, slots=slots,
+            write_tables=write_tables, ctx_tables=ctx_tables,
+            ctx_len=ctx_len, true_len=true_len, use_kernel=use_kernel)
     return family_module(cfg).prefill_paged(
         cfg, params, batch["tokens"], max_len, cache, slots=slots,
         write_tables=write_tables, ctx_tables=ctx_tables, ctx_len=ctx_len,

@@ -63,9 +63,27 @@ catch-up tokens on the host from the engine's numpy generator, as in
 the JAX engine.  Greedy tokens match the JAX engine; sampled tokens
 match it in distribution only (the generators differ).
 
+Pool-free path: a family whose paged cache has no pool leaf (ssm: O(1)
+recurrent state per row) runs with ``self.paged = False``, as in JAX: no
+``KVBlockPool`` and no block tables; the cache is ``model.init_cache``
+with one row per slot (batch axes from ``cache_batch_axes``); admission
+prefills write each row's state at its slot (``prefill_paged`` without
+tables); every wave is a ``model.decode_step`` wave, and prompts past
+the largest bucket catch up one teacher-forced token a wave; preemption
+copies the slot's rows out (``extract_slot``) and resumption copies them
+back (``insert_slot``).  ``quant_kv="int8"`` is disarmed there (no pages
+to quantize) and ``spec_decode`` is quietly ignored (the recurrence
+cannot roll back).  One choice is the port's own: on a pool-free config
+``use_pallas_paged=True`` sends the admission prefill's scan through the
+hand-written ``ssd_scan`` kernel (``prefill_paged(use_kernel=True)``).
+The JAX engine sets ``use_kernel`` nowhere, and the flag is its only
+"serve through the hand kernels" switch; with it off the port runs the
+plain chunked scan, which is what the JAX engine runs.
+
 Not ported yet — each raises ``NotImplementedError`` when its
 ``ServeConfig`` field is set: the radix prefix cache and its
-persistence, tracing, and the dense ``paged=False`` twin.
+persistence, tracing, and the dense ``paged=False`` twin (an explicit
+``paged=False`` on a family that needs pages raises at construction).
 ``prefix_cache`` defaults to True as in the JAX config, so callers pass
 ``prefix_cache=False``.  Without the prefix cache no page is ever
 shared, so the JAX engine's copy-on-write backstop (``_cow_guard``) has
@@ -133,6 +151,26 @@ def cache_batch_axes(cfg: ModelConfig, max_len: int):
     return _tree_map(_diff_axis, s1, s2)
 
 
+def paged_cache_axes(cfg: ModelConfig, max_len: int, num_blocks: int,
+                     block_size: int, kv_dtype=None):
+    """Like ``cache_batch_axes`` for the paged cache: shared page-pool
+    leaves have no batch axis and map to -1.  A cache with no -1 leaf
+    has no pool (the ssm family)."""
+    s1 = M.init_paged_cache(cfg, _PROBE_A, max_len, num_blocks, block_size,
+                            kv_dtype=kv_dtype, device="meta")
+    s2 = M.init_paged_cache(cfg, _PROBE_B, max_len, num_blocks, block_size,
+                            kv_dtype=kv_dtype, device="meta")
+    return _tree_map(_diff_axis, s1, s2)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def insert_slot(cache, one, slot: int, axes):
     """Copy a batch=1 cache ``one`` into row ``slot`` of the batched
     ``cache`` IN PLACE (pool leaves, axis -1, are left untouched) and
@@ -174,7 +212,6 @@ class Request:
 
 # field -> (the value that means "off", ROADMAP item that ports it)
 _NOT_PORTED = {
-    "paged": (True, "A.4 (dense paged=False twin)"),
     "prefix_cache": (False, "A.5 (prefix cache)"),
     "prefix_persist_path": (None, "A.5 (prefix-store persistence)"),
     "min_match_tokens": (1, "A.5 (prefix cache)"),
@@ -234,7 +271,12 @@ class EdgeServingEngine:
 
     ``draft``: optional ``(draft_cfg, draft_params)`` for speculative
     decoding, on the same device; it overrides
-    ``ServeConfig.draft_arch``."""
+    ``ServeConfig.draft_arch``.
+
+    ``paged`` is False for a family whose cache has no page-pool leaf
+    (the pool-free path of the module docstring); an explicit
+    ``ServeConfig(paged=False)`` on a family that needs pages raises
+    ``NotImplementedError`` (the dense twin, ROADMAP A.4)."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  device: DeviceLike = None, draft=None):
@@ -251,29 +293,49 @@ class EdgeServingEngine:
         self.scfg = scfg
         B, T = scfg.max_slots, scfg.max_len
         bs = scfg.kv_block_size
-        if bs < 1:
-            raise ValueError(f"kv_block_size must be >= 1, got {bs}")
         if scfg.quant_kv not in (None, "int8"):
             raise ValueError(
                 f"quant_kv must be None or 'int8', got {scfg.quant_kv!r}")
-        # int8 pages with per-row float32 scales: the pool's capacity lever
-        self.quant = scfg.quant_kv == "int8"
-        # the logical page view must tile max_len exactly; shrink the
-        # block size until it divides rather than reject the config
-        while T % bs:
-            bs //= 2
-        self.n_blk = T // bs
-        if scfg.kv_pool_blocks:
-            # a user-set pool is a TOKEN budget
-            n_pool = scfg.kv_pool_blocks * scfg.kv_block_size // bs
+        if scfg.paged:
+            # validated and shrunk as in JAX, for a pool-free family too
+            if bs < 1:
+                raise ValueError(f"kv_block_size must be >= 1, got {bs}")
+            # the logical page view must tile max_len exactly; shrink the
+            # block size until it divides rather than reject the config
+            while T % bs:
+                bs //= 2
+        # one probe on the meta device: a family whose paged cache has
+        # no page-pool leaf (ssm) runs pool-free outright
+        axes = paged_cache_axes(cfg, T, 1, 1, kv_dtype=scfg.quant_kv)
+        self.paged = any(a < 0 for a in _leaves(axes))
+        if self.paged and not scfg.paged:
+            raise NotImplementedError(
+                f"ServeConfig.paged=False for {cfg.name}: the dense twin "
+                "of a paged family is not ported to repro_torch yet "
+                "(ROADMAP A.4 (dense paged=False twin)); leave it at True")
+        if self.paged:
+            self.n_blk = T // bs
+            if scfg.kv_pool_blocks:
+                # a user-set pool is a TOKEN budget
+                n_pool = scfg.kv_pool_blocks * scfg.kv_block_size // bs
+            else:
+                n_pool = B * self.n_blk
+        self.block_size = bs              # effective page size
+        # int8 pages with per-row float32 scales: the pool's capacity
+        # lever; a pool-free family has no pages to quantize
+        self.quant = bool(self.paged and scfg.quant_kv == "int8")
+        if self.paged:
+            self.axes = axes
+            self.pool = KVBlockPool(n_pool, bs)
+            self.cache = M.init_paged_cache(cfg, B, T, n_pool, bs,
+                                            kv_dtype=scfg.quant_kv,
+                                            device=dev)
+            self.block_tables = np.full((B, self.n_blk), -1, np.int32)
+            self.slot_blocks: list[list[int]] = [[] for _ in range(B)]
         else:
-            n_pool = B * self.n_blk
-        self.block_size = bs
-        self.pool = KVBlockPool(n_pool, bs)
-        self.cache = M.init_paged_cache(cfg, B, T, n_pool, bs,
-                                        kv_dtype=scfg.quant_kv, device=dev)
-        self.block_tables = np.full((B, self.n_blk), -1, np.int32)
-        self.slot_blocks: list[list[int]] = [[] for _ in range(B)]
+            self.pool = None
+            self.cache = M.init_cache(cfg, B, T, device=dev)
+            self.axes = cache_batch_axes(cfg, T)
         # static extend-wave width: the catch-up chunk
         self.K = max(scfg.spec_gamma, scfg.catch_chunk or 0)
         self.extend_ok = bool(M.extendable(cfg) and self.K >= 2)
@@ -385,13 +447,14 @@ class EdgeServingEngine:
                     f"max_len-1 ({self.scfg.max_len - 1})")
             worst = (int(st["pos"]) + n_pend + 1
                      + req.max_new_tokens - len(req.generated))
-        need = blocks_for_tokens(min(worst, self.scfg.max_len),
-                                 self.block_size)
-        if need > self.pool.num_blocks:
-            raise ValueError(
-                f"request {req.uid} may need {need} KV blocks but the "
-                f"pool holds only {self.pool.num_blocks} "
-                f"(kv_pool_blocks); it could never finish")
+        if self.paged:
+            need = blocks_for_tokens(min(worst, self.scfg.max_len),
+                                     self.block_size)
+            if need > self.pool.num_blocks:
+                raise ValueError(
+                    f"request {req.uid} may need {need} KV blocks but the "
+                    f"pool holds only {self.pool.num_blocks} "
+                    f"(kv_pool_blocks); it could never finish")
         if req.arrival is None:
             req.arrival = float(next(self._arrival))
         self.queue.append(req)
@@ -425,7 +488,9 @@ class EdgeServingEngine:
     def _blocks_needed(self, req: Request) -> int:
         """New pool blocks this request needs to be admitted NOW: the
         first span's pages + one covering the next write (resumed
-        requests already hold pages for [0, pos))."""
+        requests already hold pages for [0, pos)); 0 without a pool."""
+        if not self.paged:
+            return 0
         bs = self.block_size
         if req.saved_state is not None:
             held = len(req.saved_state.get("blocks", ()))
@@ -450,10 +515,12 @@ class EdgeServingEngine:
         need = self._blocks_needed(req)   # same formula the scan reserved
         st = req.saved_state
         req.saved_state = None
-        blocks = list(st.get("blocks", ()))
-        if need:  # feasibility pre-checked by the admission scan
-            blocks += self.pool.alloc(need)
-        self._set_table(slot, blocks)
+        if self.paged:
+            blocks = list(st.get("blocks", ()))
+            if need:  # feasibility pre-checked by the admission scan
+                blocks += self.pool.alloc(need)
+            self._set_table(slot, blocks)
+        insert_slot(self.cache, st["cache"], slot, self.axes)
         if self.spec is not None:
             self.spec.insert(slot, st.get("draft"))
         self.pos[slot] = st["pos"]
@@ -466,7 +533,8 @@ class EdgeServingEngine:
         becomes the slot's pending span, consumed through the same
         extend/decode waves every other slot rides; the first wave's
         ``_ensure_blocks`` allocates its pages."""
-        self._set_table(slot, [])
+        if self.paged:
+            self._set_table(slot, [])
         prompt = np.asarray(req.prompt, np.int32)
         if self.spec is not None:
             # the draft prefills the full prompt (it never chunks), so
@@ -489,14 +557,14 @@ class EdgeServingEngine:
         if not free:
             return
         self.queue.sort(key=self._rank)
-        avail = self.pool.num_free
+        avail = self.pool.num_free if self.paged else 0
         taken, kept = [], []
         for req in self.queue:
             if not free:
                 kept.append(req)
                 continue
             need = self._blocks_needed(req)
-            if need > avail:
+            if self.paged and need > avail:
                 kept.append(req)
                 continue
             avail -= need
@@ -517,24 +585,26 @@ class EdgeServingEngine:
 
     def _admit_group(self, bucket: int, group) -> None:
         """One fused admission call: batched bucketed prefill that writes
-        prompt K/V straight into the slots' pages."""
+        prompt K/V straight into the slots' pages (or, pool-free, each
+        row's state into its slot's cache rows)."""
         bs = self.block_size
-        admitted = []
-        for req, slot in group:
-            try:
-                blocks = self.pool.alloc(self._blocks_needed(req))
-            except PoolExhausted:
-                self.queue.append(req)
-                continue
-            self._set_table(slot, blocks)
-            admitted.append((req, slot))
-        group = admitted
-        if not group:
-            return
+        if self.paged:
+            admitted = []
+            for req, slot in group:
+                try:
+                    blocks = self.pool.alloc(self._blocks_needed(req))
+                except PoolExhausted:
+                    self.queue.append(req)
+                    continue
+                self._set_table(slot, blocks)
+                admitted.append((req, slot))
+            group = admitted
+            if not group:
+                return
         m = len(group)
         prompts = np.zeros((m, bucket), np.int32)
         true_len = np.zeros((m,), np.int32)
-        n_wblk = blocks_for_tokens(bucket, bs)
+        n_wblk = blocks_for_tokens(bucket, bs) if self.paged else 0
         tables = np.full((m, n_wblk), -1, np.int32)
         for i, (req, slot) in enumerate(group):
             prompt = np.asarray(req.prompt, np.int32)
@@ -543,16 +613,22 @@ class EdgeServingEngine:
             prompts[i] = prompt[n1 - 1]
             prompts[i, :n1] = prompt[:n1]
             true_len[i] = n1
-            blk = self.slot_blocks[slot][:n_wblk]
-            tables[i, :len(blk)] = blk
+            if self.paged:
+                blk = self.slot_blocks[slot][:n_wblk]
+                tables[i, :len(blk)] = blk
         dev = self.device
+        if self.paged:
+            kw = dict(write_tables=torch.from_numpy(tables).to(dev))
+        else:
+            # the port's choice: the hand-kernel switch also runs the
+            # pool-free family's prefill scan through ssd_scan
+            kw = dict(use_kernel=self.scfg.use_pallas_paged)
         logits, self.cache = M.prefill_paged(
             self.cfg, self.params, {"tokens": torch.from_numpy(prompts).to(dev)},
             self.scfg.max_len, self.cache,
             slots=torch.tensor([s for _, s in group], dtype=torch.int32,
                                device=dev),
-            write_tables=torch.from_numpy(tables).to(dev),
-            true_len=torch.from_numpy(true_len).to(dev))
+            true_len=torch.from_numpy(true_len).to(dev), **kw)
         if self.spec is not None:
             # the draft prefills the FULL prompt (it never chunks), so
             # catch-up slots are draft-complete once their prompt is in
@@ -570,8 +646,9 @@ class EdgeServingEngine:
                            and tok == self.scfg.eos_id)
                 if len(req.generated) >= req.max_new_tokens or hit_eos:
                     # the admission token already completed the request
-                    self.pool.free(self.slot_blocks[slot])
-                    self._set_table(slot, [])
+                    if self.paged:
+                        self.pool.free(self.slot_blocks[slot])
+                        self._set_table(slot, [])
                     req.done = True
                     self.completed.append(req)
                     continue
@@ -596,10 +673,15 @@ class EdgeServingEngine:
                    any_temp: bool, any_topk: bool):
         """One decode wave on the device: next token per slot (greedy
         argmax, or a Gumbel-max draw from the engine generator for slots
-        with temperature > 0, after an optional top-k filter)."""
-        logits, self.cache = M.decode_step_paged(
-            self.cfg, self.params, self.cache, tokens, pos, block_tables,
-            self.scfg.use_pallas_paged)
+        with temperature > 0, after an optional top-k filter).  Without a
+        pool (``block_tables`` None) the wave is ``model.decode_step``."""
+        if block_tables is None:
+            logits, self.cache = M.decode_step(self.cfg, self.params,
+                                               self.cache, tokens, pos)
+        else:
+            logits, self.cache = M.decode_step_paged(
+                self.cfg, self.params, self.cache, tokens, pos, block_tables,
+                self.scfg.use_pallas_paged)
         logits = logits[:, -1, :].float()                      # (B, V)
         greedy = torch.argmax(logits, dim=-1)
         if not any_temp:
@@ -710,7 +792,8 @@ class EdgeServingEngine:
             stepped = self._extend_step()
         else:
             stepped = self._decode_wave()
-        if stepped == 0 and self.queue and not self.active.any():
+        if (stepped == 0 and self.paged and self.queue
+                and not self.active.any()):
             # requests requeued by _ensure_blocks mid-step may need zero
             # new pages — give admission one more look before reclaiming
             self._admit_batch()
@@ -722,7 +805,8 @@ class EdgeServingEngine:
         """The plain one-token wave (every active slot has width 1;
         slots still consuming a prompt on a non-extendable config
         teacher-force one pending token)."""
-        self._ensure_blocks()
+        if self.paged:
+            self._ensure_blocks()
         self._record_plan({
             s: (("catch", 1) if (self.pending[s] is not None
                                  and self.pending[s].size) else
@@ -732,11 +816,15 @@ class EdgeServingEngine:
         if n_active == 0:
             return 0
         self.peak_active = max(self.peak_active, n_active)
-        self.peak_pool_used = max(self.peak_pool_used, self.pool.num_used)
+        if self.paged:
+            self.peak_pool_used = max(self.peak_pool_used,
+                                      self.pool.num_used)
 
         act = self.active
-        tokens, pos, temps, topks, tables = self._device_tensors(
-            self.tokens, self.pos, self.temps, self.topks, self.block_tables)
+        tokens, pos, temps, topks = self._device_tensors(
+            self.tokens, self.pos, self.temps, self.topks)
+        tables = (self._device_tensors(self.block_tables)[0] if self.paged
+                  else None)
         nxt = self._decode_fn(tokens, pos, temps, topks, tables,
                               any_temp=bool((self.temps[act] > 0).any()),
                               any_topk=bool((self.topks[act] > 0).any()))
@@ -774,6 +862,8 @@ class EdgeServingEngine:
         are already invisible (every context read masks strictly below
         the frontier), so rollback returns whole tail pages and keeps
         the partial one the next write lands in."""
+        if not self.paged:
+            return
         keep = blocks_for_tokens(int(self.pos[slot]) + 1, self.block_size)
         blocks = self.slot_blocks[slot]
         if len(blocks) > keep:
@@ -939,8 +1029,9 @@ class EdgeServingEngine:
         self.active[slot] = False
         self.slot_req[slot] = None
         self.pending[slot] = None
-        self.pool.free(self.slot_blocks[slot])
-        self._set_table(slot, [])
+        if self.paged:
+            self.pool.free(self.slot_blocks[slot])
+            self._set_table(slot, [])
 
     # ------------------------------------------------------------------
     # telemetry
@@ -969,10 +1060,11 @@ class EdgeServingEngine:
         view("wave_admitted", "engine.wave_admitted",
              lambda: self.wave_admitted)
         view("cancels", "engine.cancels", lambda: self.cancels)
-        self.pool.attach_metrics(m)
-        legacy.update(pool_blocks="kv_pool.blocks",
-                      pool_free="kv_pool.free",
-                      pool_shared="kv_pool.shared")
+        if self.paged:
+            self.pool.attach_metrics(m)
+            legacy.update(pool_blocks="kv_pool.blocks",
+                          pool_free="kv_pool.free",
+                          pool_shared="kv_pool.shared")
         if self.quant or self.scfg.quant_draft:
             view("quant_kv", "quant.kv", lambda: self.scfg.quant_kv or "")
             view("quant_draft", "quant.draft",
@@ -1012,8 +1104,9 @@ class EdgeServingEngine:
 
     def stats(self) -> dict:
         """Pool observability — a view over the metrics registry.  Every
-        call re-checks the pool accounting invariant."""
-        self.pool.assert_consistent()
+        call re-checks the pool accounting invariant (with a pool)."""
+        if self.paged:
+            self.pool.assert_consistent()
         return {key: self.metrics.get(name)
                 for key, name in self._legacy_stats.items()}
 
@@ -1031,7 +1124,8 @@ class EdgeServingEngine:
             st = req.saved_state
             if st is not None:
                 req.saved_state = None
-                self.pool.free(st.get("blocks", ()))
+                if self.paged:
+                    self.pool.free(st.get("blocks", ()))
             self._mark_cancelled(req)
             return True
         for s in range(self.scfg.max_slots):
@@ -1050,24 +1144,28 @@ class EdgeServingEngine:
         self.cancels += 1
 
     def preempt(self, slot: int) -> Optional[Request]:
-        """Evict a running request, taking its decode position with it;
-        its KV pages stay in the pool, DETACHED onto the request —
-        re-submission restores the block table and resumes decode where
-        it stopped, with no re-prefill and no page copies.  The dense
-        trunk keeps no per-slot cache rows; a speculative engine also
-        saves a copy of the slot's draft row and frontier."""
+        """Evict a running request, taking its per-slot cache rows (a copy,
+        ``extract_slot``) and decode position with it; its KV pages stay
+        in the pool, DETACHED onto the request — re-submission restores
+        the rows and the block table and resumes decode where it stopped,
+        with no re-prefill and no page copies.  The paged dense trunk
+        has no per-slot rows (empty placeholders); the pool-free ssm
+        cache is all rows.  A speculative engine also saves a copy of the
+        slot's draft row and frontier."""
         req = self.slot_req[slot]
         if req is None:
             return None
         req.saved_state = {
+            "cache": extract_slot(self.cache, slot, self.axes),
             "pos": int(self.pos[slot]),
             "last_tok": int(self.tokens[slot, 0]),
             "pending": self.pending[slot],
-            "blocks": self.slot_blocks[slot],
         }
         if self.spec is not None:
             req.saved_state["draft"] = self.spec.extract(slot)
-        self._set_table(slot, [])
+        if self.paged:
+            req.saved_state["blocks"] = self.slot_blocks[slot]
+            self._set_table(slot, [])
         self.active[slot] = False
         self.slot_req[slot] = None
         self.pending[slot] = None
@@ -1106,7 +1204,8 @@ class EdgeServingEngine:
         """One ``step()`` with the pool accounting invariant re-checked
         after it."""
         stepped = self.step()
-        self.pool.assert_consistent()
+        if self.paged:
+            self.pool.assert_consistent()
         return stepped
 
     def run_until_drained(self, max_steps: int = 10_000) -> list[Request]:

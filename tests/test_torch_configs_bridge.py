@@ -57,7 +57,8 @@ def _flat(tree, prefix=()):
             yield prefix + (k,), v
 
 
-@pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b",
+                                  "mamba2-370m"])
 def test_bridged_params_keep_keys_shapes_and_values(arch):
     cfg = jax_get_smoke_config(arch)
     jparams = JM.init_params(cfg, jax.random.PRNGKey(0))

@@ -223,11 +223,18 @@ _ON = {"paged": False, "prefix_cache": True, "prefix_persist_path": "x.npz",
        "trace_clock": lambda: 0.0}
 
 
-@pytest.mark.parametrize("field", sorted(_NOT_PORTED))
-def test_unported_serve_config_fields_raise(field):
+@pytest.mark.parametrize("field", sorted({*_NOT_PORTED, "paged"}))
+def test_unported_serve_config_fields_raise(field, models):
+    """Unported fields raise in ``ServeConfig``; ``paged=False`` is
+    ported for families without pages (the ssm family), so on this
+    paged family the engine raises at construction instead."""
     kw = {"prefix_cache": False, field: _ON[field]}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(**kw)
+        if field == "paged":
+            _, _, cfg, params = models
+            EdgeServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
+        else:
+            ServeConfig(**kw)
 
 
 def test_serve_config_keeps_every_jax_field_and_default():

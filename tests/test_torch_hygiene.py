@@ -42,10 +42,14 @@ def test_importing_every_module_loads_no_jax():
     swept = set(_modules())
     assert {"repro_torch.serving.spec_decode",
             "repro_torch.kernels.quant_matmul",
-            "repro_torch.core.earlyexit"} <= swept
+            "repro_torch.core.earlyexit",
+            "repro_torch.models.ssm",
+            "repro_torch.kernels.ssd_scan"} <= swept
 
 
 def test_no_source_imports_jax_or_repro():
+    assert {PKG / "models" / "ssm.py", PKG / "kernels" / "ssd_scan.py"} \
+        <= set(SOURCES)
     offenders = []
     for path in SOURCES:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -65,6 +69,9 @@ def test_no_direct_clock_calls_under_the_port():
     """The sweep ``scripts/check.sh`` runs over ``src/``: timing goes
     through ``serving.telemetry.default_clock``."""
     pat = re.compile(r"time\.(time|perf_counter|monotonic)\(\)")
+    swept = set(PKG.rglob("*.py"))
+    assert {PKG / "models" / "ssm.py", PKG / "kernels" / "ssd_scan.py"} \
+        <= swept
     hits = [f"{p.relative_to(ROOT)}:{i}"
             for p in sorted(PKG.rglob("*.py"))
             for i, line in enumerate(p.read_text().splitlines(), 1)
@@ -79,3 +86,6 @@ def test_kernel_sources_live_in_csrc():
     text = (PKG / "csrc" / "quant_matmul.cu").read_text()
     assert "src/repro/kernels/quant_matmul.py" in text and "`_kernel`" in text
     assert "3.35 TB/s" in text and "989 TFLOP/s" in text
+    text = (PKG / "csrc" / "ssd_scan.cu").read_text()
+    assert "src/repro/kernels/ssd_scan.py" in text and "`_kernel`" in text
+    assert "3.35 TB/s" in text and "67 TFLOP/s" in text

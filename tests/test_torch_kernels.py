@@ -30,6 +30,7 @@ from repro_torch.kernels import build, checks, ops, ref
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_extend_attention as pea
 from repro_torch.kernels import quant_matmul as qm
+from repro_torch.kernels import ssd_scan as ssd
 
 SHAPES = [(3, 4, 2, 32, 12, 8, 4),       # B, H, K, hd, nB, bs, n_blk
           (2, 8, 8, 64, 10, 16, 2),
@@ -161,7 +162,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 def test_build_path_is_keyed_by_source_hash():
     assert set(build.KERNELS) == {"paged_attention",
-                                  "paged_extend_attention", "quant_matmul"}
+                                  "paged_extend_attention", "quant_matmul",
+                                  "ssd_scan"}
     for name in build.KERNELS:
         path = build.library_path(name)
         assert path.parent == build.BUILD_DIR
@@ -399,3 +401,46 @@ def test_quant_matmul_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         qm.quant_matmul(x, wq, scale)
     assert qm.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan (the parity of its plain version with JAX is in
+# tests/test_torch_ssm.py)
+# ---------------------------------------------------------------------------
+
+def _ssd_case(b=2, l=20, h=3, p=8, n=4):
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn((b, l, h, p), generator=g),
+            torch.rand((b, l, h), generator=g), -torch.rand(h, generator=g),
+            torch.randn((b, l, n), generator=g),
+            torch.randn((b, l, n), generator=g))
+
+
+def test_ssd_scan_kernel_wrapper_refuses_cpu_tensors():
+    ssd.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd.ssd_scan(*_ssd_case(), chunk=8)
+    assert ssd.launches == 0
+
+
+def test_ssd_scan_cpu_tensors_dispatch_to_plain_version():
+    """CPU tensors take the sequential plain version and launch
+    nothing."""
+    args = _ssd_case()
+    ssd.launches = 0
+    y, hf = ops.ssd_scan(*args, chunk=8)
+    assert ssd.launches == 0
+    assert y.shape == (2, 20, 3, 8) and hf.shape == (2, 3, 8, 4)
+    assert hf.dtype == torch.float32
+    want = ref.ssd_scan_ref(*args)
+    assert torch.equal(y, want[0]) and torch.equal(hf, want[1])
+
+
+@pytest.mark.parametrize("p,n,Q,fits", [(64, 128, 256, True),
+                                        (32, 16, 256, True),
+                                        (64, 128, 1024, True),
+                                        (64, 128, 16384, False)])
+def test_ssd_scan_shared_memory(p, n, Q, fits):
+    """mamba2-370m's full width at its chunk of 256 fits a block; the
+    chunk's dt and cumsum grow with Q, so a huge chunk does not."""
+    assert (ssd.shared_bytes(p, n, Q) <= checks.SMEM_LIMIT) == fits

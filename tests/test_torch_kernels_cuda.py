@@ -1,6 +1,6 @@
-"""The hand-written ``paged_attention``, ``paged_extend_attention`` and
-``quant_matmul`` CUDA kernels against their plain PyTorch versions, on
-the card.
+"""The hand-written ``paged_attention``, ``paged_extend_attention``,
+``quant_matmul`` and ``ssd_scan`` CUDA kernels against their plain
+PyTorch versions, on the card.
 
 Marked ``cuda``: without a GPU every test skips with a reason (the check
 happens inside the fixture, never at import).  On the GPU host:
@@ -23,7 +23,10 @@ tolerances.  ``quant_matmul`` is fed x already rounded to bfloat16 (the
 kernel rounds x, the plain version does not), so only the summation
 order differs: float32 outputs of order 1 within rtol=atol=1e-4, and a
 bfloat16 output within one bfloat16 step of the float32 result
-(rtol=2**-8, atol=1e-4).
+(rtol=2**-8, atol=1e-4).  ``ssd_scan`` is held against the model's
+plain chunked path in float32 on the same inputs (the same sums in
+another order): within 1e-4 x max |y|, plus one bfloat16 step of each
+value for a bfloat16 y.
 """
 import pytest
 import torch
@@ -32,6 +35,8 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_extend_attention as pea
 from repro_torch.kernels import quant_matmul as qm
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd
+from repro_torch.models import ssm
 
 pytestmark = pytest.mark.cuda
 
@@ -385,3 +390,92 @@ def test_quant_matmul_wrapper_rejects_bad_arguments(device):
         call(x[:, :-1].contiguous(), wq, scale)
     with pytest.raises(TypeError, match="out_dtype"):
         call(x, wq, scale, out_dtype=torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# ssd_scan
+# ---------------------------------------------------------------------------
+
+def _ssd_case(device, b, l, h, p, n, dtype, seed=0):
+    """x, B, C as strided views into one tensor (as the model passes
+    them); dt small enough that the carried state matters."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    xbc = torch.cat([torch.randn((b, l, h * p), generator=g),
+                     torch.randn((b, l, 2 * n), generator=g) * n ** -0.5],
+                    dim=-1).to(dtype).to(device)
+    x = xbc[..., :h * p].reshape(b, l, h, p)
+    dt = (torch.rand((b, l, h), generator=g) * 0.02 + 0.001).to(device)
+    A = -(torch.rand((h,), generator=g) * 1.5 + 0.5).to(device)
+    return x, dt, A, xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+
+
+def _ssd_close(got, want):
+    allowed = 1e-4 * float(want.abs().max())
+    if got.dtype == torch.bfloat16:
+        allowed = allowed + 2 ** -8 * want.abs()
+    assert bool(((got.float() - want).abs() <= allowed).all()), \
+        float((got.float() - want).abs().max())
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk", [
+    (1, 16, 32, 64, 128, 256), (4, 300, 32, 64, 128, 256),
+    (2, 1024, 32, 64, 128, 256), (2, 70, 8, 32, 16, 16),
+    (3, 5, 8, 32, 16, 256), (1, 200, 3, 24, 40, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_scan_matches_plain_chunked_path(device, b, l, h, p, n, chunk,
+                                             dtype):
+    x, dt, A, B, C = _ssd_case(device, b, l, h, p, n, dtype, seed=l + h)
+    before = ssd.launches
+    y, hf = ssd.ssd_scan(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd.launches == before + 1 and y.dtype == dtype
+    yr, hr = ssm.ssd_chunked(x.float(), dt, A, B.float(), C.float(), chunk)
+    _ssd_close(y, yr)
+    _ssd_close(hf, hr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_ssd_scan_initial_state_continues_the_sequence(device, dtype):
+    x, dt, A, B, C = _ssd_case(device, 2, 600, 32, 64, 128, dtype, seed=3)
+    y_all, h_all = ssm.ssd_chunked(x.float(), dt, A, B.float(), C.float(),
+                                   256)
+    _, h1 = ssd.ssd_scan(x[:, :300], dt[:, :300], A, B[:, :300],
+                         C[:, :300], chunk=256)
+    y2, h2 = ssd.ssd_scan(x[:, 300:], dt[:, 300:], A, B[:, 300:],
+                          C[:, 300:], chunk=256, h0=h1)
+    _ssd_close(y2, y_all[:, 300:])
+    _ssd_close(h2, h_all)
+
+
+def test_ssd_scan_plain_version_agrees(device):
+    x, dt, A, B, C = _ssd_case(device, 2, 130, 4, 16, 8, torch.float32)
+    y, hf = ssd.ssd_scan(x, dt, A, B, C, chunk=32)
+    yr, hr = ref.ssd_scan_ref(x, dt, A, B, C)
+    _ssd_close(y, yr)
+    _ssd_close(hf, hr)
+
+
+def test_ssd_scan_wrapper_rejects_bad_arguments(device):
+    x, dt, A, B, C = _ssd_case(device, 1, 20, 4, 16, 8, torch.float32)
+    call = ssd.ssd_scan
+    with pytest.raises(ValueError, match="CUDA"):
+        call(x.cpu(), dt, A, B, C)
+    with pytest.raises(TypeError, match="float32"):
+        call(x, dt.to(torch.bfloat16), A, B, C)
+    with pytest.raises(TypeError, match="differ"):
+        call(x, dt, A, B.to(torch.bfloat16), C)
+    with pytest.raises(ValueError, match="packed"):
+        wide = torch.zeros((1, 20, 4, 32), device=device)
+        call(wide[..., :16], dt, A, B, C)
+    with pytest.raises(ValueError, match="out of range"):
+        big = torch.zeros((1, 20, 1, 128), device=device)
+        call(big, dt[..., :1], A[:1], B, C)
+    # one chunk of 40000 positions: its dt and cumsum alone are 320 KB
+    long = 40_000
+    with pytest.raises(ValueError, match="shared memory"):
+        call(torch.zeros((1, long, 1, 16), device=device),
+             torch.zeros((1, long, 1), device=device), A[:1],
+             torch.zeros((1, long, 8), device=device),
+             torch.zeros((1, long, 8), device=device), chunk=long)
