@@ -28,6 +28,12 @@ non-zero without printing a result:
               and 4, l 16 / 256 / 300 / 1024, x in bf16 and f32, a split
               sequence continued through ``h0``, and two broken versions
               (state dropped between chunks, decay left out).
+              ``flash_attention`` at the evaluation path's shape (B=2,
+              S=T=4096, H=4, K=1, hd=256) with window 0 and 512, phi3's
+              GQA (H=40, K=10, hd=128, S=512), a ragged S=300, T < S and
+              T > S, bf16 and f32, a softcap of 50 that binds, two broken
+              versions (window ignored, causal mask one key late), and
+              the window-512 launch under half the global one's time.
               Times the kernel, the plain version and a PyTorch library
               call (none for the scan), next to the bound.
 4. serve    — the first main path: phi3-medium-14b at full width and
@@ -79,7 +85,23 @@ non-zero without printing a result:
               chunked path at float32: logits and final states within
               the stated share of their max, greedy tokens equal; one
               bf16 prefill of each timed.
-11. reference — the phi3 smoke config at float32: the engine on the card
+11. train    — the fifth main path: gemma3-1b at full width and depth
+              (26 layers, float32 weights from a seeded generator, ~1.0e9
+              parameters) trained 3 steps through ``launch.train``'s
+              flags, state and step: 4 x 4096 bigram tokens a step in 2
+              micro-batches, remat ``nothing_saveable``, float32 AdamW
+              moments; ms and tokens/s per step, peak memory, one step's
+              device idle share; losses finite; no kernel launches (the
+              plain attention runs under autograd).
+12. model_train — on the trained weights, ``loss_fn(use_flash=True)``
+              against ``loss_fn(use_flash=False)`` on 2 x 4096 tokens:
+              at float32 the CE within 1e-5 relative and the logits
+              within 1e-4 x max |logit|; at bf16 every layer's
+              ``attention_fwd`` through the kernel and the plain path on
+              identical inputs within 2**-6 x max |o|; ``flash_attention``
+              launches == 26 x forwards through it; one bf16 loss
+              forward each way timed.
+13. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -89,7 +111,10 @@ non-zero without printing a result:
               engine's tokens exactly on the float pool and meet the
               int8 gate on the int8 pool; the mamba2 smoke config behind
               the pool-free engine, with prompts past the largest
-              bucket, must emit the CPU's tokens on the card.
+              bucket, must emit the CPU's tokens on the card; the
+              gemma3-1b smoke config (8 layers) at float32: the card's
+              ``loss_fn(use_flash=True)`` within 1e-5 of the CPU's, two
+              train steps' losses and gradient norms within 1e-4.
 
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
@@ -99,6 +124,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -160,6 +186,41 @@ SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 256
 SSD_F32_REL = 1e-4
 SSD_BF16_STEP = 2 ** -8
 SSD_BROKEN_MOVES = 0.1
+# flash_attention at the evaluation path's shape (gemma3-1b: 4 query
+# heads over 1 kv head, hd 256, window 512 on local layers) and beside it
+FLASH_PATH = (2, 4096, 4096, 4, 1, 256)       # B, S, T, H, K, hd
+FLASH_WINDOW = 512
+FLASH_CASES = (                               # name, B, S, T, H, K, hd, window
+    ("path global", *FLASH_PATH, 0), ("path local", *FLASH_PATH, FLASH_WINDOW),
+    ("phi3 gqa", 2, 512, 512, 40, 10, 128, 0),
+    ("ragged S=300", 2, 300, 300, 4, 1, 256, 64),
+    ("T=200 < S=300", 2, 300, 200, 8, 2, 128, 0),
+    ("T=190 > S=130", 1, 130, 190, 4, 4, 64, 16))
+# the window-512 launch must take less than this share of the global
+# one's time: its band holds 0.23 of the global launch's pairs
+FLASH_BAND_SHARE = 0.5
+# the fifth path: gemma3-1b trained through ``launch.train``'s step, then
+# its loss scored through the kernel; 4 x 4096 tokens a step in two
+# micro-batches of 2 x 4096 (the micro-batch's float32 log-softmax over
+# 262144 classes is 8.6 GB, its gradient as much again, beside 16 GB of
+# float32 weights, gradients and AdamW moments)
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_ARGV = ("--arch", TRAIN_ARCH, "--scale", "full", "--batch", "4",
+              "--seq", "4096", "--microbatches", "2", "--moments",
+              "float32", "--steps", "3")
+EVAL_ROWS, EVAL_SEQ = 2, 4096               # the scoring batch
+# loss_fn through the kernel against the plain path at float32
+# activations (TF32 off): the same float32 math summed in another order
+CE_F32_REL = 1e-5
+LOGIT_F32_REL = 1e-4
+# each layer's attention output at bf16 on identical inputs, as a share
+# of its max |o|: the plain path rounds every softmax probability to
+# bf16 before the p.v product (2**-9 relative each) and both round the
+# (B, S, H, hd) attention output to bf16 before the bf16 wo product
+# (2**-9 each, and that product rounds again); four bf16 steps (2**-6)
+# cover the three roundings with room, while a wrong mask or window
+# moves an output by a large share of its size
+LAYER_BF16_REL = 2 ** -6
 SPEC = dict(spec_decode=True, spec_gamma=4, quant_draft=True)
 # kernel vs gather read of the whole 40-layer model, as a share of
 # max |logit|: at float32 activations only the summation order differs;
@@ -199,6 +260,16 @@ def _release(torch) -> None:
     frees."""
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def _zero(kernels) -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for mod in kernels.values():
+        mod.launches = 0
+
+
+def _counts(kernels) -> dict:
+    return {name: mod.launches for name, mod in kernels.items()}
 
 
 def _clock_ms() -> float:
@@ -831,7 +902,173 @@ def check_ssd_scan(torch, ssd, ref, ssm, timer, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-12
+# phase 3: flash_attention against its plain version
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(torch, B, S, T, H, K, hd, dtype, *, seed=0, dev="cuda"):
+    """q at 3 x randn, k and v at 0.5 x randn: each softmax is peaked,
+    so a key seen or missed moves the output far past the tolerances."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g) * 3.0
+    k = torch.randn((B, T, K, hd), generator=g) * 0.5
+    v = torch.randn((B, T, K, hd), generator=g) * 0.5
+    return tuple(t.to(dtype).to(dev) for t in (q, k, v))
+
+
+def _flash_pairs(S: int, T: int, window: int) -> int:
+    """Visible (query, key) pairs of one (row, head): key j <= i (and
+    j > i - window), j < T."""
+    total = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, min(i, T - 1) - lo + 1)
+    return total
+
+
+def _flash_bound(B, S, T, H, K, hd, window, elt: int, rate: str):
+    """Least time (ms) of one call: q, k, v read once and the output
+    written once, against 4 hd operations (q.k and p.v) per visible pair
+    and query head at the peak rate of ``rate``."""
+    nbytes = (2 * B * S * H * hd + 2 * B * T * K * hd) * elt
+    ops = 4 * hd * H * B * _flash_pairs(S, T, window)
+    return _roofline(nbytes, ops, rate) + (ops,)
+
+
+def _flash_shifted(torch, q, k, v, scale, window):
+    """A broken kernel: the causal mask one key late (query i also sees
+    key i + 1, and the window moves with it), in float32."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, S, K, H // K, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    i = torch.arange(S, device=q.device)[:, None] + 1
+    j = torch.arange(T, device=q.device)[None, :]
+    mask = j <= i
+    if window:
+        mask &= j > i - window
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(q.shape)
+
+
+def check_flash_attention(torch, fa, ref, timer, dev="cuda"):
+    """Hold the kernel against its plain version (float32 math on the
+    same inputs) at the evaluation path's shape, window 0 and 512, and
+    beside it (phi3's GQA, a ragged S, T < S and T > S), bf16 and f32;
+    a softcap of 50 at scale 1 must bind; two broken versions (window
+    ignored, causal mask one key late) must land far outside the
+    tolerance; the window-512 launch must take under FLASH_BAND_SHARE of
+    the global launch's time.  Times the kernel, the plain version and
+    SDPA at the path's shape, next to the bound."""
+    import torch.nn.functional as F
+    errs, worst = {}, 0.0
+
+    def held(case, q, k, v, **kw):
+        nonlocal worst
+        out = fa.flash_attention(q, k, v, **kw)
+        _sync(torch)
+        exp = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        tol = TOL[str(q.dtype).replace("torch.", "")]
+        err = float((out.float() - exp).abs().max())
+        if out.dtype != q.dtype or not torch.allclose(out.float(), exp,
+                                                      **tol):
+            raise AssertionError(f"flash_attention {case}: max abs err {err} "
+                                 f"beyond tolerance {tol}")
+        errs[case] = err
+        worst = max(worst, err)
+        return out.float(), exp
+
+    for seed, (name, B, S, T, H, K, hd, w) in enumerate(FLASH_CASES):
+        for dt in ("bfloat16", "float32"):
+            q, k, v = _flash_inputs(torch, B, S, T, H, K, hd,
+                                    getattr(torch, dt), seed=seed, dev=dev)
+            held(f"{name} {dt}", q, k, v, scale=hd ** -0.5, window=w)
+    q, k, v = _flash_inputs(torch, 2, 1024, 1024, 4, 1, 256, torch.bfloat16,
+                            seed=20, dev=dev)
+    capped, _ = held("softcap50/scale1", q, k, v, scale=1.0,
+                     window=FLASH_WINDOW, softcap=50.0)
+    free, _ = held("softcap0/scale1", q, k, v, scale=1.0,
+                   window=FLASH_WINDOW)
+    cap_moves = float((capped - free).abs().max())
+    if cap_moves <= CAP_MOVES:
+        raise AssertionError(f"flash_attention: softcap 50 moved the output "
+                             f"by only {cap_moves}")
+
+    # broken versions at the path's local launch, from the plain version
+    B, S, T, H, K, hd = FLASH_PATH
+    scale = hd ** -0.5
+    q, k, v = _flash_inputs(torch, B, S, T, H, K, hd, torch.bfloat16,
+                            seed=21, dev=dev)
+    got, want = held("path local bf16 (broken check)", q, k, v, scale=scale,
+                     window=FLASH_WINDOW)
+    broken = {"window_ignored": ref.flash_attention_ref(
+                  q.float(), k.float(), v.float(), scale=scale),
+              "mask_one_key_late": _flash_shifted(torch, q, k, v, scale,
+                                                  FLASH_WINDOW)}
+    moves = {n: float((b - want).abs().max()) for n, b in broken.items()}
+    for n, b in broken.items():
+        if moves[n] <= CAP_MOVES or torch.allclose(b, want,
+                                                   **TOL["bfloat16"]):
+            raise AssertionError(f"flash_attention: the broken version {n} "
+                                 f"moves the output by only {moves[n]}")
+    del broken, got, want
+
+    # times at the path's shape, bf16 as the evaluation runs
+    times = {}
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    for w in (0, FLASH_WINDOW):
+        ms = timer(torch, lambda i, w=w: fa.flash_attention(
+            q, k, v, scale=scale, window=w))
+        plain_ms = timer(torch, lambda i, w=w: ref.flash_attention_ref(
+            q, k, v, scale=scale, window=w), iters=10, warmup=2)
+        if w:
+            i_ = torch.arange(S, device=q.device)[:, None]
+            j_ = torch.arange(T, device=q.device)[None, :]
+            mask = (j_ <= i_) & (j_ > i_ - w)
+            lib_kw = dict(attn_mask=mask)
+        else:
+            lib_kw = dict(is_causal=True)
+        library_ms = timer(torch, lambda i, kw=lib_kw: (
+            F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                           enable_gqa=True, **kw)))
+        bound_ms, bound_by, ops = _flash_bound(B, S, T, H, K, hd, w, 2,
+                                               "bfloat16")
+        f32_ms, f32_by, _ = _flash_bound(B, S, T, H, K, hd, w, 2, "float32")
+        times["global" if w == 0 else "local"] = {
+            "window": w, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "ops": ops,
+            "bound_float32_rate_ms": f32_ms, "bound_float32_rate_by": f32_by}
+    lib = F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                         enable_gqa=True, is_causal=True)
+    lib_err = float((lib.transpose(1, 2).float() - ref.flash_attention_ref(
+        q.float(), k.float(), v.float(), scale=scale)).abs().max())
+    share = times["local"]["ms"] / times["global"]["ms"]
+    if share >= FLASH_BAND_SHARE:
+        raise AssertionError(f"flash_attention: the window-512 launch takes "
+                             f"{share} of the global launch's time (band "
+                             f"skipping must keep it under "
+                             f"{FLASH_BAND_SHARE})")
+    row = times["global"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:366",
+        "max_abs_err": worst, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    }, {"errors": errs, "tolerance": TOL, "softcap50_moves": cap_moves,
+        "broken_moves": moves, "timed": times,
+        "local_over_global_time": share,
+        "local_over_global_work": times["local"]["ops"] / row["ops"],
+        "row_shape": "B=2 S=T=4096 H=4 K=1 hd=256 bf16, window 0 (the "
+        "global layers; the local window-512 launch under timed.local)",
+        "library_call": "F.scaled_dot_product_attention(enable_gqa=True), "
+        "is_causal for window 0, a boolean band mask for window 512",
+        "library_max_abs_err": lib_err}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-14
 # ---------------------------------------------------------------------------
 
 def serve_phase(torch, kernels, serve, scale="full", dev="cuda"):
@@ -880,17 +1117,17 @@ def _drive(torch, kernels, serve, eng, cfg, expected, needs,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     reqs = serve.make_requests(cfg, *traffic, eng.scfg.policy)
-    for mod in kernels.values():
-        mod.launches = 0
+    _zero(kernels)
     raw = serve.run_drain(eng, reqs)
-    launches = {name: mod.launches for name, mod in kernels.items()}
+    launches = _counts(kernels)
     done = eng.completed
     if len(done) != n_req or any(len(r.generated) != max_new for r in done):
         raise AssertionError(f"serve: {len(done)} requests done, lengths "
                              f"{[len(r.generated) for r in done]}")
     if not all(0 <= t < cfg.vocab_size for r in done for t in r.generated):
         raise AssertionError("serve: token id outside the vocabulary")
-    expect = expected()
+    expect = dict.fromkeys(kernels, 0)
+    expect.update(expected())
     if launches != expect or any(launches[n] == 0 for n in needs):
         raise AssertionError(
             f"serve: kernel launches {launches} for {eng.decode_waves} "
@@ -1337,6 +1574,212 @@ def reference_ssm(torch, serve_mod, get_smoke_config, ssd, dev="cuda"):
             "ssm_longest_prompt_past_bucket_64": catch}
 
 
+def train_phase(torch, kernels, train, M, argv=TRAIN_ARGV, dev="cuda"):
+    """Drive the fifth main path's training half: gemma3-1b at full width
+    and depth through ``repro_torch.launch.train``'s own flags, state and
+    step (bigram data, AdamW, remat ``nothing_saveable``), timing each
+    step to a synchronised end.  The step runs the plain attention under
+    autograd (no kernel has a backward), so every kernel count stays 0.
+    Returns (cfg, state, phase fields)."""
+    clock = train.default_clock
+    args = train.parse_args([*argv, "--device", dev])
+    on_card = dev != "cpu"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = clock()
+    cfg, state, step, it = train.build(args)
+    init_s = clock() - t0
+    _zero(kernels)
+    steps = []
+    for i in range(args.steps):
+        batch = next(it)
+        t0 = clock()
+        state, m = step(state, batch)
+        _sync(torch)
+        steps.append({"step": i, "ms": (clock() - t0) * 1e3,
+                      **{k: float(v) for k, v in m.items()}})
+    launches = _counts(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"train: kernels launched in a training step: "
+                             f"{launches}")
+    if not all(math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"])
+               for st in steps):
+        raise AssertionError(f"train: non-finite loss or grad norm {steps}")
+    tokens = args.batch * args.seq
+    later = [st["ms"] for st in steps[1:]] or [steps[0]["ms"]]
+    fields = {
+        "arch": cfg.name, "depth": cfg.num_layers, "depth_cut": False,
+        "d_model": cfg.d_model, "params": M.count_params(state["params"]),
+        "flags": vars(args), "init_s": init_s,
+        "steps": steps, "tokens_per_step": tokens,
+        "ms_per_step_after_first": sum(later) / len(later),
+        "tokens_per_s": tokens / (sum(later) / len(later) / 1e3),
+        "launches": launches,
+        "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if on_card else None)}
+    batch = next(it)
+    fields["step_profile"] = _device_profile(torch,
+                                             lambda: step(state, batch))
+    return cfg, state, fields
+
+
+def _trunk_order(cfg, trunk):
+    """(layer params, is_global) in the trunk's order: each super-block's
+    locals, its global, then the remainder locals."""
+    from repro_torch.models.transformer import _layer
+    nb, rem = cfg.pattern_blocks()
+    out = []
+    for i in range(nb):
+        sp = _layer(trunk["super"], i)
+        out += [(_layer(sp["local"], j), False)
+                for j in range(cfg.pattern_period - 1)]
+        out.append((sp["global"], True))
+    out += [(_layer(trunk["rem_local"], i), False) for i in range(rem)]
+    return out
+
+
+def model_train_phase(torch, kernels, M, cfg, params, dev="cuda"):
+    """Drive the fifth path's evaluation half on the trained weights:
+    ``loss_fn(use_flash=True)`` against ``loss_fn(use_flash=False)`` under
+    ``torch.no_grad()`` on a 2 x 4096 bigram batch.  At float32
+    activations (TF32 off) the CE must agree within CE_F32_REL and the
+    logits within LOGIT_F32_REL x max |logit|; at bf16 every layer's
+    ``attention_fwd`` through the kernel and through the plain path, on
+    identical inputs, within LAYER_BF16_REL x max |o| (the full-model CE
+    gap is reported only).  ``flash_attention`` must launch once per
+    layer of every forward through it, and nothing else may launch.
+    Returns phase fields."""
+    from repro_torch.data import DataConfig, synthetic_tokens
+    from repro_torch.models import layers as L
+    toks = torch.from_numpy(synthetic_tokens(
+        DataConfig(seed=1, branching=4), cfg.vocab_size, EVAL_ROWS,
+        EVAL_SEQ, 0)).to(dev)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    cfg32 = cfg.replace(dtype="float32")
+    nL = cfg.num_layers
+    forwards = 0
+    _zero(kernels)
+    res = {"rows": EVAL_ROWS, "seq": batch["tokens"].shape[1]}
+    with torch.no_grad():
+        ker = M.apply(cfg32, params, batch, use_flash=True)[0]
+        plain = M.apply(cfg32, params, batch)[0]
+        forwards += 1
+        if not bool(torch.isfinite(ker).all() and torch.isfinite(plain).all()):
+            raise AssertionError("model_train: non-finite logits")
+        scale = float(plain.abs().max())
+        d_logit = float((ker - plain).abs().max())
+        del ker, plain
+        ce = {}
+        for name, c in (("f32", cfg32), ("bf16", cfg)):
+            ce[f"{name}_kernel"] = float(M.loss_fn(c, params, batch,
+                                                   use_flash=True)[1]["ce"])
+            ce[f"{name}_plain"] = float(M.loss_fn(c, params, batch)[1]["ce"])
+            forwards += 1
+        d_ce = abs(ce["f32_kernel"] - ce["f32_plain"])
+        if d_ce > CE_F32_REL * abs(ce["f32_plain"]) \
+                or d_logit > LOGIT_F32_REL * scale:
+            raise AssertionError(f"model_train: float32 kernel vs plain: CE "
+                                 f"{ce}, logits differ by {d_logit} (max "
+                                 f"{scale})")
+        # bf16: every layer on identical inputs, the trunk walked plainly
+        _, norm = L.make_norm(cfg)
+        x = L.embed(cfg, params["embed"], batch["tokens"])
+        S = x.shape[1]
+        pos = torch.broadcast_to(torch.arange(S, dtype=torch.int32,
+                                              device=x.device), x.shape[:2])
+        layers = []
+        for lp, is_global in _trunk_order(cfg, params["trunk"]):
+            h = norm(lp["ln1"], x)
+            ok_, k1, v1 = L.attention_fwd(cfg, lp["attn"], h, pos,
+                                          is_global=is_global,
+                                          use_flash=True)
+            op_, k2, v2 = L.attention_fwd(cfg, lp["attn"], h, pos,
+                                          is_global=is_global)
+            err = float((ok_.float() - op_.float()).abs().max())
+            top = float(op_.float().abs().max())
+            layers.append({"global": is_global, "max_abs_err": err,
+                           "max_abs_o": top})
+            if err > LAYER_BF16_REL * top or not (torch.equal(k1, k2)
+                                                  and torch.equal(v1, v2)):
+                raise AssertionError(f"model_train: bf16 layer "
+                                     f"{len(layers) - 1} (global "
+                                     f"{is_global}): kernel vs plain "
+                                     f"attention differ by {err} (max {top})")
+            x = M.transformer.block_fwd(cfg, lp, x, pos, is_global=is_global)
+        forwards += 1
+
+        def loss(use_flash):
+            return M.loss_fn(cfg, params, batch, use_flash=use_flash)[0]
+        times = {k: cuda_ms(torch, lambda i, k=k: loss(k), iters=3,
+                            warmup=1) for k in (True, False)}
+        prof = _device_profile(torch, lambda: loss(True))
+        forwards += 4 + 1
+    launches = _counts(kernels)
+    expect = dict.fromkeys(kernels, 0)
+    expect["flash_attention"] = nL * forwards
+    if launches != expect:
+        raise AssertionError(f"model_train: kernel launches {launches} for "
+                             f"{forwards} forwards of {nL} layers (expected "
+                             f"{expect})")
+    res.update({
+        "max_abs_logit_f32": scale, "f32_logits_kernel_vs_plain": d_logit,
+        "f32_logit_tolerance": f"{LOGIT_F32_REL} x max |logit|",
+        "ce": ce, "f32_ce_kernel_vs_plain": d_ce,
+        "f32_ce_tolerance": f"{CE_F32_REL} relative",
+        "bf16_ce_kernel_minus_plain": ce["bf16_kernel"] - ce["bf16_plain"],
+        "bf16_layers": layers,
+        "bf16_layer_tolerance": f"{LAYER_BF16_REL} x max |o| of the layer",
+        "forwards_through_kernel": forwards, "launches": launches,
+        "loss_forward_ms_bf16_kernel": times[True],
+        "loss_forward_ms_bf16_plain": times[False],
+        "loss_forward_profile_bf16_kernel": prof})
+    return res
+
+
+def reference_train(torch, M, get_smoke_config, dev="cuda"):
+    """The gemma3-1b smoke config at float32, 8 layers (2 super-blocks and
+    2 remainder locals): ``loss_fn(use_flash=True)`` on the card (the
+    kernel) equals the CPU's (the plain version) within CE_F32_REL, and
+    two train steps (2 micro-batches, remat) on the card give the CPU's
+    losses and gradient norms within 1e-4 relative."""
+    from repro_torch.data import DataConfig, synthetic_tokens
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import trainer as TR
+    cfg = get_smoke_config(TRAIN_ARCH).replace(dtype="float32", num_layers=8)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = [torch.from_numpy(synthetic_tokens(DataConfig(), cfg.vocab_size,
+                                              4, 64, s)) for s in range(2)]
+    tcfg = TR.TrainConfig(optimizer=O.OptimizerConfig(
+        learning_rate=1e-3, warmup_steps=1, total_steps=2), microbatches=2)
+    res = {"train_arch": f"{TRAIN_ARCH} smoke, 8 layers, float32"}
+    legs = {}
+    for leg, leg_dev in (("cpu", "cpu"), ("card", dev)):
+        p = _to(params, leg_dev)
+        t = [x.to(leg_dev) for x in toks]
+        with torch.no_grad():
+            ce = float(M.loss_fn(cfg, p, {"tokens": t[0][:2, :-1],
+                                          "targets": t[0][:2, 1:]},
+                                 use_flash=True)[1]["ce"])
+        state = {"params": p, "opt": O.init_opt_state(tcfg.optimizer, p)}
+        step = TR.make_train_step(cfg, tcfg)
+        hist = []
+        for x in t:
+            state, m = step(state, {"tokens": x[:, :-1], "targets": x[:, 1:]})
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+        legs[leg] = (ce, hist)
+    (ce_cpu, h_cpu), (ce_card, h_card) = legs["cpu"], legs["card"]
+    res.update({"train_loss_flash_cpu": ce_cpu,
+                "train_loss_flash_card": ce_card,
+                "train_steps_cpu": h_cpu, "train_steps_card": h_card})
+    if abs(ce_card - ce_cpu) > CE_F32_REL * abs(ce_cpu) or any(
+            abs(a - b) > 1e-4 * abs(b)
+            for x, y in zip(h_card, h_cpu) for a, b in zip(x, y)):
+        raise AssertionError(f"reference train: card {legs['card']} vs CPU "
+                             f"{legs['cpu']}")
+    return res
+
+
 def reference_phase(torch, M, serve_mod, get_smoke_config, qm, dev="cuda"):
     """Small input: the engine on the card (hand kernels) and on the CPU
     (plain versions) at float32.  On a float pool the greedy tokens must
@@ -1415,7 +1858,9 @@ def reference_phase(torch, M, serve_mod, get_smoke_config, qm, dev="cuda"):
 
 
 def _to(tree, dev):
-    return {k: (_to(v, dev) if isinstance(v, dict) else v.to(dev))
+    """A copy of ``tree`` on ``dev`` whose leaves are new tensor objects
+    (``detach``), so flags set on them leave ``tree`` as it was."""
+    return {k: (_to(v, dev) if isinstance(v, dict) else v.detach().to(dev))
             for k, v in tree.items()}
 
 
@@ -1427,11 +1872,12 @@ def main() -> int:
         return 2
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import build, ref
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_extend_attention as pea
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import ssd_scan as ssd
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as M
     from repro_torch.models import ssm
 
@@ -1456,9 +1902,10 @@ def main() -> int:
     t0 = clock()
     rows, details = {}, {}
     kernels = {"paged_attention": pa, "paged_extend_attention": pea,
-               "quant_matmul": qm, "ssd_scan": ssd}
+               "flash_attention": fa, "quant_matmul": qm, "ssd_scan": ssd}
     checks = {"paged_attention": check_paged_attention,
               "paged_extend_attention": check_paged_extend_attention,
+              "flash_attention": check_flash_attention,
               "quant_matmul": check_quant_matmul,
               "ssd_scan": lambda torch, k, r, t: check_ssd_scan(torch, k, r,
                                                                 ssm, t)}
@@ -1512,8 +1959,21 @@ def main() -> int:
     emit("model_ssm", seconds=clock() - t0, **fields)
 
     t0 = clock()
+    cfg_tr, state, fields = train_phase(torch, kernels, train, M)
+    emit("train", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = model_train_phase(torch, kernels, M, cfg_tr, state["params"])
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    del state
+    _release(torch)
+    emit("model_train", seconds=clock() - t0, **fields)
+
+    t0 = clock()
     fields = reference_phase(torch, M, serve, get_smoke_config, qm)
     fields.update(reference_ssm(torch, serve, get_smoke_config, ssd))
+    fields.update(reference_train(torch, M, get_smoke_config))
     emit("reference", seconds=clock() - t0, **fields)
 
     emit("done", seconds=clock() - t_start)
@@ -1521,7 +1981,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name, row in rows.items():
-        # main-path launches: the four serve phases, each counted from 0
+        # main-path launches: the four serve phases and model_train, each
+        # counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))

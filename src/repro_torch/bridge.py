@@ -23,7 +23,9 @@ from repro_torch.devices import DeviceLike, resolve_device
 def array_to_tensor(arr: np.ndarray) -> torch.Tensor:
     """One numpy leaf -> a CPU tensor holding the same bits (a copy when
     the array is read-only, as arrays viewed from JAX are)."""
-    arr = np.ascontiguousarray(arr)
+    arr = np.asarray(arr)
+    if not arr.flags.c_contiguous:       # (ascontiguousarray makes 0-d 1-d)
+        arr = np.ascontiguousarray(arr)
     if not arr.flags.writeable:
         arr = arr.copy()
     if arr.dtype.name == "bfloat16":
@@ -40,11 +42,22 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def tree_to_numpy(tree):
+    """A tree of tensors (nested dicts) as numpy arrays: the inverse of
+    ``params_from_numpy``.  bfloat16 leaves come back as their ``uint16``
+    bit patterns (``tensor_to_array``)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    return tensor_to_array(tree)
+
+
 def params_from_numpy(tree, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None):
-    """Map a numpy parameter tree (nested dicts) onto torch tensors on
-    ``device`` (default ``cuda``).  ``dtype`` recasts floating leaves;
-    integer leaves keep their type."""
+    """Map a numpy tree (nested dicts) onto torch tensors on ``device``
+    (default ``cuda``): parameter trees, superblock trunks included, and
+    optimizer states (an int32 ``step`` scalar keeps its shape ``()``,
+    8-bit moments are {"q" int8, "scale"} dict leaves).  ``dtype``
+    recasts floating leaves; integer leaves keep their type."""
     dev = resolve_device(device)
 
     def walk(node):

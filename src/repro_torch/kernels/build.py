@@ -59,6 +59,15 @@ KERNELS = {
              _P],                                 # stream
             _I),
     }),
+    "flash_attention": ("flash_attention.cu", {
+        "repro_flash_attention": (
+            [_P, _P, _P, _P,                      # q k v out
+             _I, _I, _I, _I, _I, _I,              # B S T H K hd
+             _F, _F, _I,                          # scale softcap window
+             _I,                                  # dtype of q, k, v, out
+             _P],                                 # stream
+            _I),
+    }),
     "quant_matmul": ("quant_matmul.cu", {
         "repro_quant_matmul": (
             [_P, _P, _P, _P,                      # x wq scale out

@@ -22,6 +22,37 @@ def quant_matmul_ref(x, wq, scale, out_dtype=torch.bfloat16):
     return out.to(out_dtype)
 
 
+def flash_attention_ref(q, k, v, *, scale, window: int = 0,
+                        softcap: float = 0.0):
+    """Masked full-softmax causal GQA attention (the obvious way).
+
+    q (B,S,H,hd); k, v (B,T,K,hd); positions count from 0 on both axes.
+    Float32 math: scores, the softcap before the mask, -1e30 for masked
+    scores, softmax, the product with v; output in ``q.dtype``.  A query
+    row with no visible key (only when T < S with a window) takes the
+    softmax of an all-masked row, the mean of v, exactly like the JAX
+    oracle (the hand kernel returns 0 there, as the TPU kernel does).
+    """
+    B, S, H, hd = q.shape
+    _, T, Kh, _ = k.shape
+    G = H // Kh
+    qg = q.reshape(B, S, Kh, G, hd).float()
+    kf = k.float()
+    vf = v.float()
+    s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(T, device=q.device)[None, :]
+    mask = kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", p, vf)
+    return out.reshape(B, S, H, hd).to(q.dtype)
+
+
 def paged_attention_ref(q, k_pages, v_pages, block_tables, lengths, *,
                         scale, softcap: float = 0.0,
                         k_scale=None, v_scale=None):

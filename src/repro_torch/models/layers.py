@@ -24,8 +24,8 @@ Conventions
 * The dense decode cache (``init_kv_cache`` / ``attention_decode``)
   covers global strips and is updated IN PLACE like the pool.
 * Not ported yet, raising ``NotImplementedError``: local ring caches,
-  the long-sequence and local-window prefill branches, the prefix-hit
-  prefill and the ``flash_attention`` kernel path.
+  the long-sequence (blockwise) prefill branch and the prefix-hit
+  prefill.
 """
 from __future__ import annotations
 
@@ -352,14 +352,17 @@ BLOCKWISE_CHUNK = 1024
 
 def attention_fwd(cfg: ModelConfig, params, x, positions, *,
                   is_global: bool, use_flash: bool = False):
-    """Full-sequence causal self-attention (prefill), plain masked-softmax
-    branch.
+    """Full-sequence causal self-attention (training / prefill).
 
-    x: (B, S, d).  Returns (out (B,S,d), k, v) — k/v returned for cache
-    construction.  The JAX function's ``flash_attention`` kernel branch
-    and its chunked-local / blockwise branches (local layers with
-    S > 2W, or S >= 8192) raise ``NotImplementedError`` here; its
-    cross-attention / non-causal arguments belong to the enc-dec slice.
+    x: (B, S, d).  ``use_flash`` sends the attention through
+    ``kernels.ops.flash_attention`` (the hand-written kernel on CUDA
+    tensors, its plain version on CPU tensors; neither has a backward).
+    Otherwise local (sliding-window) layers take the chunked O(S*W) path
+    when S > 2W and S % W == 0, and the rest the plain masked softmax.
+    Returns (out (B,S,d), k, v) — k/v returned for cache construction.
+    The JAX function's blockwise branch (S >= 8192) raises
+    ``NotImplementedError`` here; its cross-attention / non-causal
+    arguments belong to the enc-dec slice.
     """
     B, S, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -373,11 +376,14 @@ def attention_fwd(cfg: ModelConfig, params, x, positions, *,
 
     window = 0 if is_global else cfg.local_window
     if use_flash:
-        raise _not_ported("attention_fwd(use_flash=True)",
-                          "B.3 (flash_attention kernel)")
+        from repro_torch.kernels import ops as kernel_ops
+        out = kernel_ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
+            window=window, softcap=cfg.attn_logit_softcap,
+        ).reshape(B, S, K, G, hd)
     elif window and S > 2 * window and S % window == 0:
-        raise _not_ported("chunked local-window prefill",
-                          "A.2 (_chunked_local_attention)")
+        out = _chunked_local_attention(qg, k, v, window, scale,
+                                       cfg.attn_logit_softcap)
     elif S >= BLOCKWISE_THRESHOLD and S % BLOCKWISE_CHUNK == 0 \
             and T % BLOCKWISE_CHUNK == 0:
         raise _not_ported("blockwise long-sequence prefill",
@@ -392,6 +398,44 @@ def attention_fwd(cfg: ModelConfig, params, x, positions, *,
     out = out.reshape(B, S, H, hd)
     o = weight_einsum("bshq,hqd->bsd", out, params["wo"])
     return o, k, v
+
+
+def _chunked_local_attention(qg, k, v, window, scale, softcap):
+    """Sliding-window attention in O(S * 2W): each chunk of W queries
+    against its own chunk and the previous one (zeros before chunk 0).
+
+    qg: (B, S, K, G, hd) with S % window == 0; k, v: (B, S, K, hd).
+    Scores are float32 products, probabilities are cast to v's dtype
+    before the second product, as in ``attention_weights_and_out``.
+    """
+    B, S, K, G, hd = qg.shape
+    W = window
+    C = S // W
+    kc = k.reshape(B, C, W, K, hd)
+    vc = v.reshape(B, C, W, K, hd)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]],
+                              dim=1), kc], dim=2)      # (B, C, 2W, K, hd)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]],
+                              dim=1), vc], dim=2)
+
+    qpos = torch.arange(W, device=qg.device)[:, None] + W  # in the 2W frame
+    kpos = torch.arange(2 * W, device=qg.device)[None, :]
+    m = (kpos <= qpos) & (kpos > qpos - W)                 # (W, 2W)
+    first = m & (kpos >= W)                 # chunk 0 has no previous chunk
+    mask = torch.cat([first[None], m.expand(C - 1, W, 2 * W)], dim=0)
+
+    # (B, C, K, G*W, hd) @ (B, C, K, hd, 2W): the G heads of a group
+    # stacked along the rows
+    qr = qg.reshape(B, C, W, K, G, hd).permute(0, 1, 3, 4, 2, 5) \
+        .reshape(B, C, K, G * W, hd).float()
+    scores = torch.matmul(qr, k2.permute(0, 1, 3, 4, 2).float())
+    scores = _softcap(scores.view(B, C, K, G, W, 2 * W) * scale, softcap)
+    scores = torch.where(mask[None, :, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.matmul(probs.view(B, C, K, G * W, 2 * W),
+                       v2.permute(0, 1, 3, 2, 4))   # (B, C, K, G*W, hd)
+    return out.view(B, C, K, G, W, hd).permute(0, 1, 4, 2, 3, 5) \
+        .reshape(B, S, K, G, hd)
 
 
 def _decode_project(cfg: ModelConfig, params, x, pos, *, is_global: bool):

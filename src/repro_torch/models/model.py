@@ -7,6 +7,9 @@ dense family (``models.transformer``) and the ssm family
 
     init_params(cfg, generator, device)           -> params
     forward(cfg, params, tokens, use_kernel=...)  -> logits (B, S, V)
+    apply(cfg, params, batch, use_flash=...,
+          use_kernel=..., remat=...)              -> (logits, aux loss)
+    loss_fn(cfg, params, batch, **opts)           -> (loss, metrics)
     init_cache(cfg, b, max_len, device)           -> cache (dense strips)
     prefill(cfg, params, batch, max_len,
             true_len=...)                         -> (logits, cache)
@@ -23,11 +26,17 @@ dense family (``models.transformer``) and the ssm family
 
 The JAX entry points return new caches; these update the cache's
 tensors in place and return the same cache (``prefill`` makes a new
-one, as in JAX).
+one, as in JAX).  ``batch`` is a dict of ``tokens`` / ``targets`` (and
+an optional ``loss_mask``); the vlm and encdec families' embedding
+inputs come with their slices.
 """
 from __future__ import annotations
 
-from repro_torch.configs.base import ModelConfig
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.devices import DeviceLike
 from repro_torch.models import ssm, transformer
 
@@ -51,13 +60,78 @@ def init_params(cfg: ModelConfig, generator=None, device: DeviceLike = None):
     return family_module(cfg).init_params(cfg, generator, device)
 
 
-def forward(cfg: ModelConfig, params, tokens, *, use_kernel: bool = False):
-    """Full-sequence logits.  ``use_kernel`` sends the ssm family's scan
-    through ``kernels.ops.ssd_scan`` (as JAX ``apply(use_kernel=)``);
-    the dense family ignores it."""
+def specialize(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
+    """Adapt static config knobs to an input shape (the enc-dec position
+    table must cover the decoder length)."""
+    if cfg.family == "encdec" and cfg.max_target_positions < shape.seq_len:
+        cfg = cfg.replace(max_target_positions=shape.seq_len)
+    return cfg
+
+
+def apply(cfg: ModelConfig, params, batch: dict, *, use_flash: bool = False,
+          use_kernel: bool = False, remat: Optional[str] = None):
+    """Full-sequence logits (B, S, V) and a scalar aux loss (0 where n/a,
+    float32).  ``use_flash`` sends the dense family's attention through
+    ``kernels.ops.flash_attention`` and ``use_kernel`` the ssm family's
+    scan through ``kernels.ops.ssd_scan`` (neither kernel has a
+    backward); ``remat`` is the JAX checkpoint policy name
+    (``transformer._maybe_remat``)."""
+    tokens = batch["tokens"]
+    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "ssm":
-        return ssm.forward(cfg, params, tokens, use_kernel=use_kernel)
-    return family_module(cfg).forward(cfg, params, tokens)
+        return ssm.forward(cfg, params, tokens, use_kernel=use_kernel,
+                           remat=remat), zero
+    return family_module(cfg).forward(cfg, params, tokens,
+                                      use_flash=use_flash, remat=remat), zero
+
+
+def loss_fn(cfg: ModelConfig, params, batch: dict, **opts):
+    """Mean next-token cross-entropy of ``batch["targets"]`` under
+    ``apply(**opts)``: float32 log-softmax, masked by ``loss_mask`` when
+    the batch has one.  Returns (loss, {"ce", "aux"})."""
+    logits, aux = apply(cfg, params, batch, **opts)
+    targets = batch["targets"]
+    logits = logits[:, -targets.shape[1]:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    del logits
+    nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        nll = nll * mask
+        denom = torch.clamp(torch.sum(mask), min=1.0)
+    else:
+        denom = float(nll.numel())
+    ce = torch.sum(nll) / denom
+    loss = ce + cfg.router_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux}
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of one model input (the JAX
+    ``ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+def batch_shapes(cfg: ModelConfig, shape: InputShape) -> dict:
+    """``TensorSpec`` of every model input of a train/prefill batch."""
+    if cfg.family in ("vlm", "encdec"):
+        family_module(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    return {"tokens": TensorSpec((B, S), torch.int32),
+            "targets": TensorSpec((B, S), torch.int32)}
+
+
+def count_params(params) -> int:
+    """Number of scalars in a parameter tree."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
+
+
+def forward(cfg: ModelConfig, params, tokens, *, use_kernel: bool = False):
+    """Full-sequence logits: ``apply``'s, without the aux loss."""
+    return apply(cfg, params, {"tokens": tokens}, use_kernel=use_kernel)[0]
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,

@@ -24,8 +24,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import (_layer, broadcast_true_len,
-                                            gather_last, scatter_cache_rows)
+from repro_torch.models.transformer import (_layer, _maybe_remat,
+                                            broadcast_true_len, gather_last,
+                                            scatter_cache_rows)
 
 Params = dict
 
@@ -296,11 +297,16 @@ def _logits(cfg: ModelConfig, params: Params, x):
     return L.unembed(cfg, params["embed"], params["unembed"], x)
 
 
-def forward(cfg: ModelConfig, params: Params, tokens, *, use_kernel=False):
-    """Full-sequence logits (B, S, V). tokens: (B, S)."""
+def forward(cfg: ModelConfig, params: Params, tokens, *, use_kernel=False,
+            remat: Optional[str] = None):
+    """Full-sequence logits (B, S, V). tokens: (B, S).  ``remat``: the
+    JAX checkpoint policy name of each block
+    (``transformer._maybe_remat``)."""
     x = L.embed(cfg, params["embed"], tokens)
+    body = _maybe_remat(
+        lambda h, lp: block_fwd(cfg, lp, h, use_kernel=use_kernel)[0], remat)
     for lp in _layers(cfg, params["layers"]):
-        x, _ = block_fwd(cfg, lp, x, use_kernel=use_kernel)
+        x = body(x, lp)
     return _logits(cfg, params, x)
 
 

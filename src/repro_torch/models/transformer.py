@@ -1,19 +1,26 @@
 """Dense decoder-only transformer trunk (PyTorch port of
-``repro.models.transformer``, the uniform all-global subset).
+``repro.models.transformer``).
 
 Layers are stacked along a leading axis exactly like the JAX trunk, and
 the ``lax.scan`` over them becomes a Python loop over layer slices (views,
-no copies).  Caches are updated IN PLACE: every ``*_paged`` function
-writes into the pool tensors it was given, and ``decode_step`` into the
-dense strips of ``init_cache``; each returns that same cache.  Configs
-with a local:global pattern (``pattern_period > 1``, the gemma rings)
-raise ``NotImplementedError`` until their slice.
+no copies).  Architectures with a local:global attention pattern
+(gemma2/3, ``pattern_period > 1``) stack *super-blocks* as in JAX:
+``pattern_period - 1`` local (sliding-window) layers followed by one
+global layer, then the remainder local layers; ``init_params``,
+``trunk_fwd`` and ``forward`` (training and evaluation) take them.
+Caches are updated IN PLACE: every ``*_paged`` function writes into the
+pool tensors it was given, and ``decode_step`` into the dense strips of
+``init_cache``; each returns that same cache.  The cache, paged and
+decode entry points take the uniform all-global trunk only; on a
+pattern config they raise ``NotImplementedError`` until the slice that
+serves the gemma ring layers.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
@@ -25,8 +32,9 @@ Params = dict
 def _uniform_only(cfg: ModelConfig) -> None:
     if cfg.pattern_period > 1:
         raise L._not_ported(
-            f"{cfg.name}: local:global layer patterns (pattern_period="
-            f"{cfg.pattern_period})", "A.3 (gemma superblocks)")
+            f"{cfg.name}: serving local:global layer patterns "
+            f"(pattern_period={cfg.pattern_period})",
+            "A.2/A.3 (gemma ring caches)")
 
 
 # ---------------------------------------------------------------------------
@@ -49,6 +57,24 @@ def init_block(cfg: ModelConfig, gen, stack=(), dtype=torch.float32,
     return p
 
 
+def init_trunk(cfg: ModelConfig, gen, dtype=torch.float32,
+               device=None) -> Params:
+    """The stacked trunk: ``{"layers"}`` (nb,) for a uniform config;
+    ``{"super": {"local" (nb, period-1), "global" (nb,)}}`` plus
+    ``"rem_local"`` (rem,) for a local:global pattern."""
+    nb, rem = cfg.pattern_blocks()
+    kw = dict(dtype=dtype, device=device)
+    if cfg.pattern_period <= 1:
+        return {"layers": init_block(cfg, gen, stack=(nb,), **kw)}
+    p = {"super": {
+        "local": init_block(cfg, gen, stack=(nb, cfg.pattern_period - 1),
+                            **kw),
+        "global": init_block(cfg, gen, stack=(nb,), **kw)}}
+    if rem:
+        p["rem_local"] = init_block(cfg, gen, stack=(rem,), **kw)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device: DeviceLike = None) -> Params:
     """Random parameters in the reference layout (same keys, shapes and
@@ -56,7 +82,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     ``cfg.weight_dtype`` on ``device`` (default ``cuda``).  The numbers
     come from ``generator`` (default: seed 0 on ``device``); they are not
     the JAX package's numbers — bridge JAX weights for parity."""
-    _uniform_only(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -67,8 +92,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return {
         "embed": L.init_embedding(cfg, generator, **kw),
         "unembed": L.init_unembed(cfg, generator, **kw),
-        "trunk": {"layers": init_block(cfg, generator,
-                                       stack=(cfg.num_layers,), **kw)},
+        "trunk": init_trunk(cfg, generator, **kw),
         "final_norm": norm_init(cfg.d_model, **kw),
     }
 
@@ -165,18 +189,67 @@ def block_prefill_paged(cfg: ModelConfig, p: Params, x, positions, pages,
 
 
 # ---------------------------------------------------------------------------
-# full-sequence forward
+# full-sequence forward (train / evaluation without cache)
 # ---------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params: Params, tokens, *, use_flash=False):
+def _maybe_remat(fn, policy: Optional[str]):
+    """``fn`` recomputed in the backward pass under ``policy``, the JAX
+    ``TrainConfig.remat`` name: ``None`` / ``"none"`` keep every
+    activation; ``"full"`` and ``"nothing_saveable"`` save only the
+    block's inputs and recompute the rest (``torch.utils.checkpoint``,
+    non-reentrant).  Any other JAX checkpoint policy raises rather than
+    silently saving something else."""
+    if not policy or policy == "none":
+        return fn
+    if policy not in ("full", "nothing_saveable"):
+        raise NotImplementedError(
+            f"remat policy {policy!r} is not ported to repro_torch (it "
+            f"takes None, 'none', 'full' and 'nothing_saveable')")
+
+    def recomputed(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return recomputed
+
+
+def trunk_fwd(cfg: ModelConfig, trunk: Params, x, positions, *,
+              use_flash=False, remat: Optional[str] = None):
+    """The trunk over x (B, S, d) in the JAX layer order: each
+    super-block's locals, then its global, then ``rem_local``."""
+    def body(h, lp, is_global):
+        return block_fwd(cfg, lp, h, positions, is_global=is_global,
+                         use_flash=use_flash)
+
+    if cfg.pattern_period <= 1:
+        step = _maybe_remat(lambda h, lp: body(h, lp, True), remat)
+        for lp in _uniform_layers(cfg, trunk):
+            x = step(x, lp)
+        return x
+
+    local = _maybe_remat(lambda h, lp: body(h, lp, False), remat)
+
+    def super_body(h, sp):
+        for j in range(cfg.pattern_period - 1):
+            h = local(h, _layer(sp["local"], j))
+        return body(h, sp["global"], True)
+
+    superblock = _maybe_remat(super_body, remat)
+    nb, rem = cfg.pattern_blocks()
+    for i in range(nb):
+        x = superblock(x, _layer(trunk["super"], i))
+    for i in range(rem):
+        x = local(x, _layer(trunk["rem_local"], i))
+    return x
+
+
+def forward(cfg: ModelConfig, params: Params, tokens, *, use_flash=False,
+            remat: Optional[str] = None):
     """Full-sequence logits (B, S, V). tokens: (B, S)."""
     x = L.embed(cfg, params["embed"], tokens)
     B, S, _ = x.shape
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-    for lp in _uniform_layers(cfg, params["trunk"]):
-        x = block_fwd(cfg, lp, x, positions, is_global=True,
-                      use_flash=use_flash)
+    x = trunk_fwd(cfg, params["trunk"], x, positions, use_flash=use_flash,
+                  remat=remat)
     return _logits(cfg, params, x)
 
 

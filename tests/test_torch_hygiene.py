@@ -44,12 +44,19 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.kernels.quant_matmul",
             "repro_torch.core.earlyexit",
             "repro_torch.models.ssm",
-            "repro_torch.kernels.ssd_scan"} <= swept
+            "repro_torch.kernels.ssd_scan",
+            "repro_torch.kernels.flash_attention",
+            "repro_torch.training.trainer",
+            "repro_torch.training.checkpoint",
+            "repro_torch.data.pipeline",
+            "repro_torch.launch.train"} <= swept
 
 
 def test_no_source_imports_jax_or_repro():
-    assert {PKG / "models" / "ssm.py", PKG / "kernels" / "ssd_scan.py"} \
-        <= set(SOURCES)
+    assert {PKG / "models" / "ssm.py", PKG / "kernels" / "ssd_scan.py",
+            PKG / "kernels" / "flash_attention.py",
+            PKG / "training" / "optimizer.py",
+            PKG / "launch" / "train.py"} <= set(SOURCES)
     offenders = []
     for path in SOURCES:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -89,3 +96,7 @@ def test_kernel_sources_live_in_csrc():
     text = (PKG / "csrc" / "ssd_scan.cu").read_text()
     assert "src/repro/kernels/ssd_scan.py" in text and "`_kernel`" in text
     assert "3.35 TB/s" in text and "67 TFLOP/s" in text
+    text = (PKG / "csrc" / "flash_attention.cu").read_text()
+    assert "src/repro/kernels/flash_attention.py" in text
+    assert "`_kernel`" in text and "`flash_attention`" in text
+    assert "3.35 TB/s" in text and "989" in text

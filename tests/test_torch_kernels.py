@@ -27,6 +27,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import layers as JL
 from repro_torch.kernels import build, checks, ops, ref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_extend_attention as pea
 from repro_torch.kernels import quant_matmul as qm
@@ -161,7 +162,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 def test_build_path_is_keyed_by_source_hash():
-    assert set(build.KERNELS) == {"paged_attention",
+    assert set(build.KERNELS) == {"flash_attention", "paged_attention",
                                   "paged_extend_attention", "quant_matmul",
                                   "ssd_scan"}
     for name in build.KERNELS:
@@ -444,3 +445,115 @@ def test_ssd_scan_shared_memory(p, n, Q, fits):
     """mamba2-370m's full width at its chunk of 256 fits a block; the
     chunk's dt and cumsum grow with Q, so a huge chunk does not."""
     assert (ssd.shared_bytes(p, n, Q) <= checks.SMEM_LIMIT) == fits
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the plain version against the JAX oracle (float32,
+# 1e-6) and the Pallas kernel in interpret mode (2e-3, the tolerance of
+# tests/test_kernels.py's sweep); each sweep shape of that file paired
+# with one of its window / softcap cases, plus a ragged S and T != S
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [                     # B, S, T, H, K, hd, window, softcap
+    (2, 64, 64, 4, 2, 32, 0, 0.0),
+    (2, 128, 128, 4, 4, 64, 16, 0.0),
+    (2, 32, 32, 8, 1, 128, 0, 50.0),
+    (2, 256, 256, 2, 2, 64, 32, 30.0),
+    (1, 40, 40, 4, 2, 32, 16, 0.0),        # ragged S (no tile divides it)
+    (2, 64, 32, 4, 1, 32, 0, 0.0),         # T < S: keys end before queries
+]
+FLASH_IDS = ["s64", "s128-w16", "s32-cap50", "s256-w32-cap30", "ragged40",
+             "t32-s64"]
+
+
+def _flash_case(B, S, T, H, K, hd, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple((rng.standard_normal(shape) * 0.5).astype(np.float32)
+                 for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd)))
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,window,softcap", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_attention_ref_matches_jax(B, S, T, H, K, hd, window, softcap):
+    q, k, v = _flash_case(B, S, T, H, K, hd, seed=S + H)
+    kw = dict(scale=hd ** -0.5, window=window, softcap=softcap)
+    mine = ref.flash_attention_ref(*map(torch.from_numpy, (q, k, v)),
+                                   **kw).numpy()
+    j = [jnp.asarray(a) for a in (q, k, v)]
+    oracle = np.asarray(jax_ref.flash_attention_ref(*j, **kw))
+    pallas = np.asarray(jax_ops.flash_attention(*j, **kw))
+    np.testing.assert_allclose(mine, oracle, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(mine, pallas, rtol=2e-3, atol=2e-3)
+
+
+def test_flash_attention_cpu_tensors_dispatch_to_plain_version():
+    t = [torch.from_numpy(a) for a in _flash_case(2, 40, 40, 4, 2, 32)]
+    fa.launches = 0
+    out = ops.flash_attention(*t, scale=0.2, window=16, softcap=20.0)
+    assert fa.launches == 0
+    assert torch.equal(out, ref.flash_attention_ref(*t, scale=0.2, window=16,
+                                                    softcap=20.0))
+
+
+def test_flash_attention_kernel_wrapper_refuses_cpu_tensors():
+    t = [torch.from_numpy(a) for a in _flash_case(2, 40, 40, 4, 2, 32)]
+    fa.launches = 0
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention(*t, scale=0.2)
+    assert fa.launches == 0
+
+
+@pytest.mark.parametrize("hd,padded", [(32, 64), (64, 64), (128, 128),
+                                       (256, 256)])
+def test_flash_attention_shared_memory(hd, padded):
+    """The widest instantiation (hd 256: three 64 x 260 float32 tiles and
+    the 64 x 68 probability tile) fits a block."""
+    assert fa.padded_head_dim(hd) == padded
+    assert fa.shared_bytes(hd) == 4 * (3 * 64 * (padded + 4) + 64 * 68)
+    assert fa.shared_bytes(hd) <= checks.SMEM_LIMIT
+
+
+# ---------------------------------------------------------------------------
+# no kernel op silently cuts a gradient: each raises under autograd, on
+# CPU tensors as on CUDA ones (the plain version stands in for the kernel)
+# ---------------------------------------------------------------------------
+
+def _op_calls():
+    g = torch.Generator().manual_seed(0)
+    q3, kp, vp, bt, ln = map(torch.from_numpy, _paged_case(3, *SHAPES[0]))
+    q4 = torch.randn((3, 2, 4, 32), generator=g)
+    kn = torch.randn((3, 2, 2, 32), generator=g)
+    x, dt, A, Bm, Cm = _ssd_case()
+    fq, fk, fv = map(torch.from_numpy, _flash_case(2, 40, 40, 4, 2, 32))
+    wq = torch.randint(-127, 128, (16, 8), generator=g, dtype=torch.int8)
+    pos = torch.tensor([4, 9, 0], dtype=torch.int32)
+    return {
+        "flash_attention": ((fq, fk, fv), lambda a: ops.flash_attention(
+            *a, scale=0.2, window=16)),
+        "paged_attention": ((q3, kp, vp), lambda a: ops.paged_attention(
+            a[0], a[1], a[2], bt, ln, scale=0.2)),
+        "paged_extend_attention": ((q4, kp, vp, kn, kn.clone()),
+                                   lambda a: ops.paged_extend_attention(
+            a[0], a[1], a[2], a[3], a[4], bt, pos, scale=0.2)),
+        "quant_matmul": ((torch.randn((3, 16), generator=g),),
+                         lambda a: ops.quant_matmul(
+            a[0], wq, torch.rand(8, generator=g), out_dtype=torch.float32)),
+        "ssd_scan": ((x, dt, A, Bm, Cm), lambda a: ops.ssd_scan(*a, chunk=8)),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "paged_extend_attention", "quant_matmul",
+                                  "ssd_scan"])
+def test_kernel_ops_refuse_gradients(name):
+    """With any floating input requiring grad the op raises; under
+    ``torch.no_grad()``, or with no input requiring grad, it runs."""
+    inputs, call = _op_calls()[name]
+    call(inputs)
+    for i in range(len(inputs)):
+        needy = list(inputs)
+        needy[i] = inputs[i].clone().requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            call(needy)
+        with torch.no_grad():
+            call(needy)

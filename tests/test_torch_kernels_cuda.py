@@ -1,6 +1,8 @@
-"""The hand-written ``paged_attention``, ``paged_extend_attention``,
-``quant_matmul`` and ``ssd_scan`` CUDA kernels against their plain
-PyTorch versions, on the card.
+"""The hand-written ``flash_attention``, ``paged_attention``,
+``paged_extend_attention``, ``quant_matmul`` and ``ssd_scan`` CUDA
+kernels against their plain PyTorch versions, on the card; the gradient
+guard of every kernel op on CUDA tensors; and the gemma superblock
+trunk's forward on the card against the CPU's.
 
 Marked ``cuda``: without a GPU every test skips with a reason (the check
 happens inside the fixture, never at import).  On the GPU host:
@@ -26,11 +28,16 @@ bfloat16 output within one bfloat16 step of the float32 result
 (rtol=2**-8, atol=1e-4).  ``ssd_scan`` is held against the model's
 plain chunked path in float32 on the same inputs (the same sums in
 another order): within 1e-4 x max |y|, plus one bfloat16 step of each
-value for a bfloat16 y.
+value for a bfloat16 y.  ``flash_attention`` is held like the paged
+reads (float32 within rtol=atol=1e-4, a bfloat16 output within one
+bfloat16 step of the float32 plain version); two broken versions (the
+window ignored, the causal mask one key late) lie far outside.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_extend_attention as pea
 from repro_torch.kernels import quant_matmul as qm
@@ -479,3 +486,197 @@ def test_ssd_scan_wrapper_rejects_bad_arguments(device):
              torch.zeros((1, long, 1), device=device), A[:1],
              torch.zeros((1, long, 8), device=device),
              torch.zeros((1, long, 8), device=device), chunk=long)
+
+
+# ---------------------------------------------------------------------------
+# flash_attention
+# ---------------------------------------------------------------------------
+
+FLASH = [                                   # B, S, T, H, K, hd, window
+    (2, 4096, 4096, 4, 1, 256, 0),          # gemma3-1b evaluation, global
+    (2, 4096, 4096, 4, 1, 256, 512),        # and local layers
+    (2, 512, 512, 40, 10, 128, 0),          # phi3's GQA
+    (2, 300, 300, 4, 1, 256, 64),           # ragged S
+    (2, 300, 200, 8, 2, 128, 0),            # T < S
+    (1, 130, 190, 4, 4, 64, 16),            # T > S
+    (3, 40, 40, 4, 2, 32, 0),               # a head_dim below the tile
+]
+FLASH_IDS = ["path-global", "path-local", "phi3-gqa", "ragged300",
+             "t200-s300", "t190-s130", "hd32"]
+
+
+def _flash_case(device, B, S, T, H, K, hd, dtype, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.randn((B, S, H, hd), generator=g) * 3.0
+    k = torch.randn((B, T, K, hd), generator=g) * 0.5
+    v = torch.randn((B, T, K, hd), generator=g) * 0.5
+    return tuple(t.to(dtype).to(device) for t in (q, k, v))
+
+
+def _flash_plain(q, k, v, **kw):
+    return ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,hd,window", FLASH, ids=FLASH_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_matches_plain_version(device, B, S, T, H, K, hd,
+                                               window, dtype):
+    q, k, v = _flash_case(device, B, S, T, H, K, hd, dtype, seed=S + H)
+    kw = dict(scale=hd ** -0.5, window=window)
+    before = fa.launches
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1 and out.dtype == dtype
+    assert torch.allclose(out.float(), _flash_plain(q, k, v, **kw),
+                          **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_attention_softcap_binds(device, dtype):
+    """At scale 1 the scores reach tens and a softcap of 50 binds."""
+    q, k, v = _flash_case(device, 2, 300, 300, 4, 1, 256, dtype, seed=5)
+    capped = fa.flash_attention(q, k, v, scale=1.0, window=64, softcap=50.0)
+    free = fa.flash_attention(q, k, v, scale=1.0, window=64)
+    want = _flash_plain(q, k, v, scale=1.0, window=64, softcap=50.0)
+    assert torch.allclose(capped.float(), want, **TOL[dtype])
+    assert float((capped.float() - free.float()).abs().max()) > CAP_MOVES
+
+
+def _shifted_plain(q, k, v, scale, window):
+    """What a kernel whose causal mask is one key late computes: query i
+    sees keys up to i + 1 (and the window one key later too)."""
+    B, S, H, hd = q.shape
+    T, K = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, S, K, H // K, hd)
+    s = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    i = torch.arange(S, device=q.device)[:, None] + 1
+    j = torch.arange(T, device=q.device)[None, :]
+    mask = (j <= i) & ((j > i - window) if window else True)
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    return torch.einsum("bkgst,btkd->bskgd", p, v.float()).reshape(q.shape)
+
+
+def test_flash_attention_broken_versions_fail(device):
+    """The window ignored, or the causal mask one key late: either lies
+    far outside the tolerance the kernel meets."""
+    q, k, v = _flash_case(device, 2, 1024, 1024, 4, 1, 256, torch.float32,
+                          seed=9)
+    kw = dict(scale=256 ** -0.5, window=128)
+    out = fa.flash_attention(q, k, v, **kw)
+    want = _flash_plain(q, k, v, **kw)
+    assert torch.allclose(out, want, **TOL[torch.float32])
+    for broken in (_flash_plain(q, k, v, scale=kw["scale"]),
+                   _shifted_plain(q, k, v, **kw)):
+        assert not torch.allclose(broken, want, **TOL[torch.float32])
+        assert float((broken - out).abs().max()) > CAP_MOVES
+
+
+def test_flash_attention_wrapper_rejects_bad_arguments(device):
+    q, k, v = _flash_case(device, 1, 8, 8, 4, 2, 32, torch.float32)
+    call = fa.flash_attention
+    with pytest.raises(ValueError, match="CUDA"):
+        call(q.cpu(), k, v, scale=1.0)
+    with pytest.raises(TypeError, match="differ"):
+        call(q, k.to(torch.bfloat16), v, scale=1.0)
+    with pytest.raises(ValueError, match="group"):
+        call(q[:, :, :3].contiguous(), k, v, scale=1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        call(q.transpose(1, 2), k, v, scale=1.0)
+    with pytest.raises(ValueError, match="16-byte vectors"):
+        x = torch.zeros((1, 8, 4, 6), dtype=torch.bfloat16, device=device)
+        call(x, x[:, :, :2].contiguous(), x[:, :, :2].contiguous(),
+             scale=1.0)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros((1, 8, 1, 320), device=device)
+        call(x, x, x, scale=1.0)
+    with pytest.raises(ValueError, match=">= 0"):
+        call(q, k, v, scale=1.0, window=-1)
+
+
+# ---------------------------------------------------------------------------
+# no kernel op silently cuts a gradient (on CUDA tensors; the CPU twins
+# are held to the same in tests/test_torch_kernels.py)
+# ---------------------------------------------------------------------------
+
+def _grad_calls(device):
+    g = torch.Generator(device="cpu").manual_seed(0)
+    (q, kp, vp, bt, ln), _ = _case(device, torch.float32, B=2, H=4, K=2,
+                                   hd=32, nB=8, bs=4, n_blk=2)
+    kn = (torch.randn((2, 3, 2, 32), generator=g) * 0.5).to(device)
+    q4 = torch.randn((2, 3, 4, 32), generator=g).to(device)
+    fq, fk, fv = _flash_case(device, 2, 40, 40, 4, 2, 32, torch.float32)
+    x, dt, A, Bm, Cm = _ssd_case(device, 1, 20, 4, 16, 8, torch.float32)
+    wq = torch.randint(-127, 128, (16, 8), generator=g,
+                       dtype=torch.int8).to(device)
+    scale = torch.rand(8, generator=g).to(device)
+    pos = torch.tensor([3, 0], dtype=torch.int32, device=device)
+    return {
+        "flash_attention": (fq, lambda t: ops.flash_attention(
+            t, fk, fv, scale=0.2), fa),
+        "paged_attention": (q, lambda t: ops.paged_attention(
+            t, kp, vp, bt, ln, scale=0.2), pa),
+        "paged_extend_attention": (q4, lambda t: ops.paged_extend_attention(
+            t, kp, vp, kn, kn, bt, pos, scale=0.2), pea),
+        "quant_matmul": (torch.randn((3, 16), generator=g).to(device),
+                         lambda t: ops.quant_matmul(t, wq, scale), qm),
+        "ssd_scan": (x.contiguous(), lambda t: ops.ssd_scan(
+            t, dt, A, Bm, Cm, chunk=8), ssd),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "paged_attention",
+                                  "paged_extend_attention", "quant_matmul",
+                                  "ssd_scan"])
+def test_kernel_ops_refuse_gradients_on_cuda(device, name):
+    """An input that requires grad makes the op raise before launching;
+    under ``torch.no_grad()`` the same call launches the kernel."""
+    x, call, module = _grad_calls(device)[name]
+    before = module.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        call(x.clone().requires_grad_(True))
+    assert module.launches == before
+    with torch.no_grad():
+        call(x.clone().requires_grad_(True))
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# the superblock trunk on the card
+# ---------------------------------------------------------------------------
+
+def test_superblock_forward_on_cuda_matches_the_cpu(device):
+    """gemma3-1b's smoke config (2 super-blocks of 2 local + 1 global) at
+    8 layers, so the remainder locals run too, at float32 with TF32 off:
+    the card's logits (plain path and the kernel path) and loss within
+    1e-4 of the CPU's, relative to their largest magnitude."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_smoke_config("gemma3-1b").replace(dtype="float32",
+                                                num_layers=8)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def to(tree, dev):
+        return {k: (to(v, dev) if isinstance(v, dict) else v.to(dev))
+                for k, v in tree.items()}
+    on_card = to(params, device)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=g,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    with torch.no_grad():
+        want, _ = M.apply(cfg, params, batch)
+        want_loss, _ = M.loss_fn(cfg, params, batch)
+        for use_flash in (False, True):
+            card = to(batch, device)
+            before = fa.launches
+            got, _ = M.apply(cfg, on_card, card, use_flash=use_flash)
+            loss, _ = M.loss_fn(cfg, on_card, card, use_flash=use_flash)
+            assert fa.launches - before == (16 if use_flash else 0)
+            scale = float(want.abs().max())
+            assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
+            assert abs(float(loss) - float(want_loss)) <= \
+                1e-4 * abs(float(want_loss))
