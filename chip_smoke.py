@@ -21,8 +21,13 @@ non-zero without printing a result:
               row at pos 0 (extend); ``quant_matmul`` at the draft's
               decode shapes (M=4 against every projection of a
               phi3-medium-14b layer), its prefill shape (M=512, K=5120,
-              N=17920) and a ragged one, x in bf16 and f32, with two
-              broken versions shown to fall far outside the tolerance;
+              N=17920), a ragged one and one whose K is too short to
+              split, x in bf16 and f32, with two broken versions shown
+              to fall far outside the tolerance; two calls of the M <= 8
+              kernel bitwise equal at split and unsplit plans; every
+              decode shape timed on cold weights beside its bound and
+              the bf16 cuBLAS yardstick, and the sum over one draft
+              layer's seven decode launches;
               ``ssd_scan`` against the plain chunked path in float32 at
               mamba2-370m's width (h=32, p=64, n=128, chunk 256) for b 1
               and 4, l 16 / 256 / 300 / 1024, x in bf16 and f32, a split
@@ -33,7 +38,8 @@ non-zero without printing a result:
               GQA (H=40, K=10, hd=128, S=512), a ragged S=300, T < S and
               T > S, bf16 and f32, a softcap of 50 that binds, two broken
               versions (window ignored, causal mask one key late), and
-              the window-512 launch under half the global one's time.
+              the window-512 launch under half the global one's time;
+              the ptxas lines of its bf16 tensor-core kernel.
               Times the kernel, the plain version and a PyTorch library
               call (none for the scan), next to the bound.
 4. serve    — the first main path: phi3-medium-14b at full width and
@@ -136,11 +142,17 @@ ARCH = "phi3-medium-14b"
 SERVE = dict(max_slots=4, max_len=512, policy="priority")
 N_REQ, MAX_NEW, MIN_PROMPT, MAX_PROMPT = 8, 32, 16, 300
 HBM_BYTES_PER_S = 3.35e12                     # H100 SXM
+# cuda_ms holds the stream with a spin of this many cycles a second
+# (the H100's top SM clock is 1.98 GHz: a spin lasts at least as long)
+SLEEP_CYCLES_PER_S = 2.0e9
+SLEEP_MAX_MS = 3000.0
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # kernel vs its plain version computed in float32 on the same inputs,
 # per case (CASES): float32 / int8 (float32 q) are the same float32 math
 # summed in another order; a bfloat16 output is that float32 result
-# rounded once to bfloat16, so it lies within one bfloat16 step (2**-8)
+# rounded once to bfloat16, so it lies within one bfloat16 step (2**-8);
+# flash_attention's plain version runs in float64 (an exact result
+# rounded to bfloat16 can miss a float32 one by more, in near-tie rows)
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "int8": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=2 ** -8, atol=1e-5)}
@@ -169,6 +181,11 @@ QM_BROKEN_MOVES = 0.1
 QM_DECODE = {"wq / wo": (5120, 5120), "wk / wv": (5120, 1280),
              "w_gate / w_up": (5120, 17920), "w_down": (17920, 5120)}
 QM_PREFILL = (512, 5120, 17920)
+QM_UNSPLIT = (4, 64, 1280)                    # K too short to split
+# one draft layer's decode launches: wq, wk, wv, wo, w_gate, w_up, w_down
+QM_LAYER_LAUNCHES = {"wq / wo": 2, "wk / wv": 2, "w_gate / w_up": 2,
+                     "w_down": 1}
+QM_COLD_BYTES = 128e6                         # > 2.5x the 50 MB L2
 DRAFT_LAYERS = 8
 # the fourth main path: mamba2-370m behind the pool-free engine; prompts
 # of 513-1000 tokens walk 4 chunks of the scan in one admission prefill
@@ -247,6 +264,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def ptxas_report(log: Path, contains: str) -> dict:
+    """{kernel: [ptxas 'Used ...' / spill lines]} from an ``nvcc
+    -Xptxas=-v`` log, for the entry functions whose (mangled) name holds
+    ``contains``."""
+    report, name = {}, None
+    for ln in log.read_text().splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln.strip()
+            name = name if contains in name else None
+        elif name and ("Used" in ln or "spill" in ln):
+            report.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    return report
+
+
 def _sync(torch) -> None:
     """Bring a fault of the kernels launched so far to light here."""
     if torch.cuda.is_available():
@@ -278,12 +309,23 @@ def _clock_ms() -> float:
 
 
 def cuda_ms(torch, fn, iters: int = 100, warmup: int = 10) -> float:
-    """Mean device milliseconds of ``fn(i)`` over ``iters`` calls."""
-    for i in range(warmup):
+    """Mean device milliseconds of ``fn(i)`` over ``iters`` calls, back
+    to back on the device: the stream is held busy (``torch.cuda._sleep``)
+    for longer than the host takes to queue the calls, so the host time
+    between two launches, which the events would otherwise time as idle
+    device time, does not count.  The host's own cost of a call is not a
+    kernel's time; the serve phases time it end to end."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = _clock_ms()
+    for i in range(1, warmup):
         fn(i)
+    enqueue_ms = (_clock_ms() - t0) / max(warmup - 1, 1)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    hold_ms = min(1.5 * iters * enqueue_ms + 1.0, SLEEP_MAX_MS)
+    torch.cuda._sleep(int(hold_ms * 1e-3 * SLEEP_CYCLES_PER_S))
     start.record()
     for i in range(iters):
         fn(i)
@@ -660,15 +702,48 @@ def _qm_bound(M, K, N, x_elt: int):
     return _roofline(nbytes, 2 * M * N * K, "bfloat16")
 
 
+def _qm_cold(torch, w):
+    """Copies of ``w`` that together exceed the 50 MB L2 cache by far, so
+    a timer that walks them finds each weight in device memory, as the
+    draft's 56 distinct projections a step do."""
+    n = max(1, math.ceil(QM_COLD_BYTES / (w.numel() * w.element_size())))
+    return [w] + [w.clone() for _ in range(n - 1)]
+
+
+def time_gemv(torch, qm, ref, timer, M, K, N, *, seed=7, dev="cuda"):
+    """Time the kernel at (M, K, N) with bf16 x on cold weights, beside
+    its bound, the bf16 cuBLAS yardstick (torch.matmul on a bf16 copy of
+    the dequantized weight, cold too) and the plain version."""
+    x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.bfloat16,
+                              seed=seed, dev=dev)
+    wqs = _qm_cold(torch, wq)
+    ms = timer(torch, lambda i: qm.quant_matmul(
+        x, wqs[i % len(wqs)], scale, out_dtype=torch.bfloat16))
+    del wqs
+    w_bf16 = _qm_cold(torch, (wq.float() * scale[None, :]).to(torch.bfloat16))
+    library_ms = timer(torch, lambda i: torch.matmul(x, w_bf16[i % len(w_bf16)]))
+    del w_bf16
+    row = {"shape": [M, K, N], "ms": ms, "library_ms": library_ms}
+    row["plain_ms"] = timer(torch, lambda i: ref.quant_matmul_ref(
+        x, wq, scale, out_dtype=torch.bfloat16), iters=20, warmup=3)
+    row["bound_ms"], row["bound_by"] = _qm_bound(M, K, N, 2)
+    row["weight_gb_per_s"] = K * N / (ms * 1e-3) / 1e9
+    return row
+
+
 def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
     """Hold the kernel against its plain version at the draft's shapes
     (x in bf16 and f32, out_dtype = x's); show two broken versions fall
-    outside the tolerance; time kernel, plain version and the bf16
-    yardstick at the decode w_gate shape and at the prefill shape."""
+    outside the tolerance; two calls of the M <= 8 kernel on the same
+    inputs give bitwise-equal outputs, K split or not; time kernel, plain
+    version and the bf16 yardstick at every decode shape (cold weights)
+    and at the prefill shape, and sum one draft layer's seven decode
+    launches."""
     errs, worst = {}, 0.0
     shapes = {f"decode {n}": (4, k, nn) for n, (k, nn) in QM_DECODE.items()}
     shapes["prefill w_gate"] = QM_PREFILL
     shapes["ragged"] = (3, 200, 72)
+    shapes["unsplit"] = QM_UNSPLIT
     for i, (name, (M, K, N)) in enumerate(shapes.items()):
         for dt in ("bfloat16", "float32"):
             x_dtype = getattr(torch, dt)
@@ -684,6 +759,29 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
                                      f"{err} beyond tolerance {QM_TOL[dt]}")
             errs[f"{name} {M}x{K}x{N} {dt}"] = err
             worst = max(worst, err)
+
+    # two calls, bitwise equal: the split partials are summed in a fixed
+    # order (M <= 8 only; the M > 8 kernel does not split)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count \
+        if dev == "cuda" else 132
+    plans, repeat = {}, {}
+    rep_shapes = dict((n, s) for n, s in shapes.items() if s[0] <= 8)
+    rep_shapes["decode w_gate M=8"] = (8, *QM_DECODE["w_gate / w_up"])
+    for name, (M, K, N) in rep_shapes.items():
+        x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.bfloat16,
+                                  seed=11, dev=dev)
+        a = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+        b = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+        _sync(torch)
+        plans[name] = qm.gemv_plan(M, K, N, sms)._asdict()
+        repeat[name] = bool(torch.equal(a, b))
+        if not repeat[name]:
+            raise AssertionError(f"quant_matmul {name}: two calls differ by "
+                                 f"{float((a - b).abs().max())}")
+    if not any(p["splits"] == 1 for p in plans.values()) \
+            or not any(p["splits"] > 1 for p in plans.values()):
+        raise AssertionError(f"quant_matmul: the repeatability shapes must "
+                             f"hold split and unsplit plans, got {plans}")
 
     # what two broken kernels would return, from the plain version: the
     # scale along K (the square wq shape), and K short by one 32-row tile
@@ -707,23 +805,15 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
     # the port) is torch.matmul on the weight dequantized to bf16
     # beforehand: the same product without int8 weights, reading twice the
     # weight bytes
-    times = {}
-    for name, (M, K, N) in (("decode w_gate", (4, *QM_DECODE["w_gate / w_up"])),
-                            ("prefill w_gate", QM_PREFILL)):
-        x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.bfloat16,
-                                  seed=7, dev=dev)
-        w_bf16 = (wq.float() * scale[None, :]).to(torch.bfloat16)
-        ms = timer(torch, lambda i: qm.quant_matmul(x, wq, scale,
-                                                    out_dtype=torch.bfloat16))
-        plain_ms = timer(torch, lambda i: ref.quant_matmul_ref(
-            x, wq, scale, out_dtype=torch.bfloat16), iters=20, warmup=3)
-        library_ms = timer(torch, lambda i: torch.matmul(x, w_bf16))
-        bound_ms, bound_by = _qm_bound(M, K, N, 2)
-        times[name] = {"shape": [M, K, N], "ms": ms, "plain_ms": plain_ms,
-                       "library_ms": library_ms, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
-        del w_bf16
-    row = times["decode w_gate"]
+    times = {f"decode {n}": time_gemv(torch, qm, ref, timer, 4, k, nn,
+                                      dev=dev)
+             for n, (k, nn) in QM_DECODE.items()}
+    times["prefill w_gate"] = time_gemv(torch, qm, ref, timer, *QM_PREFILL,
+                                        dev=dev)
+    layer = {k: sum(QM_LAYER_LAUNCHES[n] * times[f"decode {n}"][k]
+                    for n in QM_DECODE)
+             for k in ("ms", "library_ms", "bound_ms")}
+    row = times["decode w_gate / w_up"]
     return {
         "name": "quant_matmul", "route": "cuda",
         "source": "src/repro_torch/csrc/quant_matmul.cu",
@@ -732,7 +822,11 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
     }, {"errors": errs, "tolerance": QM_TOL, "broken_moves": moves,
-        "timed": times, "row_shape": "decode w_gate, M=4 bf16",
+        "bitwise_repeatable": repeat, "plans": plans, "timed": times,
+        "draft_layer_seven_launches": layer,
+        "row_shape": "decode w_gate, M=4 bf16",
+        "cold_weights": f"timers walk copies of each weight totalling >= "
+        f"{QM_COLD_BYTES / 1e6:.0f} MB",
         "library_call": "torch.matmul(x_bf16, w_bf16) with w dequantized to "
         "bf16 beforehand (twice the int8 weight bytes; not the same "
         "rounding)"}
@@ -951,31 +1045,40 @@ def _flash_shifted(torch, q, k, v, scale, window):
 
 
 def check_flash_attention(torch, fa, ref, timer, dev="cuda"):
-    """Hold the kernel against its plain version (float32 math on the
-    same inputs) at the evaluation path's shape, window 0 and 512, and
-    beside it (phi3's GQA, a ragged S, T < S and T > S), bf16 and f32;
+    """Hold the kernel against its plain version computed in float64 on
+    the same inputs (the float32 plain version's own summation errors
+    reach the bf16 tolerance in near-tie rows at scale 1:
+    ``exact_misses_float32_plain`` counts the outputs where even the
+    exact result, rounded to the kernel's dtype, misses it) at the
+    evaluation path's shape, window 0 and 512, and beside it (phi3's
+    GQA, a ragged S, T < S and T > S), bf16 and f32;
     a softcap of 50 at scale 1 must bind; two broken versions (window
     ignored, causal mask one key late) must land far outside the
     tolerance; the window-512 launch must take under FLASH_BAND_SHARE of
     the global launch's time.  Times the kernel, the plain version and
     SDPA at the path's shape, next to the bound."""
     import torch.nn.functional as F
-    errs, worst = {}, 0.0
+    errs, worst, errs_f32, exact_misses = {}, 0.0, {}, {}
 
     def held(case, q, k, v, **kw):
         nonlocal worst
         out = fa.flash_attention(q, k, v, **kw)
         _sync(torch)
-        exp = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        exp = ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                      **kw)
         tol = TOL[str(q.dtype).replace("torch.", "")]
-        err = float((out.float() - exp).abs().max())
-        if out.dtype != q.dtype or not torch.allclose(out.float(), exp,
+        err = float((out.double() - exp).abs().max())
+        if out.dtype != q.dtype or not torch.allclose(out.double(), exp,
                                                       **tol):
             raise AssertionError(f"flash_attention {case}: max abs err {err} "
                                  f"beyond tolerance {tol}")
+        plain = ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        errs_f32[case] = float((out.float() - plain).abs().max())
+        exact_misses[case] = int((~torch.isclose(
+            exp.to(q.dtype).float(), plain, **tol)).sum())
         errs[case] = err
         worst = max(worst, err)
-        return out.float(), exp
+        return out.float(), exp.float()
 
     for seed, (name, B, S, T, H, K, hd, w) in enumerate(FLASH_CASES):
         for dt in ("bfloat16", "float32"):
@@ -1049,6 +1152,9 @@ def check_flash_attention(torch, fa, ref, timer, dev="cuda"):
                              f"skipping must keep it under "
                              f"{FLASH_BAND_SHARE})")
     row = times["global"]
+    from repro_torch.kernels import build
+    log = build.library_path("flash_attention").with_suffix(".log")
+    ptxas = ptxas_report(log, "mma_kernel") if log.exists() else {}
     return {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1056,7 +1162,11 @@ def check_flash_attention(torch, fa, ref, timer, dev="cuda"):
         "max_abs_err": worst, "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
-    }, {"errors": errs, "tolerance": TOL, "softcap50_moves": cap_moves,
+    }, {"errors": errs, "tolerance": TOL,
+        "reference": "ref.flash_attention_ref on float64 copies",
+        "errors_vs_float32_plain": errs_f32,
+        "exact_misses_float32_plain": exact_misses,
+        "softcap50_moves": cap_moves,
         "broken_moves": moves, "timed": times,
         "local_over_global_time": share,
         "local_over_global_work": times["local"]["ops"] / row["ops"],
@@ -1064,7 +1174,7 @@ def check_flash_attention(torch, fa, ref, timer, dev="cuda"):
         "global layers; the local window-512 launch under timed.local)",
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True), "
         "is_causal for window 0, a boolean band mask for window 512",
-        "library_max_abs_err": lib_err}
+        "library_max_abs_err": lib_err, "ptxas_bf16_kernel": ptxas}
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models.layers import FLOAT32_LEAVES
 
 
 def array_to_tensor(arr: np.ndarray) -> torch.Tensor:
@@ -57,14 +58,18 @@ def params_from_numpy(tree, device: DeviceLike = None,
     (default ``cuda``): parameter trees, superblock trunks included, and
     optimizer states (an int32 ``step`` scalar keeps its shape ``()``,
     8-bit moments are {"q" int8, "scale"} dict leaves).  ``dtype``
-    recasts floating leaves; integer leaves keep their type."""
+    recasts floating leaves, except those the reference keeps in float32
+    (``models.layers.FLOAT32_LEAVES``: norm scales and biases, ``A_log``,
+    ``D``, ``dt_bias``, the scale beside int8 values); integer leaves
+    keep their type."""
     dev = resolve_device(device)
 
-    def walk(node):
+    def walk(node, key=None):
         if isinstance(node, dict):
-            return {k: walk(v) for k, v in node.items()}
+            return {k: walk(v, k) for k, v in node.items()}
         t = array_to_tensor(np.asarray(node))
-        if dtype is not None and t.is_floating_point():
+        if dtype is not None and t.is_floating_point() \
+                and key not in FLOAT32_LEAVES:
             t = t.to(dtype)
         return t.to(dev)
 

@@ -5,8 +5,6 @@ from __future__ import annotations
 
 from typing import Sequence
 
-import torch
-
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
@@ -17,6 +15,6 @@ def init_exit_heads(cfg: ModelConfig, exit_layers: Sequence[int],
     point.  The JAX function takes a PRNG key it never draws from: a
     fresh norm is deterministic, so none is taken here."""
     norm_init, _ = L.make_norm(cfg)
-    heads = [{"ln": norm_init(cfg.d_model, dtype=torch.float32,
-                              device=device)} for _ in exit_layers]
+    heads = [{"ln": norm_init(cfg.d_model, device=device)}
+             for _ in exit_layers]
     return {"exits": heads, "exit_layers": tuple(exit_layers)}

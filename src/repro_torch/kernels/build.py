@@ -71,7 +71,9 @@ KERNELS = {
     "quant_matmul": ("quant_matmul.cu", {
         "repro_quant_matmul": (
             [_P, _P, _P, _P,                      # x wq scale out
+             _P, _P,                              # workspace, counters
              _I, _I, _I,                          # M K N
+             _I, _I, _I,                          # cols, splits, k_chunk
              _I, _I,                              # x dtype, out dtype
              _P],                                 # stream
             _I),

@@ -20,8 +20,11 @@ from repro_torch.kernels import build, checks
 launches = 0
 
 NAME = "flash_attention"
-TILE = 64                   # query rows and key rows of a tile
-PAD = 4                     # floats added to each staged row
+TILE = 64                   # key rows of a tile (and query rows, float32)
+PAD = 4                     # floats added to each staged float32 row
+BF16_QUERY_ROWS = 128       # query rows of a bfloat16 block (8 warps x 16)
+BF16_STAGES = 2             # (K, V) tiles in the bfloat16 ring
+BF16_PAD = 8                # bfloat16 added to each staged row
 
 
 def padded_head_dim(hd: int) -> int:
@@ -29,10 +32,16 @@ def padded_head_dim(hd: int) -> int:
     return 64 if hd <= 64 else 128 if hd <= 128 else 256
 
 
-def shared_bytes(hd: int) -> int:
-    """Dynamic shared memory of one block: the query, key and value
-    tiles staged as float32 (rows padded) and the probability tile."""
-    return 4 * (3 * TILE * (padded_head_dim(hd) + PAD) + TILE * (TILE + 4))
+def shared_bytes(hd: int, dtype=torch.bfloat16) -> int:
+    """Dynamic shared memory of one block.  bfloat16: the query tile and
+    a two-stage ring of key and value tiles, all bfloat16 (rows padded).
+    float32: the query, key and value tiles as float32 (rows padded) and
+    the probability tile."""
+    hdp = padded_head_dim(hd)
+    if dtype == torch.bfloat16:
+        rows = BF16_QUERY_ROWS + BF16_STAGES * 2 * TILE
+        return 2 * rows * (hdp + BF16_PAD)
+    return 4 * (3 * TILE * (hdp + PAD) + TILE * (TILE + 4))
 
 
 def _check(q, k, v, window, softcap):
@@ -67,7 +76,7 @@ def _check(q, k, v, window, softcap):
                          "must be >= 0")
     if H > 65535 or B > 65535:
         raise ValueError(f"{NAME}: grid of {H} heads x {B} rows too large")
-    checks.shared_memory(NAME, shared_bytes(hd))
+    checks.shared_memory(NAME, shared_bytes(hd, q.dtype))
 
 
 def flash_attention(q, k, v, *, scale: float, window: int = 0,

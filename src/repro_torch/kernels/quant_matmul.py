@@ -9,8 +9,19 @@ anything the kernel does not take, allocates the output with
 synchronising.  It takes CUDA tensors only: ``kernels.ops`` routes CPU
 tensors to the plain version in ``kernels.ref``.  ``launches`` counts
 the kernel launches made through this wrapper (reset it by assignment).
+
+For M <= 8 the kernel splits K across blocks as ``gemv_plan`` says; a
+split call takes a float32 workspace of partial sums (``torch.empty``)
+and the column-block counters of its (device, stream) (``_counters``:
+zeros that the kernel leaves zero; calls on one stream run one after
+another, so they never share a counter), so its partials are summed in
+a fixed order.
 """
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -19,6 +30,77 @@ from repro_torch.kernels import build, checks
 launches = 0
 
 NAME = "quant_matmul"
+GEMV_MAX_M = 8              # rows the one-pass kernel takes
+GEMV_THREADS = 256          # threads of a block: column lanes x k lanes
+GEMV_WIDE_N = 4096          # outputs this wide take 256-column blocks
+GEMV_ROW_COST = 128         # a block's fixed cost, in k rows of work
+
+
+class GemvPlan(NamedTuple):
+    cols: int               # output columns of a block: 64 or 256
+    splits: int             # slices of K, one block each per column block
+    k_chunk: int            # rows of a slice (the last may be shorter)
+    blocks: int             # column blocks x splits
+    workspace: int          # float32 partials: splits x M x N, 0 unsplit
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(M: int, K: int, N: int, sms: int) -> GemvPlan:
+    """How the M <= 8 kernel covers (K, N) on a card of ``sms`` SMs.
+
+    Outputs at least ``GEMV_WIDE_N`` wide take blocks of 256 columns (16
+    column lanes x 16 k lanes: each warp reads 256 contiguous bytes of
+    two rows); narrower ones blocks of 64 (4 x 64), so that K is not cut
+    into slices too thin to pay for their partial sums.  Blocks of 256
+    threads hold two to an SM (one for M > 4, whose 8-row accumulator
+    needs the registers), so one round of resident blocks is that many
+    times ``sms``.  Slices are whole multiples of the k lanes.  Among the
+    cuts that launch at least two blocks an SM (or cut K as finely as it
+    goes), the one with the least estimated time wins: rounds of
+    resident blocks x (rows a block reads + its fixed cost of
+    ``GEMV_ROW_COST`` rows); fewer splits on a tie."""
+    cols = 256 if N >= GEMV_WIDE_N else 64
+    lanes = GEMV_THREADS // (cols // 16)
+    n_cols = math.ceil(N / cols)
+    slots = (2 if M <= 4 else 1) * sms
+    finest = math.ceil(K / lanes)
+    best = None
+    for want in range(1, finest + 1):
+        chunk = lanes * math.ceil(K / (lanes * want))
+        splits = math.ceil(K / chunk)
+        if splits != want:
+            continue          # the same cut as a smaller count
+        blocks = n_cols * splits
+        if blocks < 2 * sms and splits < finest:
+            continue
+        cost = math.ceil(blocks / slots) * (chunk + GEMV_ROW_COST)
+        if best is None or cost < best[0]:
+            best = (cost, GemvPlan(cols, splits, chunk, blocks,
+                                   splits * M * N if splits > 1 else 0))
+    return best[1]
+
+
+_counters: dict = {}
+_sms: dict = {}
+
+
+def _sm_count(device) -> int:
+    n = _sms.get(device)
+    if n is None:
+        n = _sms[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _counters_for(device, stream: int, n: int):
+    """At least ``n`` zero int32 column-block counters on ``device`` for
+    calls on ``stream`` (kept per device and stream: the kernel resets
+    what it counts, and two streams may run calls at once)."""
+    c = _counters.get((device, stream))
+    if c is None or c.numel() < n:
+        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _counters[(device, stream)] = c
+    return c
 
 
 def _check(x, wq, scale, out_dtype):
@@ -58,13 +140,25 @@ def quant_matmul(x, wq, scale, *, out_dtype=torch.bfloat16):
         return out
     if K == 0:
         return out.zero_()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    ws = counters = None              # held until the launch is queued
+    cols, splits, k_chunk = 64, 1, K
+    if M <= GEMV_MAX_M:
+        plan = gemv_plan(M, K, N, _sm_count(x.device))
+        cols, splits, k_chunk = plan.cols, plan.splits, plan.k_chunk
+        if splits > 1:
+            ws = torch.empty(plan.workspace, dtype=torch.float32,
+                             device=x.device)
+            counters = _counters_for(x.device, stream, math.ceil(N / cols))
     lib = build.load(NAME)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_quant_matmul(
             x.data_ptr(), wq.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            M, K, N, checks.DTYPE_CODES[x.dtype],
-            checks.DTYPE_CODES[out_dtype], stream)
+            None if ws is None else ws.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            M, K, N, cols, splits, k_chunk,
+            checks.DTYPE_CODES[x.dtype], checks.DTYPE_CODES[out_dtype],
+            stream)
     if err != 0:
         raise RuntimeError(f"{NAME} kernel launch failed: CUDA error {err}")
     launches += 1

@@ -27,18 +27,21 @@ def flash_attention_ref(q, k, v, *, scale, window: int = 0,
     """Masked full-softmax causal GQA attention (the obvious way).
 
     q (B,S,H,hd); k, v (B,T,K,hd); positions count from 0 on both axes.
-    Float32 math: scores, the softcap before the mask, -1e30 for masked
-    scores, softmax, the product with v; output in ``q.dtype``.  A query
-    row with no visible key (only when T < S with a window) takes the
-    softmax of an all-masked row, the mean of v, exactly like the JAX
-    oracle (the hand kernel returns 0 there, as the TPU kernel does).
+    Float32 math (float64 when q is float64, the reference the card
+    checks hold the kernel to): scores, the softcap before the mask,
+    -1e30 for masked scores, softmax, the product with v; output in
+    ``q.dtype``.  A query row with no visible key (only when T < S with
+    a window) takes the softmax of an all-masked row, the mean of v,
+    exactly like the JAX oracle (the hand kernel returns 0 there, as the
+    TPU kernel does).
     """
     B, S, H, hd = q.shape
     _, T, Kh, _ = k.shape
     G = H // Kh
-    qg = q.reshape(B, S, Kh, G, hd).float()
-    kf = k.float()
-    vf = v.float()
+    ct = torch.float64 if q.dtype == torch.float64 else torch.float32
+    qg = q.reshape(B, S, Kh, G, hd).to(ct)
+    kf = k.to(ct)
+    vf = v.to(ct)
     s = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)

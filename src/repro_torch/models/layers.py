@@ -195,8 +195,18 @@ def weight_einsum(eq, x, w):
 # norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(d: int, stack=(), dtype=torch.float32, device=None):
-    return {"scale": _zeros((d,), stack, dtype, device)}  # gemma (1 + scale)
+# Leaves the reference keeps and reads in float32 whatever the weights'
+# type: norm scales and biases, the ssm's A_log, D and dt_bias, and the
+# float32 scale beside int8 values ({"q", "scale"} weights and moments).
+# ``init_*`` make them float32 and ``bridge.params_from_numpy`` does not
+# recast them.
+FLOAT32_LEAVES = frozenset({"scale", "bias", "A_log", "D", "dt_bias"})
+
+
+def init_rmsnorm(d: int, stack=(), device=None):
+    """A zero scale (gemma's ``1 + scale``), float32 whatever the
+    weights' type (``FLOAT32_LEAVES``)."""
+    return {"scale": _zeros((d,), stack, device=device)}
 
 
 def rmsnorm(params, x, eps: float = 1e-6):
@@ -207,9 +217,10 @@ def rmsnorm(params, x, eps: float = 1e-6):
     return (y * (1.0 + params["scale"].float())).to(dtype)
 
 
-def init_layernorm(d: int, stack=(), dtype=torch.float32, device=None):
-    return {"scale": _ones((d,), stack, dtype, device),
-            "bias": _zeros((d,), stack, dtype, device)}
+def init_layernorm(d: int, stack=(), device=None):
+    """Unit scale and zero bias, float32 whatever the weights' type."""
+    return {"scale": _ones((d,), stack, device=device),
+            "bias": _zeros((d,), stack, device=device)}
 
 
 def layernorm(params, x, eps: float = 1e-6):
@@ -223,9 +234,10 @@ def layernorm(params, x, eps: float = 1e-6):
 
 def make_norm(cfg: ModelConfig):
     if cfg.use_layernorm:
-        return (lambda d, stack=(), **kw: init_layernorm(d, stack, **kw),
+        return (lambda d, stack=(), device=None:
+                init_layernorm(d, stack, device),
                 lambda p, x: layernorm(p, x, cfg.norm_eps))
-    return (lambda d, stack=(), **kw: init_rmsnorm(d, stack, **kw),
+    return (lambda d, stack=(), device=None: init_rmsnorm(d, stack, device),
             lambda p, x: rmsnorm(p, x, cfg.norm_eps))
 
 
@@ -280,8 +292,8 @@ def init_attention(cfg: ModelConfig, gen, stack=(), dtype=torch.float32,
         "wo": _dense_init(gen, (H, hd, d), stack, in_axis_size=H * hd, **kw),
     }
     if cfg.use_qk_norm:
-        p["q_norm"] = init_rmsnorm(hd, stack, **kw)
-        p["k_norm"] = init_rmsnorm(hd, stack, **kw)
+        p["q_norm"] = init_rmsnorm(hd, stack, device)
+        p["k_norm"] = init_rmsnorm(hd, stack, device)
     return p
 
 

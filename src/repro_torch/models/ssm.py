@@ -46,12 +46,13 @@ def init_mamba_block(cfg: ModelConfig, gen, stack=(), dtype=torch.float32,
         "conv_w": L._dense_init(gen, (w, conv_ch), stack, in_axis_size=w,
                                 **kw),
         "conv_b": L._zeros((conv_ch,), stack, **kw),
-        "A_log": L._zeros((h,), stack, **kw),          # A = -exp(0) = -1
-        "D": L._ones((h,), stack, **kw),
-        "dt_bias": L._zeros((h,), stack, **kw),
-        "gate_norm": L.init_rmsnorm(di, stack, **kw),
+        # float32 whatever ``dtype`` says (L.FLOAT32_LEAVES)
+        "A_log": L._zeros((h,), stack, device=device),  # A = -exp(0) = -1
+        "D": L._ones((h,), stack, device=device),
+        "dt_bias": L._zeros((h,), stack, device=device),
+        "gate_norm": L.init_rmsnorm(di, stack, device),
         "out_proj": L._dense_init(gen, (di, d), stack, in_axis_size=di, **kw),
-        "ln": L.init_rmsnorm(d, stack, **kw),
+        "ln": L.init_rmsnorm(d, stack, device),
     }
 
 
@@ -72,7 +73,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "unembed": L.init_unembed(cfg, generator, **kw),
         "layers": init_mamba_block(cfg, generator, stack=(cfg.num_layers,),
                                    **kw),
-        "final_norm": L.init_rmsnorm(cfg.d_model, **kw),
+        "final_norm": L.init_rmsnorm(cfg.d_model, device=dev),
     }
 
 

@@ -48,12 +48,12 @@ def init_block(cfg: ModelConfig, gen, stack=(), dtype=torch.float32,
     p = {
         "attn": L.init_attention(cfg, gen, stack, **kw),
         "mlp": L.init_mlp(cfg, gen, stack=stack, **kw),
-        "ln1": norm_init(cfg.d_model, stack, **kw),
-        "ln2": norm_init(cfg.d_model, stack, **kw),
+        "ln1": norm_init(cfg.d_model, stack, device),
+        "ln2": norm_init(cfg.d_model, stack, device),
     }
     if cfg.sandwich_norms:
-        p["ln1_post"] = norm_init(cfg.d_model, stack, **kw)
-        p["ln2_post"] = norm_init(cfg.d_model, stack, **kw)
+        p["ln1_post"] = norm_init(cfg.d_model, stack, device)
+        p["ln2_post"] = norm_init(cfg.d_model, stack, device)
     return p
 
 
@@ -93,7 +93,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         "embed": L.init_embedding(cfg, generator, **kw),
         "unembed": L.init_unembed(cfg, generator, **kw),
         "trunk": init_trunk(cfg, generator, **kw),
-        "final_norm": norm_init(cfg.d_model, **kw),
+        "final_norm": norm_init(cfg.d_model, device=dev),
     }
 
 

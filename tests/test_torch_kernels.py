@@ -404,6 +404,47 @@ def test_quant_matmul_kernel_wrapper_refuses_cpu_tensors():
     assert qm.launches == 0
 
 
+@pytest.mark.parametrize("M,K,N,decode", [
+    (4, 5120, 5120, True), (4, 5120, 1280, True), (4, 5120, 17920, True),
+    (4, 17920, 5120, True), (8, 5120, 1280, True), (1, 5120, 17920, True),
+    (3, 200, 72, False), (4, 16, 5120, False)],
+    ids=["wq-wo", "wk-wv", "wgate-wup", "wdown", "wk-m8", "wgate-m1",
+         "ragged", "k16"])
+def test_quant_matmul_gemv_plan(M, K, N, decode):
+    """The M <= 8 kernel's plan on a 132-SM card: 256-column blocks (16
+    k lanes) for outputs 4096 wide or more, 64-column blocks (64 k
+    lanes) below; whole k-lane slices that cover K exactly once; a
+    workspace of splits x M x N float32 partials when K is split (none
+    otherwise); at least two blocks an SM at every decode shape; a K of
+    one or a few slices is cut as finely as it goes."""
+    plan = qm.gemv_plan(M, K, N, 132)
+    lanes = 16 if N >= 4096 else 64
+    assert plan.cols == 4096 // lanes
+    assert plan.k_chunk % lanes == 0
+    assert (plan.splits - 1) * plan.k_chunk < K <= plan.splits * plan.k_chunk
+    assert plan.blocks == -(-N // plan.cols) * plan.splits
+    assert plan.workspace == (plan.splits * M * N if plan.splits > 1 else 0)
+    if decode:
+        assert plan.blocks >= 264 and plan.splits > 1
+    else:
+        assert plan.splits == -(-K // lanes)
+
+
+def test_quant_matmul_counters_are_kept_per_stream():
+    """Split calls on two streams may run at once, so each (device,
+    stream) gets its own zeroed column-block counters; a stream's
+    counters are reused, and grown when a call needs more."""
+    dev = torch.device("cpu")
+    a = qm._counters_for(dev, 11, 20)
+    assert qm._counters_for(dev, 11, 20) is a
+    b = qm._counters_for(dev, 12, 20)
+    assert b is not a and a.numel() >= 20 and not b.any()
+    c = qm._counters_for(dev, 11, a.numel() + 1)
+    assert c.numel() > a.numel() and not c.any()
+    for key in ((dev, 11), (dev, 12)):
+        qm._counters.pop(key)
+
+
 # ---------------------------------------------------------------------------
 # ssd_scan (the parity of its plain version with JAX is in
 # tests/test_torch_ssm.py)
@@ -486,6 +527,22 @@ def test_flash_attention_ref_matches_jax(B, S, T, H, K, hd, window, softcap):
     np.testing.assert_allclose(mine, pallas, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("B,S,T,H,K,hd,window,softcap", FLASH_CASES,
+                         ids=FLASH_IDS)
+def test_flash_attention_ref_in_float64(B, S, T, H, K, hd, window, softcap):
+    """Given float64 inputs the plain version computes in float64 (the
+    reference the card checks hold the kernel to): the same function as
+    JAX's oracle, to float32's rounding."""
+    q, k, v = _flash_case(B, S, T, H, K, hd, seed=S + H)
+    kw = dict(scale=hd ** -0.5, window=window, softcap=softcap)
+    mine = ref.flash_attention_ref(
+        *(torch.from_numpy(a).double() for a in (q, k, v)), **kw)
+    assert mine.dtype == torch.float64
+    oracle = np.asarray(jax_ref.flash_attention_ref(
+        *(jnp.asarray(a) for a in (q, k, v)), **kw))
+    np.testing.assert_allclose(mine.numpy(), oracle, rtol=1e-6, atol=1e-6)
+
+
 def test_flash_attention_cpu_tensors_dispatch_to_plain_version():
     t = [torch.from_numpy(a) for a in _flash_case(2, 40, 40, 4, 2, 32)]
     fa.launches = 0
@@ -503,14 +560,22 @@ def test_flash_attention_kernel_wrapper_refuses_cpu_tensors():
     assert fa.launches == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("hd,padded", [(32, 64), (64, 64), (128, 128),
                                        (256, 256)])
-def test_flash_attention_shared_memory(hd, padded):
-    """The widest instantiation (hd 256: three 64 x 260 float32 tiles and
-    the 64 x 68 probability tile) fits a block."""
+def test_flash_attention_shared_memory(hd, padded, dtype):
+    """Every instantiation fits a block.  bfloat16: a 128-row query tile
+    and two stages of 64-row key and value tiles, bfloat16 rows padded by
+    8 (hd 256: 202,752 bytes).  float32: three 64 x (hd + 4) float32
+    tiles and the 64 x 68 probability tile."""
     assert fa.padded_head_dim(hd) == padded
-    assert fa.shared_bytes(hd) == 4 * (3 * 64 * (padded + 4) + 64 * 68)
-    assert fa.shared_bytes(hd) <= checks.SMEM_LIMIT
+    if dtype == torch.bfloat16:
+        want = 2 * (128 + 2 * 2 * 64) * (padded + 8)
+    else:
+        want = 4 * (3 * 64 * (padded + 4) + 64 * 68)
+    assert fa.shared_bytes(hd, dtype) == want
+    assert fa.shared_bytes(hd, dtype) <= checks.SMEM_LIMIT
 
 
 # ---------------------------------------------------------------------------

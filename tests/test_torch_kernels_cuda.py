@@ -28,10 +28,13 @@ bfloat16 output within one bfloat16 step of the float32 result
 (rtol=2**-8, atol=1e-4).  ``ssd_scan`` is held against the model's
 plain chunked path in float32 on the same inputs (the same sums in
 another order): within 1e-4 x max |y|, plus one bfloat16 step of each
-value for a bfloat16 y.  ``flash_attention`` is held like the paged
-reads (float32 within rtol=atol=1e-4, a bfloat16 output within one
-bfloat16 step of the float32 plain version); two broken versions (the
-window ignored, the causal mask one key late) lie far outside.
+value for a bfloat16 y.  ``flash_attention`` is held at the paged
+reads' tolerances (float32 within rtol=atol=1e-4, a bfloat16 output
+within one bfloat16 step) against its plain version computed in
+float64: in near-tie rows at scale 1 the exact result, rounded to
+bfloat16, can miss the float32 plain version by more than a step; two
+broken versions (the window ignored, the causal mask one key late) lie
+far outside.
 """
 import pytest
 import torch
@@ -382,6 +385,44 @@ def test_quant_matmul_unaligned_weight_rows(device):
             qm.quant_matmul(xm, wq, scale, out_dtype=torch.float32))
 
 
+# phi3-medium-14b's decode projections (K, N), and a K that the plan's
+# slices do not divide
+QM_DECODE = [(5120, 5120), (5120, 1280), (5120, 17920), (17920, 5120),
+             (5000, 1280)]
+
+
+@pytest.mark.parametrize("K,N", QM_DECODE, ids=[f"{k}x{n}" for k, n in
+                                                  QM_DECODE])
+@pytest.mark.parametrize("M", range(1, 9))
+def test_quant_matmul_gemv_decode_shapes(device, M, K, N):
+    """The M <= 8 kernel at every row count against the plain version,
+    K split across blocks as the plan says (the last slice of the 5000
+    rows is shorter)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = qm.gemv_plan(M, K, N, sms)
+    assert plan.splits > 1
+    if K == 5000:
+        assert K % plan.k_chunk
+    x, wq, scale = _qm_case(device, M, K, N, torch.bfloat16, seed=M + K)
+    out = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+    torch.testing.assert_close(out, exp, **QM_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 5120, 1280), (4, 5120, 17920),
+                                   (8, 17920, 5120), (4, 64, 1280),
+                                   (3, 200, 72)])
+def test_quant_matmul_gemv_is_bitwise_repeatable(device, M, K, N):
+    """Two calls on the same inputs give the same bits, K split or not
+    (the partials are summed in slice order, never by float atomics)."""
+    x, wq, scale = _qm_case(device, M, K, N, torch.bfloat16, seed=3)
+    outs = [qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+            for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+
+
 def test_quant_matmul_wrapper_rejects_bad_arguments(device):
     x, wq, scale = _qm_case(device, 4, 64, 72, torch.float32)
     call = qm.quant_matmul
@@ -514,7 +555,8 @@ def _flash_case(device, B, S, T, H, K, hd, dtype, seed=0):
 
 
 def _flash_plain(q, k, v, **kw):
-    return ref.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+    return ref.flash_attention_ref(q.double(), k.double(), v.double(),
+                                   **kw).float()
 
 
 @pytest.mark.parametrize("B,S,T,H,K,hd,window", FLASH, ids=FLASH_IDS)
@@ -530,6 +572,21 @@ def test_flash_attention_matches_plain_version(device, B, S, T, H, K, hd,
     assert fa.launches == before + 1 and out.dtype == dtype
     assert torch.allclose(out.float(), _flash_plain(q, k, v, **kw),
                           **TOL[dtype])
+
+
+@pytest.mark.parametrize("S,T", [(257, 65), (130, 129), (300, 191)])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_attention_bf16_ragged_tails(device, S, T, hd):
+    """The tensor-core path at every head dim, with key counts whose
+    ragged last tile lands in either stage of the (K, V) ring and query
+    counts one row past a 128-row block."""
+    q, k, v = _flash_case(device, 2, S, T, 4, 2, hd, torch.bfloat16,
+                          seed=S + T + hd)
+    kw = dict(scale=hd ** -0.5, window=0)
+    out = fa.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.allclose(out.float(), _flash_plain(q, k, v, **kw),
+                          **TOL[torch.bfloat16])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
