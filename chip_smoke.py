@@ -18,16 +18,25 @@ non-zero without printing a result:
               and under bf16 queries (the pair int8 serving runs),
               softcap 0 and 50 (at scale 1, where it binds), ragged
               lengths, -1 table entries, an empty row (decode) and a
-              row at pos 0 (extend); ``quant_matmul`` at the draft's
-              decode shapes (M=4 against every projection of a
-              phi3-medium-14b layer), its prefill shape (M=512, K=5120,
-              N=17920), a ragged one and one whose K is too short to
-              split, x in bf16 and f32, with two broken versions shown
-              to fall far outside the tolerance; two calls of the M <= 8
-              kernel bitwise equal at split and unsplit plans; every
-              decode shape timed on cold weights beside its bound and
-              the bf16 cuBLAS yardstick, and the sum over one draft
-              layer's seven decode launches;
+              row at pos 0 (extend); lengths and pos on the split plan's
+              boundaries, one page short of them and with a -1 hole
+              that empties a split, two calls bitwise equal, and a
+              plain merge without the last split's partial shown to
+              fall outside the tolerance; gemma3-1b's global-layer shape
+              (H=4, K=1, hd=256); the decode read timed at the serving
+              shape, at 4 rows x 4096 tokens (8 pools, 670 MB) and at
+              the gemma shape, beside SDPA with the gather timed and
+              without; both reads' bf16 ptxas lines.
+              ``quant_matmul`` at the draft's decode shapes (M=4
+              against every projection of a phi3-medium-14b layer),
+              its prefill shape (M=512, K=5120, N=17920), a ragged one
+              and one whose K is too short to split, x in bf16 and f32,
+              with two broken versions shown to fall far outside the
+              tolerance; two calls of the M <= 8 kernel bitwise equal
+              at split and unsplit plans; every decode shape timed on
+              cold weights beside its bound and the bf16 cuBLAS
+              yardstick, and the sum over one draft layer's seven
+              decode launches;
               ``ssd_scan`` against the plain chunked path in float32 at
               mamba2-370m's width (h=32, p=64, n=128, chunk 256) for b 1
               and 4, l 16 / 256 / 300 / 1024, x in bf16 and f32, a split
@@ -421,10 +430,117 @@ def _bound(torch, q, kp, bt, lengths, scales):
     return _roofline(nbytes, 4 * H * hd * tokens, kp.dtype)
 
 
-def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
-    """Hold the kernel against its plain version on every case; time
-    both (and a library call) at the serving path's shapes."""
+def _sms(torch, dev) -> int:
+    """SMs of the card (an H100's 132 for a CPU rehearsal)."""
+    if dev == "cpu":
+        return 132
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _ptxas_bf16(name: str) -> dict:
+    """ptxas lines of a paged kernel's instantiations with a bf16 type."""
+    from repro_torch.kernels import build
+    log = build.library_path(name).with_suffix(".log")
+    return ptxas_report(log, "13__nv_bfloat16") if log.exists() else {}
+
+
+def _boundary_lengths(plan, bs, n_blk, S=0):
+    """Row lengths (or pos, with ``S`` suffix tokens behind them) on the
+    split boundaries of ``plan``: exactly two splits, one page short of
+    them, the whole table (its last split full) and, for the row that
+    gets a hole, a whole table but three positions."""
+    edge = 2 * plan.pages * bs
+    return [edge, edge - bs, n_blk * bs - S, n_blk * bs - S - 3]
+
+
+def _split_holes(bt, plan):
+    """-1 over every table entry of split 1 of the last row: that split
+    reads no page."""
+    bt[-1, plan.pages:2 * plan.pages] = -1
+
+
+def _decode_plans(torch, pa, q, kp, bt, dev):
+    """The wrapper's plan for these shapes, and the same plan with scores
+    and p.v moved from the tensor cores to the CUDA cores (None if it has
+    no tensor cores to move from)."""
+    B, H, hd = q.shape
+    K, bs = kp.shape[-2], kp.shape[-3]
+    plan = pa.paged_plan(B, K, H // K, 1, bt.shape[1], bs, hd, kp.dtype,
+                         q.dtype, _sms(torch, dev))
+    if not plan.mma:
+        return plan, None
+    return plan, plan._replace(mma=False, smem=pa.smem_bytes(
+        H // K, 1, hd, bs, plan.chunk, plan.stages, kp.element_size(),
+        suffix=False, mma=False))
+
+
+def _decode_times(torch, pa, ref, timer, q, kp, vp, bt, ln, scale,
+                  dev="cuda"):
+    """Device ms of the kernel (and of its CUDA-core instantiation where
+    it runs on the tensor cores, held to the same tolerance), its plain
+    version and SDPA (over K/V gathered inside the timed call, and over
+    K/V gathered beforehand) on a layer-deep pool cycled per call, and
+    the bound."""
     import torch.nn.functional as F
+    L = kp.shape[0]
+    B, H, hd = q.shape
+    K, bs = kp.shape[-2], kp.shape[2]
+    ms = timer(torch, lambda i: pa.paged_attention(
+        q, kp[i % L], vp[i % L], bt, ln, scale=scale))
+    plan, cores = _decode_plans(torch, pa, q, kp[0], bt, dev)
+    cuda_cores_ms = None
+    if cores is not None:
+        got = pa.paged_attention(q, kp[0], vp[0], bt, ln, scale=scale,
+                                 plan=cores).float()
+        exp = ref.paged_attention_ref(q.float(), kp[0], vp[0], bt, ln,
+                                      scale=scale)
+        if not torch.allclose(got, exp, **TOL["bfloat16"]):
+            raise AssertionError("paged_attention on the CUDA cores: max "
+                                 f"abs err {float((got - exp).abs().max())}")
+        cuda_cores_ms = timer(torch, lambda i: pa.paged_attention(
+            q, kp[i % L], vp[i % L], bt, ln, scale=scale, plan=cores))
+    plain_ms = timer(torch, lambda i: ref.paged_attention_ref(
+        q, kp[i % L], vp[i % L], bt, ln, scale=scale), iters=20, warmup=3)
+    btc = bt.clamp(min=0).long()
+    t = torch.arange(bt.shape[1] * bs, device=q.device)
+    mask = ((t[None, :] < ln[:, None])
+            & torch.repeat_interleave(bt >= 0, bs, dim=1))[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def gathered(x):
+        return x[btc].reshape(B, -1, K, hd).transpose(1, 2)
+
+    def library(l):
+        return F.scaled_dot_product_attention(
+            q4, gathered(kp[l]), gathered(vp[l]), attn_mask=mask,
+            scale=scale, enable_gqa=True)
+    lib_err = float((library(0)[:, :, 0].float() - ref.paged_attention_ref(
+        q, kp[0], vp[0], bt, ln, scale=scale).float()).abs().max())
+    library_ms = timer(torch, lambda i: library(i % L))
+    kg = [gathered(kp[l]).contiguous() for l in range(L)]
+    vg = [gathered(vp[l]).contiguous() for l in range(L)]
+    pregathered_ms = timer(torch, lambda i: F.scaled_dot_product_attention(
+        q4, kg[i % L], vg[i % L], attn_mask=mask, scale=scale,
+        enable_gqa=True))
+    del kg, vg
+    bound_ms, bound_by = _bound(torch, q, kp[0], bt, ln, {})
+    return {"ms": ms, "cuda_cores_ms": cuda_cores_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library_ms_gather_excluded": pregathered_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_max_abs_err": lib_err,
+            "lengths": [int(x) for x in ln.tolist()], "pools": L,
+            "plan": plan._asdict(),
+            "shape": f"B={B} H={H} K={K} hd={hd} bs={bs} "
+            f"n_blk={bt.shape[1]} {str(kp.dtype).replace('torch.', '')}"}
+
+
+def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
+    """Hold the kernel against its plain version on every case, on the
+    split plan's boundaries and at gemma3-1b's global-layer shape; two
+    calls bitwise equal; a merge that drops the last split's partial
+    outside the tolerance; time the kernel (and its plain version and a
+    library call) at the serving, long-context and gemma shapes."""
     errs, moves = {}, {}
     worst = 0.0
 
@@ -439,7 +555,7 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
                                  f"{err} beyond tolerance {TOL[tol]}")
         errs[case] = err
         worst = max(worst, err)
-        return out.float()
+        return out
 
     for seed, (name, pages, q_dtype, tol) in enumerate(CASES):
         q, kp, vp, bt, ln, sc = _paged_inputs(
@@ -449,8 +565,9 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
         args = (q, kp[0], vp[0], bt, ln)
         held(tol, f"{name}/softcap0", *args, scale=128 ** -0.5, **sc)
         capped = held(tol, f"{name}/softcap50/scale1", *args, scale=1.0,
-                      softcap=50.0, **sc)
-        free = held(tol, f"{name}/softcap0/scale1", *args, scale=1.0, **sc)
+                      softcap=50.0, **sc).float()
+        free = held(tol, f"{name}/softcap0/scale1", *args, scale=1.0,
+                    **sc).float()
         moves[name] = float((capped - free).abs().max())
         if moves[name] <= CAP_MOVES:
             raise AssertionError(f"paged_attention {name}: softcap 50 moved "
@@ -465,55 +582,83 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
     if not bool((out[3] == 0).all()):
         raise AssertionError("paged_attention: an empty row is not 0")
 
-    # timing at the serving path's shapes: bf16 pages, 4 slots with the
-    # serve phase's prompt+generation lengths, one pool per layer (40
-    # pools, 420 MB) cycled per call so L2 holds no layer's pages
+    # lengths on the plan's split boundaries, a hole that empties a
+    # split; two calls bitwise equal; the last split's partial dropped
+    plan = pa.paged_plan(4, 10, 4, 1, 32, 16, 128, torch.bfloat16,
+                         torch.bfloat16, _sms(torch, dev))
+    boundary = {}
+    for name, pages, q_dtype, tol in CASES:
+        q, kp, vp, bt, ln, sc = _paged_inputs(
+            torch, getattr(torch, pages), q_dtype=getattr(torch, q_dtype),
+            lengths=_boundary_lengths(plan, 16, 32), seed=21, dev=dev)
+        _split_holes(bt, plan)
+        sc = {k: v[0] for k, v in sc.items()}
+        kw = dict(scale=1.0, softcap=50.0, **sc)
+        out = held(tol, f"{name}/split boundaries", q, kp[0], vp[0], bt, ln,
+                   **kw)
+        again = pa.paged_attention(q, kp[0], vp[0], bt, ln, **kw)
+        _sync(torch)
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged_attention {name}: two calls differ")
+        exp = ref.paged_attention_ref(q.float(), kp[0], vp[0], bt, ln, **kw)
+        broken = pa.split_reference(q, kp[0], vp[0], bt, ln, plan,
+                                    drop=plan.splits - 1, **kw)
+        boundary[name] = float((broken - exp).abs().max())
+        if torch.allclose(broken, exp, **TOL[tol]):
+            raise AssertionError(f"paged_attention {name}: a merge without "
+                                 f"the last split passes the tolerance")
+
+    # gemma3-1b's global layers: 4 query heads over one kv head of 256
+    gemma = dict(B=4, H=4, K=1, hd=256, n_blk=256)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    gemma_len = torch.randint(1, 256 * 16 + 1, (4,), generator=g)
+    q, kp, vp, bt, ln, _ = _paged_inputs(torch, torch.bfloat16, layers=8,
+                                         lengths=gemma_len, seed=31,
+                                         dev=dev, **gemma)
+    held("bfloat16", "gemma3 global", q, kp[0], vp[0], bt, ln,
+         scale=256 ** -0.5)
+    timed_gemma = _decode_times(torch, pa, ref, timer, q, kp, vp, bt, ln,
+                                256 ** -0.5, dev)
+    del q, kp, vp
+
+    # 4 rows of 4096 tokens (phi3-medium-4k's window), 8 pools (670 MB)
+    q, kp, vp, bt, ln, _ = _paged_inputs(torch, torch.bfloat16, layers=8,
+                                         n_blk=256, lengths=[4096] * 4,
+                                         seed=41, dev=dev)
+    held("bfloat16", "long 4 x 4096", q, kp[0], vp[0], bt, ln,
+         scale=128 ** -0.5)
+    timed_long = _decode_times(torch, pa, ref, timer, q, kp, vp, bt, ln,
+                               128 ** -0.5, dev)
+    del q, kp, vp
+
+    # the serving path's shapes: bf16 pages, 4 slots with the serve
+    # phase's prompt+generation lengths, one pool per layer (40 pools,
+    # 420 MB) cycled per call so L2 holds no layer's pages
     g = torch.Generator(device="cpu").manual_seed(7)
     lengths = torch.randint(MIN_PROMPT + 1, MAX_PROMPT + MAX_NEW + 1, (4,),
                             generator=g)
     q, kp, vp, bt, ln, _ = _paged_inputs(torch, torch.bfloat16, layers=40,
                                          lengths=lengths, seed=11,
                                          dev=dev)
-    scale = 128 ** -0.5
-    L = kp.shape[0]
-    ms = timer(torch, lambda i: pa.paged_attention(
-        q, kp[i % L], vp[i % L], bt, ln, scale=scale))
-    plain_ms = timer(torch, lambda i: ref.paged_attention_ref(
-        q, kp[i % L], vp[i % L], bt, ln, scale=scale), iters=20, warmup=3)
-    # library yardstick (never called by the port): SDPA over K/V that
-    # were gathered beforehand (the gather is left out of its time)
-    B, H, hd = q.shape
-    K = kp.shape[-2]
-    btc = bt.clamp(min=0).long()
-    kg = [kp[l][btc].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
-          for l in range(L)]
-    vg = [vp[l][btc].reshape(B, -1, K, hd).transpose(1, 2).contiguous()
-          for l in range(L)]
-    t = torch.arange(kg[0].shape[2], device=q.device)
-    mask = ((t[None, :] < ln[:, None])
-            & torch.repeat_interleave(bt >= 0, kp.shape[2], dim=1))
-    mask = mask[:, None, None, :]
-    q4 = q[:, :, None, :]
-    lib = F.scaled_dot_product_attention(q4, kg[0], vg[0], attn_mask=mask,
-                                         scale=scale, enable_gqa=True)
-    lib_err = float((lib[:, :, 0].float() - ref.paged_attention_ref(
-        q, kp[0], vp[0], bt, ln, scale=scale).float()).abs().max())
-    library_ms = timer(torch, lambda i: F.scaled_dot_product_attention(
-        q4, kg[i % L], vg[i % L], attn_mask=mask, scale=scale,
-        enable_gqa=True))
-    bound_ms, bound_by = _bound(torch, q, kp[0], bt, ln, {})
+    held("bfloat16", "serve timed", q, kp[0], vp[0], bt, ln,
+         scale=128 ** -0.5)
+    row = _decode_times(torch, pa, ref, timer, q, kp, vp, bt, ln,
+                        128 ** -0.5, dev)
     return {
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:140",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "max_abs_err": worst, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
     }, {"errors": errs, "tolerance": TOL, "softcap50_moves": moves,
-        "timed_lengths": [int(x) for x in ln.tolist()],
+        "plan_serve": plan._asdict(),
+        "broken_merge_without_last_split_err": boundary,
+        "timed": {"serve": row, "long": timed_long, "gemma3": timed_gemma},
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
-        "over pre-gathered K/V, gather excluded",
-        "library_max_abs_err": lib_err}
+        "over K/V gathered inside the timed call (library_ms); "
+        "library_ms_gather_excluded gathers beforehand",
+        "ptxas_bf16": _ptxas_bf16("paged_attention")}
 
 
 # ---------------------------------------------------------------------------
@@ -562,8 +707,11 @@ def _extend_bound(torch, q, kp, kn, bt, pos, scales):
 
 
 def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
-    """Hold the extend kernel against its plain version on every case;
-    time both (and a library call) at the serving path's shapes."""
+    """Hold the extend kernel against its plain version on every case, on
+    the split plan's boundaries and at gemma3-1b's global-layer shape;
+    two calls bitwise equal; a merge that drops the last split's partial
+    outside the tolerance; time the kernel (and its plain version and a
+    library call) at the serving path's shapes."""
     import torch.nn.functional as F
     errs, moves = {}, {}
     worst = 0.0
@@ -603,6 +751,39 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
         if moves[name] <= CAP_MOVES:
             raise AssertionError(f"paged_extend_attention {name}: softcap "
                                  f"50 moved the output by only {moves[name]}")
+
+    # pos on the plan's split boundaries, a hole that empties a split, and
+    # gemma3-1b's global-layer shape (one kv head of 256); two calls
+    # bitwise equal; the last split's partial (the suffix's) dropped
+    plan = pea.paged_plan(4, 10, 4, 4, 32, 16, 128, torch.int8,
+                          torch.bfloat16, _sms(torch, dev), suffix=True)
+    boundary = {}
+    for name, pages, q_dtype, tol in CASES:
+        q, kp, vp, kn, vn, bt, pos, sc = _extend_inputs(
+            torch, getattr(torch, pages), q_dtype=getattr(torch, q_dtype),
+            pos=_boundary_lengths(plan, 16, 32, S=4), seed=21, dev=dev)
+        _split_holes(bt, plan)
+        sc = {k: v[0] for k, v in sc.items()}
+        kw = dict(scale=1.0, softcap=50.0, **sc)
+        args = (q, kp[0], vp[0], kn, vn, bt, pos)
+        out = held(tol, f"{name}/split boundaries", *args, **kw)
+        again = pea.paged_extend_attention(*args, **kw).float()
+        _sync(torch)
+        if not torch.equal(out, again):
+            raise AssertionError(f"paged_extend_attention {name}: two calls "
+                                 f"differ")
+        broken = pea.split_reference(*args, plan, drop=plan.splits - 1, **kw)
+        exp = plain(*args, **kw)
+        boundary[name] = float((broken - exp).abs().max())
+        if torch.allclose(broken, exp, **TOL[tol]):
+            raise AssertionError(f"paged_extend_attention {name}: a merge "
+                                 f"without the last split passes the "
+                                 f"tolerance")
+    q, kp, vp, kn, vn, bt, pos, sc = _extend_inputs(
+        torch, torch.int8, q_dtype=torch.bfloat16, H=4, K=1, hd=256,
+        n_blk=256, seed=31, dev=dev)
+    held("bfloat16", "gemma3 global", q, kp[0], vp[0], kn, vn, bt, pos,
+         scale=256 ** -0.5, **{k: v[0] for k, v in sc.items()})
 
     # timing at the serving path's shapes: a catch-up wave of 4 slots x 4
     # tokens at prompt positions past the largest prefill bucket (128),
@@ -677,7 +858,9 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
         "library_call": "gather + dequantize, then "
         "F.scaled_dot_product_attention(enable_gqa=True) with a boolean "
         "mask, all timed",
-        "library_max_abs_err": lib_err}
+        "library_max_abs_err": lib_err, "plan_serve": plan._asdict(),
+        "broken_merge_without_last_split_err": boundary,
+        "ptxas_bf16": _ptxas_bf16("paged_extend_attention")}
 
 
 # ---------------------------------------------------------------------------

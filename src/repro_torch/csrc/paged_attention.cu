@@ -1,10 +1,10 @@
 // Paged single-query decode attention (GQA) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel `paged_attention` in
-// src/repro/kernels/flash_attention.py (body `_paged_kernel`, launched by
-// the pl.pallas_call in `paged_attention`).  The plain PyTorch version is
-// repro_torch/kernels/ref.py::paged_attention_ref; the wrapper that
-// checks arguments and launches this file is
+// src/repro/kernels/flash_attention.py (:140; body `_paged_kernel`,
+// launched by the pl.pallas_call in `paged_attention`).  The plain PyTorch
+// version is repro_torch/kernels/ref.py::paged_attention_ref; the wrapper
+// that checks arguments, plans the split and launches this file is
 // repro_torch/kernels/paged_attention.py.
 //
 // What it computes, for every sequence b and query head h:
@@ -15,148 +15,82 @@
 // they are skipped and never dereferenced (the Pallas kernel clips them to
 // page 0 and masks them).  cap is the tanh softcap when softcap > 0.  For
 // an int8 pool, K/V rows are multiplied by their per-(page, offset,
-// kv-head) float scales before use.  A row with no valid position returns
-// 0, as the Pallas kernel's acc / max(l, 1e-30) does.
+// kv-head) float scales.  A row with no valid position returns 0, as the
+// Pallas kernel's acc / max(l, 1e-30) does.
 //
 // Bound: memory.  One call must read q, the valid K/V rows of every
 // sequence (plus their scales on an int8 pool), the tables and lengths,
-// and write the output; it does about 4 * hd flops per K/V row of
-// 2 * hd * elt bytes, far below the ~295 flop/byte ridge of the H100.
-// Least time = those bytes / 3.35 TB/s.
+// and write the output; it does about 4 * hd flops per (query head, K/V
+// row) at 2 * hd * elt bytes a row, G = 4 query heads a row for phi3 and
+// gemma3: about 0.5 flop a byte, far below the H100's ~295 ridge.  Least
+// time = those bytes / 3.35 TB/s: about a microsecond at the serving
+// shape, 0.025 ms for 4 rows of 4096 bf16 tokens at phi3's width.
 //
-// Design.  One thread block per (kv head, sequence) covers all G query
-// heads of its group, so each page row is read from device memory once
-// per kv head (the Pallas grid (B, H, n_blk) reads it G times).  The block
-// walks its row's block table itself and stops at the row's length.  Each
-// page's rows for this kv head are staged in shared memory as float
-// (16-byte loads, so head_dim * element size must be a multiple of 16 and
-// the pools 16-byte aligned; dequantized there for int8), scores come
-// from warp-wide dot products (lanes split head_dim), and a float32
-// online softmax (running max m, denominator l, accumulator acc, all in
-// shared memory) carries across pages.  head_dim up to 256 and any page
-// size fit; shared memory is 4 * (2*G*hd + 2*bs*hd + G*bs + 3*G) bytes.
-// Simple and right first: no split of long rows across blocks, no
-// cp.async/TMA staging and no tensor cores yet.
+// Design (`paged::paged_kernel` in paged_common.cuh, without a suffix).
+// At those sizes the time goes to latency and parallelism, not bandwidth:
+// one block per (kv head, sequence) gave phi3 40 blocks and gemma3 4 for
+// 132 SMs, each walking its ~20 pages one blocking round trip at a time.
+// So each row's table is split across blocks: grid (K, B, splits), where
+// the wrapper's `paged_plan` picks `splits` from the shapes alone (never
+// from lengths, which would sync the host) for at least two blocks an SM.
+// A block stages its split's pages for its kv head with `cp.async` in
+// the pool's type, both ring stages issued before the first wait, and
+// covers all G query heads of the group, so each page row is read from
+// device memory once.  bf16 queries over bf16 or int8 pages (what serving
+// runs) score and sum on the tensor cores: G = 4 rows fill a quarter of an
+// m16n8k16 tile, but the tensor cores' work is free beside the CUDA
+// cores' dot products and shuffles, which measured slower (PERF.md);
+// splits of several chunks go through the per-warp path.  float32
+// queries, and float32 pages, score on the CUDA cores: a team of lanes
+// spans a key row (16 bytes a lane), holds the group's query slices in
+// registers and reduces by shuffles.  The int8 row scales multiply the
+// dot product and the probability, not each element.  The blocks of a
+// row write float32 partials (m, l, acc); the last to arrive merges them
+// in split order in the same launch.
 
 #include "paged_common.cuh"
 
-namespace {
-
-using namespace paged;
-
-constexpr int kThreads = 128;
-
-template <typename TQ, typename TP>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const TQ* __restrict__ q, const TP* __restrict__ k_pages,
-    const TP* __restrict__ v_pages, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale,
-    const int32_t* __restrict__ block_tables,
-    const int32_t* __restrict__ lengths, TQ* __restrict__ out, int H, int K,
-    int hd, int bs, int n_blk, float scale, float softcap) {
-  const int kh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int G = H / K;
-  const int tid = threadIdx.x;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;             // (G, hd)   queries of the group
-  float* k_s = q_s + G * hd;     // (bs, hd)  this page's K rows
-  float* v_s = k_s + bs * hd;    // (bs, hd)  this page's V rows
-  float* acc_s = v_s + bs * hd;  // (G, hd)   unnormalised output
-  float* p_s = acc_s + G * hd;   // (G, bs)   scores, then probabilities
-  float* m_s = p_s + G * bs;     // (G,)      running max
-  float* l_s = m_s + G;          // (G,)      running denominator
-  float* a_s = l_s + G;          // (G,)      this page's rescale factor
-
-  const int h0 = kh * G;
-  const TQ* q_row = q + (static_cast<size_t>(b) * H + h0) * hd;
-  for (int i = tid; i < G * hd; i += blockDim.x) {
-    q_s[i] = to_float(q_row[i]);
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-
-  const int len = lengths[b];
-  int n_used = len <= 0 ? 0 : (len + bs - 1) / bs;
-  if (n_used > n_blk) n_used = n_blk;
-  const int32_t* table = block_tables + static_cast<size_t>(b) * n_blk;
-  __syncthreads();
-
-  for (int j = 0; j < n_used; ++j) {
-    const int page = table[j];  // the same for every thread of the block
-    if (page < 0) continue;     // unallocated: skipped, never read
-    const int t_valid = min(bs, len - j * bs);  // >= 1 since j < n_used
-
-    stage_page_rows(k_pages, v_pages, k_scale, v_scale, page, t_valid, bs,
-                    K, kh, hd, k_s, v_s);
-    __syncthreads();
-
-    attend_staged(q_s, k_s, v_s, acc_s, p_s, m_s, l_s, a_s, G, 1, bs, hd,
-                  t_valid, false, scale, softcap);
-  }
-
-  TQ* o_row = out + (static_cast<size_t>(b) * H + h0) * hd;
-  for (int i = tid; i < G * hd; i += blockDim.x) {
-    store(o_row + i, acc_s[i] / fmaxf(l_s[i / hd], 1e-30f));
-  }
-}
-
-template <typename TQ, typename TP>
-cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
-                   const void* k_scale, const void* v_scale,
-                   const void* block_tables, const void* lengths, void* out,
-                   int B, int H, int K, int hd, int bs, int n_blk,
-                   float scale, float softcap, cudaStream_t stream) {
-  const int G = H / K;
-  const size_t smem =
-      sizeof(float) * (2 * static_cast<size_t>(G) * hd +
-                       2 * static_cast<size_t>(bs) * hd +
-                       static_cast<size_t>(G) * bs + 3 * static_cast<size_t>(G));
-  // rows start at multiples of hd elements: the 16-byte loads need hd to
-  // be a whole number of vectors and the pool bases 16-byte aligned
-  if (hd > 32 * kMaxChunks || hd % Vec16<TP>::N != 0 ||
-      reinterpret_cast<uintptr_t>(k_pages) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v_pages) % 16 != 0)
-    return cudaErrorInvalidValue;
-  auto kernel = paged_attention_kernel<TQ, TP>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
-  const dim3 grid(K, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TP*>(k_pages),
-      static_cast<const TP*>(v_pages), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale),
-      static_cast<const int32_t*>(block_tables),
-      static_cast<const int32_t*>(lengths), static_cast<TQ*>(out), H, K, hd,
-      bs, n_blk, scale, softcap);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
 // C entry point, bound with ctypes.  Every pointer is a device pointer
-// (k_scale / v_scale are null for a float pool); dtype codes: 0 float32,
-// 1 bfloat16, 2 int8 (pages only).  Launches on `stream` without
+// (k_scale / v_scale are null for a float pool; ws and counters are
+// needed only when splits > 1: B * K * splits * H / K * (hd + 2) floats
+// and B * K zeroed counters, which the kernel leaves zero); dtype codes:
+// 0 float32, 1 bfloat16, 2 int8 (pages only).  splits / pages / chunk /
+// stages / mma / smem are the wrapper's plan.  Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* block_tables,
-    const void* lengths, void* out, int B, int H, int K, int hd, int bs,
-    int n_blk, float scale, float softcap, int q_dtype, int page_dtype,
-    void* stream) {
+    const void* lengths, void* out, void* ws, void* counters, int B, int H,
+    int K, int hd, int bs, int n_blk, int splits, int pages, int chunk,
+    int stages, int mma, int smem, float scale, float softcap, int q_dtype,
+    int page_dtype, void* stream) {
+  paged::Args a{};
+  a.q = q;
+  a.k_pages = k_pages;
+  a.v_pages = v_pages;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.tables = static_cast<const int32_t*>(block_tables);
+  a.limit = static_cast<const int32_t*>(lengths);
+  a.out = out;
+  a.ws = static_cast<float*>(ws);
+  a.counters = static_cast<unsigned*>(counters);
+  a.S = 1;
+  a.H = H;
+  a.K = K;
+  a.hd = hd;
+  a.bs = bs;
+  a.n_blk = n_blk;
+  a.splits = splits;
+  a.pages = pages;
+  a.chunk = chunk;
+  a.stages = stages;
+  a.mma = mma;
+  a.scale = scale;
+  a.softcap = softcap;
   return static_cast<int>(paged::dispatch(q_dtype, page_dtype, [&](auto tq,
                                                                   auto tp) {
-    return launch<decltype(tq), decltype(tp)>(
-        q, k_pages, v_pages, k_scale, v_scale, block_tables, lengths, out, B,
-        H, K, hd, bs, n_blk, scale, softcap,
-        static_cast<cudaStream_t>(stream));
+    return paged::launch<decltype(tq), decltype(tp), false>(
+        a, B, smem, static_cast<cudaStream_t>(stream));
   }));
 }

@@ -34,7 +34,10 @@ KERNELS = {
     "paged_attention": ("paged_attention.cu", {
         "repro_paged_attention": (
             [_P, _P, _P, _P, _P, _P, _P, _P,      # q k v ks vs tables len out
+             _P, _P,                              # workspace, counters
              _I, _I, _I, _I, _I, _I,              # B H K hd bs n_blk
+             _I, _I, _I, _I, _I, _I,              # splits pages chunk stages
+                                                  # mma smem
              _F, _F,                              # scale softcap
              _I, _I,                              # q dtype, page dtype
              _P],                                 # stream
@@ -44,7 +47,10 @@ KERNELS = {
         "repro_paged_extend_attention": (
             [_P, _P, _P, _P, _P,                  # q k v ks vs
              _P, _P, _P, _P, _P,                  # k_new v_new tables pos out
+             _P, _P,                              # workspace, counters
              _I, _I, _I, _I, _I, _I, _I,          # B S H K hd bs n_blk
+             _I, _I, _I, _I, _I, _I,              # splits pages chunk stages
+                                                  # mma smem
              _F, _F,                              # scale softcap
              _I, _I,                              # q dtype, page dtype
              _P],                                 # stream

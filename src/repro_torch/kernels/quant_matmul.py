@@ -12,10 +12,8 @@ the kernel launches made through this wrapper (reset it by assignment).
 
 For M <= 8 the kernel splits K across blocks as ``gemv_plan`` says; a
 split call takes a float32 workspace of partial sums (``torch.empty``)
-and the column-block counters of its (device, stream) (``_counters``:
-zeros that the kernel leaves zero; calls on one stream run one after
-another, so they never share a counter), so its partials are summed in
-a fixed order.
+and the arrival counters of its (device, stream) (``splits``), so its
+partials are summed in a fixed order.
 """
 from __future__ import annotations
 
@@ -25,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import build, checks
+from repro_torch.kernels import build, checks, splits as _splits
 
 launches = 0
 
@@ -80,29 +78,6 @@ def gemv_plan(M: int, K: int, N: int, sms: int) -> GemvPlan:
     return best[1]
 
 
-_counters: dict = {}
-_sms: dict = {}
-
-
-def _sm_count(device) -> int:
-    n = _sms.get(device)
-    if n is None:
-        n = _sms[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
-    return n
-
-
-def _counters_for(device, stream: int, n: int):
-    """At least ``n`` zero int32 column-block counters on ``device`` for
-    calls on ``stream`` (kept per device and stream: the kernel resets
-    what it counts, and two streams may run calls at once)."""
-    c = _counters.get((device, stream))
-    if c is None or c.numel() < n:
-        c = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _counters[(device, stream)] = c
-    return c
-
-
 def _check(x, wq, scale, out_dtype):
     checks.on_one_cuda_device(NAME, {"x": x, "wq": wq, "scale": scale},
                               x.device)
@@ -144,12 +119,13 @@ def quant_matmul(x, wq, scale, *, out_dtype=torch.bfloat16):
     ws = counters = None              # held until the launch is queued
     cols, splits, k_chunk = 64, 1, K
     if M <= GEMV_MAX_M:
-        plan = gemv_plan(M, K, N, _sm_count(x.device))
+        plan = gemv_plan(M, K, N, _splits.sm_count(x.device))
         cols, splits, k_chunk = plan.cols, plan.splits, plan.k_chunk
         if splits > 1:
             ws = torch.empty(plan.workspace, dtype=torch.float32,
                              device=x.device)
-            counters = _counters_for(x.device, stream, math.ceil(N / cols))
+            counters = _splits.counters_for(x.device, stream,
+                                               math.ceil(N / cols))
     lib = build.load(NAME)
     with torch.cuda.device(x.device):
         err = lib.repro_quant_matmul(

@@ -26,7 +26,7 @@ import torch
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro.models import layers as JL
-from repro_torch.kernels import build, checks, ops, ref
+from repro_torch.kernels import build, checks, ops, ref, splits
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import paged_extend_attention as pea
@@ -175,7 +175,126 @@ def test_build_path_is_keyed_by_source_hash():
 
 @pytest.mark.parametrize("G,hd,bs", [(4, 128, 16), (8, 256, 16), (1, 64, 8)])
 def test_shared_memory_fits_a_block(G, hd, bs):
-    assert pa.smem_bytes(G, hd, bs) <= checks.SMEM_LIMIT
+    """The decode plan's block fits for every dtype pair, at a short and a
+    4096-token table."""
+    for n_blk in (32, 4096 // bs):
+        for page, q in PLAN_DTYPES:
+            plan = pa.paged_plan(4, 2, G, 1, n_blk, bs, hd, page, q, 132)
+            assert plan.smem <= checks.SMEM_LIMIT
+            assert plan.smem == pa.smem_bytes(
+                G, 1, hd, bs, plan.chunk, plan.stages,
+                torch.empty((), dtype=page).element_size(), suffix=False,
+                mma=plan.mma)
+
+
+# ---------------------------------------------------------------------------
+# the split plan and the split-and-merge arithmetic of both paged kernels
+# ---------------------------------------------------------------------------
+
+PLAN_DTYPES = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+               (torch.int8, torch.float32), (torch.int8, torch.bfloat16)]
+# B, K, G, S, n_blk, bs, hd, suffix: phi3's serving decode and extend,
+# 4 x 4096 tokens, gemma3-1b's global layers, a one-page table, a batch
+# wide enough to need no split
+PLANS = [(4, 10, 4, 1, 32, 16, 128, False), (4, 10, 4, 4, 32, 16, 128, True),
+         (4, 10, 4, 1, 256, 16, 128, False), (4, 1, 4, 1, 256, 16, 256, False),
+         (4, 1, 4, 5, 64, 16, 256, True), (3, 2, 2, 1, 1, 8, 32, False),
+         (64, 8, 4, 4, 64, 16, 128, True)]
+
+
+@pytest.mark.parametrize("B,K,G,S,n_blk,bs,hd,suffix", PLANS)
+@pytest.mark.parametrize("page,q", PLAN_DTYPES,
+                         ids=["f32", "bf16", "int8", "int8-bf16q"])
+def test_paged_plan_covers_each_table_entry_once(B, K, G, S, n_blk, bs, hd,
+                                                 suffix, page, q):
+    """Splits of ``pages`` entries cover the table exactly once, none of
+    them empty by construction; chunks no longer than a split, one stage
+    only when a chunk is the whole split; at least two blocks an SM of a
+    132-SM card where the table and the merge's cap on splits allow;
+    tensor cores only for bf16 queries over bf16 / int8 pages."""
+    plan = pa.paged_plan(B, K, G, S, n_blk, bs, hd, page, q, 132, suffix)
+    cover = [j // plan.pages for j in range(n_blk)]
+    assert sorted(set(cover)) == list(range(plan.splits))
+    assert (plan.splits - 1) * plan.pages < n_blk <= plan.splits * plan.pages
+    assert 1 <= plan.chunk <= plan.pages
+    assert plan.stages == min(pa.MAX_STAGES, -(-plan.pages // plan.chunk))
+    assert plan.blocks == B * K * plan.splits
+    assert plan.blocks >= 2 * 132 or plan.splits == n_blk \
+        or plan.splits >= min(hd, pa.MAX_SPLITS) or B * K >= 2 * 132
+    assert plan.splits <= min(hd, pa.MAX_SPLITS)
+    assert plan.mma == (q == torch.bfloat16 and page != torch.float32
+                        and hd % 16 == 0)
+    if (B, K, n_blk) == (4, 10, 32):
+        assert plan.blocks >= 2 * 132 and plan.splits > 1
+
+
+@pytest.mark.parametrize("B,K,G,S,n_blk,bs,hd,suffix", PLANS)
+@pytest.mark.parametrize("page,q", PLAN_DTYPES,
+                         ids=["f32", "bf16", "int8", "int8-bf16q"])
+def test_paged_plan_sizes_fit(B, K, G, S, n_blk, bs, hd, suffix, page, q):
+    """The block's shared memory is ``smem_bytes`` of the plan and fits
+    ``checks.SMEM_LIMIT``; a split plan's workspace holds one float32
+    partial (m, l, acc[hd]) per (row, kv head, split, query row)."""
+    plan = pa.paged_plan(B, K, G, S, n_blk, bs, hd, page, q, 132, suffix)
+    elt = torch.empty((), dtype=page).element_size()
+    assert plan.smem == pa.smem_bytes(G * S, S, hd, bs, plan.chunk,
+                                      plan.stages, elt, suffix=suffix,
+                                      mma=plan.mma) <= checks.SMEM_LIMIT
+    stage = 2 * plan.chunk * bs * hd * elt
+    assert stage <= max(pa.STAGE_BYTES, 2 * bs * hd * elt)
+    assert plan.workspace == (B * K * plan.splits * G * S * (hd + 2)
+                              if plan.splits > 1 else 0)
+
+
+def _random_plan(rng, n_blk):
+    """A plan of random split length (the model needs splits and pages)."""
+    pages = int(rng.integers(1, n_blk + 1))
+    return pa.PagedPlan(-(-n_blk // pages), pages, 1, 1, False, 0, 0, 0)
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+def test_split_merge_equals_plain_version(seed, softcap):
+    """The kernel's split arithmetic (partials per split, merged in split
+    order) at float32 over random splits equals the plain version, -1
+    pages and splits with no key included; a row with no key gives 0,
+    the Pallas kernel's rule."""
+    rng = np.random.default_rng(seed)
+    B, H, kv, hd, nB, bs, n_blk = 4, 8, 2, 32, 40, 4, 9
+    args = _paged_case(seed, B, H, kv, hd, nB, bs, n_blk, holes=True,
+                       q_std=3.0)
+    t = [torch.from_numpy(a) for a in args]
+    kw = dict(scale=1.0, softcap=softcap)
+    plan = _random_plan(rng, n_blk)
+    got = pa.split_reference(*t, plan, **kw)
+    want = ref.paged_attention_ref(*t, **kw)
+    torch.testing.assert_close(got[:-1], want[:-1], rtol=1e-5, atol=1e-5)
+    assert torch.all(got[-1] == 0)
+    _, _, pallas = _both(args, softcap, hd, scale=1.0)
+    np.testing.assert_allclose(got.numpy(), pallas, rtol=2e-3, atol=2e-3)
+    if plan.splits > 1:         # row 0 fills the table: its last split counts
+        broken = pa.split_reference(*t, plan, drop=plan.splits - 1, **kw)
+        assert float((broken[0] - want[0]).abs().max()) > 1e-3
+
+
+@pytest.mark.parametrize("seed", range(6))
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_extend_split_merge_equals_plain_version(seed, quant):
+    """The extend read's split arithmetic over random splits (the suffix
+    in the last split, which may hold no context) equals the plain
+    version at float32, the -1 hole and the pos-0 row included."""
+    rng = np.random.default_rng(seed)
+    shape = EXT_SHAPES[0]
+    args, scales = _extend_case(seed, *shape, quant=quant, q_std=3.0)
+    t = [torch.from_numpy(a) for a in args]
+    kw = dict(scale=1.0, softcap=20.0)
+    if scales:
+        kw.update(k_scale=torch.from_numpy(scales[0]),
+                  v_scale=torch.from_numpy(scales[1]))
+    plan = _random_plan(rng, shape[-1])
+    got = pea.split_reference(*t, plan, **kw)
+    torch.testing.assert_close(got, ref.paged_extend_attention_ref(*t, **kw),
+                               rtol=1e-5, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -295,12 +414,16 @@ def test_extend_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.parametrize("G,S,hd,bs,fits", [
-    (4, 4, 128, 16, True),          # phi3 on the serving path: ~34 KB
+    (4, 4, 128, 16, True),          # phi3 on the serving path: ~43 KB
     (8, 8, 256, 16, True),          # needs the opt-in above 48 KB
     (1, 1, 64, 16, True),
     (16, 16, 256, 16, False)])      # R = 256 rows of 256: over 227 KB
 def test_extend_shared_memory(G, S, hd, bs, fits):
-    smem = pea.smem_bytes(G, S, hd, bs)
+    """The plan of float32 pages and queries (the largest block) fits
+    exactly where the first version's block did."""
+    plan = pea.paged_plan(4, 2, G, S, 32, bs, hd, torch.float32,
+                          torch.float32, 132, suffix=True)
+    smem = plan.smem
     assert (smem <= checks.SMEM_LIMIT) == fits
     if fits:
         return
@@ -435,14 +558,14 @@ def test_quant_matmul_counters_are_kept_per_stream():
     stream) gets its own zeroed column-block counters; a stream's
     counters are reused, and grown when a call needs more."""
     dev = torch.device("cpu")
-    a = qm._counters_for(dev, 11, 20)
-    assert qm._counters_for(dev, 11, 20) is a
-    b = qm._counters_for(dev, 12, 20)
+    a = splits.counters_for(dev, 11, 20)
+    assert splits.counters_for(dev, 11, 20) is a
+    b = splits.counters_for(dev, 12, 20)
     assert b is not a and a.numel() >= 20 and not b.any()
-    c = qm._counters_for(dev, 11, a.numel() + 1)
+    c = splits.counters_for(dev, 11, a.numel() + 1)
     assert c.numel() > a.numel() and not c.any()
     for key in ((dev, 11), (dev, 12)):
-        qm._counters.pop(key)
+        splits._counters.pop(key)
 
 
 # ---------------------------------------------------------------------------

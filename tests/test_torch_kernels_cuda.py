@@ -77,17 +77,21 @@ def _quantize(x):
 
 
 def _case(device, dtype, q_dtype=None, B=4, H=40, K=10, hd=128, nB=160,
-          bs=16, n_blk=32, seed=0):
+          bs=16, n_blk=32, seed=0, lengths=None):
+    """Random lengths with the last row empty, or the given ``lengths``
+    (every row)."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, H, hd), generator=g) * 3.0
     kp = torch.randn((nB, bs, K, hd), generator=g) * 0.5
     vp = torch.randn((nB, bs, K, hd), generator=g) * 0.5
     perm = torch.randperm(nB, generator=g)
     bt = torch.full((B, n_blk), -1, dtype=torch.int32)
+    given = lengths
     lengths = torch.zeros((B,), dtype=torch.int32)
     used = 0
-    for b in range(B - 1):                       # last row stays empty
-        n = int(torch.randint(1, n_blk * bs + 1, (1,), generator=g))
+    for b in range(B if given is not None else B - 1):
+        n = int(torch.randint(1, n_blk * bs + 1, (1,), generator=g)) \
+            if given is None else given[b]
         k = -(-n // bs)
         bt[b, :k] = perm[used:used + k].to(torch.int32)
         lengths[b] = n
@@ -185,16 +189,82 @@ def test_wrapper_rejects_bad_arguments(device):
                            scale=1.0)
 
 
+# split boundaries, long rows, gemma3-1b's global-layer shape (one kv
+# head of 256) and repeatability: the split kernels' own cases.  The
+# plan is the wrapper's for these shapes on this card.
+
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _boundary(plan, bs, n_blk, S=0):
+    """Lengths (pos, with S suffix tokens behind them) exactly two
+    splits long, one page short of that, the whole table, and the whole
+    table but three (the row whose split 1 becomes a -1 hole)."""
+    edge = 2 * plan.pages * bs
+    return [edge, edge - bs, n_blk * bs - S, n_blk * bs - S - 3]
+
+
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+def test_kernel_on_split_boundaries(device, dtype, q_dtype):
+    """Rows ending on a split boundary, one page short of it, filling
+    the table, and one whose split 1 is all -1 (that split reads
+    nothing): within tolerance, and two calls bitwise equal."""
+    plan = pa.paged_plan(4, 10, 4, 1, 32, 16, 128, dtype, q_dtype,
+                         _sms(device))
+    assert plan.splits > 2
+    args, scales = _case(device, dtype, q_dtype, nB=160, seed=7,
+                         lengths=_boundary(plan, 16, 32))
+    args[3][-1, plan.pages:2 * plan.pages] = -1
+    kw = dict(scale=1.0, softcap=50.0, **scales)
+    out = pa.paged_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _plain(args, **kw),
+                               **TOL[q_dtype])
+    assert torch.equal(out, pa.paged_attention(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype,q_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.int8, torch.bfloat16)],
+    ids=["bfloat16", "int8-bf16q"])
+def test_kernel_long_rows(device, dtype, q_dtype):
+    """phi3's width over 256-page tables, rows of 4096, 4001, 2500 and 17
+    positions: many chunks a split, through both stages of the ring (and,
+    for these bf16 queries, each warp on its own key groups)."""
+    plan = pa.paged_plan(4, 10, 4, 1, 256, 16, 128, dtype, q_dtype,
+                         _sms(device))
+    assert plan.stages == 2 and plan.mma
+    args, scales = _case(device, dtype, q_dtype, nB=1024, n_blk=256, seed=8,
+                         lengths=[4096, 4001, 2500, 17])
+    kw = dict(scale=128 ** -0.5, **scales)
+    out = pa.paged_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _plain(args, **kw),
+                               **TOL[q_dtype])
+    assert torch.equal(out, pa.paged_attention(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+def test_kernel_gemma_global_shape(device, dtype, q_dtype):
+    """gemma3-1b's global layers: H=4 over K=1, hd 256, ragged rows."""
+    args, scales = _case(device, dtype, q_dtype, B=4, H=4, K=1, hd=256,
+                         nB=256, n_blk=64, seed=9,
+                         lengths=[1024, 17, 700, 1000])
+    kw = dict(scale=256 ** -0.5, **scales)
+    out = pa.paged_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _plain(args, **kw),
+                               **TOL[q_dtype])
+
+
 # ---------------------------------------------------------------------------
 # paged_extend_attention
 # ---------------------------------------------------------------------------
 
 def _extend_case(device, dtype, q_dtype=None, B=4, S=4, H=40, K=10, hd=128,
-                 nB=160, bs=16, n_blk=32, seed=0):
+                 nB=160, bs=16, n_blk=32, seed=0, pos=None):
     """Queries at 3 x randn, suffix and pool at 0.5 x randn; ragged pos
     with each row's pages scattered over the pool, a -1 hole below row
-    0's pos, the last row at pos 0, stale bytes past every pos.  The
-    suffix is in q's dtype, as the caller passes it."""
+    0's pos, the last row at pos 0, stale bytes past every pos (or the
+    given ``pos``, every row, and no hole).  The suffix is in q's dtype,
+    as the caller passes it."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     q = torch.randn((B, S, H, hd), generator=g) * 3.0
     kp = torch.randn((nB, bs, K, hd), generator=g) * 0.5
@@ -203,16 +273,19 @@ def _extend_case(device, dtype, q_dtype=None, B=4, S=4, H=40, K=10, hd=128,
     vn = torch.randn((B, S, K, hd), generator=g) * 0.5
     perm = torch.randperm(nB, generator=g).to(torch.int32)
     bt = torch.full((B, n_blk), -1, dtype=torch.int32)
+    given = pos
     pos = torch.zeros((B,), dtype=torch.int32)
     used = 0
-    for b in range(B - 1):
+    for b in range(B if given is not None else B - 1):
         pos[b] = int(torch.randint(bs + 1, n_blk * bs - S + 1, (1,),
-                                   generator=g))
+                                   generator=g)) if given is None \
+            else given[b]
         k = -(-(int(pos[b]) + S) // bs)
         bt[b, :k] = perm[used:used + k]
         used += k
-    bt[0, 0] = -1
-    bt[B - 1, 0] = perm[used]
+    if given is None:
+        bt[0, 0] = -1
+        bt[B - 1, 0] = perm[used]
     scales = {}
     if dtype == torch.int8:
         kp, ks = _quantize(kp)
@@ -266,8 +339,8 @@ def test_extend_kernel_softcap_binds(device, dtype, q_dtype):
 @pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("S", [1, 4, 8])
 def test_extend_kernel_shapes(device, G, hd, S):
-    """Up to R = G * S = 64 query rows of head_dim 256 (165 KB of shared
-    memory, past the 48 KB default)."""
+    """Up to R = G * S = 64 query rows of head_dim 256 (149 KB of shared
+    memory at one page a chunk, past the 48 KB default)."""
     K = 2
     args, scales = _extend_case(device, torch.int8, B=3, S=S, H=G * K, K=K,
                                 hd=hd, nB=40, bs=16, n_blk=6,
@@ -314,6 +387,53 @@ def test_extend_wrapper_refuses_shapes_that_do_not_fit(device):
     with pytest.raises(ValueError, match="does not fit"):
         pea.paged_extend_attention(*args, scale=1.0)
     assert pea.launches == before
+
+
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+def test_extend_kernel_on_split_boundaries(device, dtype, q_dtype):
+    """pos on a split boundary, one page short of it, at the table's end
+    and with split 1 all -1: within tolerance, two calls bitwise
+    equal."""
+    plan = pea.paged_plan(4, 10, 4, 4, 32, 16, 128, dtype, q_dtype,
+                          _sms(device), suffix=True)
+    assert plan.splits > 2
+    args, scales = _extend_case(device, dtype, q_dtype, seed=7,
+                                pos=_boundary(plan, 16, 32, S=4))
+    args[5][-1, plan.pages:2 * plan.pages] = -1
+    kw = dict(scale=1.0, softcap=50.0, **scales)
+    out = pea.paged_extend_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _extend_plain(args, **kw),
+                               **TOL[q_dtype])
+    assert torch.equal(out, pea.paged_extend_attention(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype,q_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.int8, torch.bfloat16)],
+    ids=["bfloat16", "int8-bf16q"])
+def test_extend_kernel_long_rows(device, dtype, q_dtype):
+    """phi3's width, pos 4092, 3001, 2000 and 0 over 256-page tables:
+    many chunks a split (each warp on its own key groups)."""
+    plan = pea.paged_plan(4, 10, 4, 4, 256, 16, 128, dtype, q_dtype,
+                          _sms(device), suffix=True)
+    assert plan.stages == 2 and plan.mma
+    args, scales = _extend_case(device, dtype, q_dtype, nB=1024, n_blk=256,
+                                seed=8, pos=[4092, 3001, 2000, 0])
+    kw = dict(scale=128 ** -0.5, **scales)
+    out = pea.paged_extend_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _extend_plain(args, **kw),
+                               **TOL[q_dtype])
+    assert torch.equal(out, pea.paged_extend_attention(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+def test_extend_kernel_gemma_global_shape(device, dtype, q_dtype):
+    """H=4 over K=1, hd 256, S=4, ragged pos with a row at pos 0."""
+    args, scales = _extend_case(device, dtype, q_dtype, H=4, K=1, hd=256,
+                                nB=256, n_blk=64, seed=9)
+    kw = dict(scale=256 ** -0.5, **scales)
+    out = pea.paged_extend_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _extend_plain(args, **kw),
+                               **TOL[q_dtype])
 
 
 # ---------------------------------------------------------------------------
