@@ -28,20 +28,27 @@ non-zero without printing a result:
               the gemma shape, beside SDPA with the gather timed and
               without; both reads' bf16 ptxas lines.
               ``quant_matmul`` at the draft's decode shapes (M=4
-              against every projection of a phi3-medium-14b layer),
-              its prefill shape (M=512, K=5120, N=17920), a ragged one
-              and one whose K is too short to split, x in bf16 and f32,
-              with two broken versions shown to fall far outside the
-              tolerance; two calls of the M <= 8 kernel bitwise equal
-              at split and unsplit plans; every decode shape timed on
-              cold weights beside its bound and the bf16 cuBLAS
-              yardstick, and the sum over one draft layer's seven
-              decode launches;
+              against every projection of a phi3-medium-14b layer), a
+              ragged one and one whose K is too short to split; its
+              M > 8 kernel at M = 9, 16, 64, 300 and 2048 against every
+              projection, a ragged K, weight rows that are not 16-byte
+              vectors and x rows that are not; x in bf16 and f32, with
+              three broken versions shown to fall far outside the
+              tolerance; two calls of each kernel bitwise equal at split
+              and unsplit plans; every decode shape and M = 512 and 2048
+              of every projection timed on cold weights beside its bound
+              and the bf16 cuBLAS yardstick (the plans printed), the sum
+              over one draft layer's seven decode launches and over a
+              draft prefill's 56; the ptxas lines of the M > 8 kernel;
               ``ssd_scan`` against the plain chunked path in float32 at
               mamba2-370m's width (h=32, p=64, n=128, chunk 256) for b 1
-              and 4, l 16 / 256 / 300 / 1024, x in bf16 and f32, a split
-              sequence continued through ``h0``, and two broken versions
-              (state dropped between chunks, decay left out).
+              and 4, l 16 / 256 / 300 / 1024 / 2048, at zamba2-7b's
+              (112 heads, p 64, n 64) and at 30 heads, x in bf16 and
+              f32, a split sequence continued through ``h0``, and three
+              broken versions (state dropped between chunks, decay left
+              out, the state passed without its decay); timed at 4 x
+              1024, 1 x 1024 and 4 x 2048 beside its bound at the bf16
+              tensor-core and the float32 rates; its bf16 ptxas lines.
               ``flash_attention`` at the evaluation path's shape (B=2,
               S=T=4096, H=4, K=1, hd=256) with window 0 and 512, phi3's
               GQA (H=40, K=10, hd=128, S=512), a ragged S=300, T < S and
@@ -86,7 +93,8 @@ non-zero without printing a result:
               forward call (decode steps and admission prefills, counted
               here around ``SpecDecoder``) runs its 7 x 8 projections
               through ``quant_matmul``.  Times one draft step with int8
-              and with bf16 weights.
+              and with bf16 weights, and one int8 draft admission
+              prefill of 4 rows x bucket 512 (56 launches at M = 2048).
 9. serve_ssm — the fourth main path: mamba2-370m at full width and
               depth (bf16, ~0.74 GB) behind the engine's pool-free path
               (no page pool: ``eng.paged`` False) with
@@ -183,14 +191,24 @@ CAP_MOVES = 0.1
 QM_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
           "bfloat16": dict(rtol=2 ** -8, atol=1e-4)}
 # a broken kernel must land this far from the plain version, far past
-# QM_TOL: the scale applied along K instead of N, or K cut short by one
-# 32-row tile
+# QM_TOL: the scale applied along K instead of N, K cut short by one
+# 32-row tile, or (M > 8) by one 64-row K step
 QM_BROKEN_MOVES = 0.1
 # phi3-medium-14b's projections (K, N), d=5120, K/V 10 x 128, d_ff 17920
 QM_DECODE = {"wq / wo": (5120, 5120), "wk / wv": (5120, 1280),
              "w_gate / w_up": (5120, 17920), "w_down": (17920, 5120)}
-QM_PREFILL = (512, 5120, 17920)
 QM_UNSPLIT = (4, 64, 1280)                    # K too short to split
+# the M > 8 kernel: a draft admission prefill runs up to 4 prompts padded
+# to a power-of-two bucket, M = rows x bucket; checked at these M against
+# every projection, timed at QM_TIMED_M
+QM_PREFILL_M = (9, 16, 64, 300, 2048)
+QM_TIMED_M = (512, 2048)
+# and at edges the projections do not reach: K not a multiple of the
+# 64-row step, weight rows not 16-byte vectors (N % 16 != 0: masked
+# scalar loads), x rows not 16-byte vectors (K % 8 != 0)
+QM_EDGES = {"ragged K": (300, 5000, 1280), "N % 16 != 0": (40, 200, 72),
+            "K % 8 != 0": (130, 100, 1280)}
+DRAFT_BUCKET = 512                            # the timed draft prefill
 # one draft layer's decode launches: wq, wk, wv, wo, w_gate, w_up, w_down
 QM_LAYER_LAUNCHES = {"wq / wo": 2, "wk / wv": 2, "w_gate / w_up": 2,
                      "w_down": 1}
@@ -202,8 +220,15 @@ SSM_ARCH = "mamba2-370m"
 SSM_SERVE = dict(max_slots=4, max_len=2048, policy="priority",
                  prefill_buckets=(16, 32, 64, 128, 256, 512, 1024))
 SSM_TRAFFIC = (8, 16, 1000, 32)               # requests, prompts, new
-# ssd_scan at mamba2-370m's width and the model's chunk (cfg.ssm_chunk)
+# ssd_scan at mamba2-370m's width and the model's chunk (cfg.ssm_chunk),
+# and at the hybrid slice's zamba2-7b (112 heads of 64, state 64)
 SSD_H, SSD_P, SSD_N, SSD_CHUNK = 32, 64, 128, 256
+SSD_ZAMBA = (112, 64, 64)
+# (b, l) checked at mamba2-370m's width, and the timed ones (the served
+# 4 x 1024 prefill first: the kernels line's row)
+SSD_CASES = ((1, 16), (1, 256), (1, 300), (1, 1024), (1, 2048), (4, 16),
+             (4, 256), (4, 300), (4, 1024), (4, 2048))
+SSD_TIMED = ((4, 1024), (1, 1024), (4, 2048))
 # the kernel against the plain chunked path, both float32 on the same
 # inputs: the same sums in another order (and exp of cumsum differences
 # taken from another cumsum order), of order 1e-6 x max |y|; allowed
@@ -437,11 +462,17 @@ def _sms(torch, dev) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _ptxas_bf16(name: str) -> dict:
-    """ptxas lines of a paged kernel's instantiations with a bf16 type."""
+def _ptxas(name: str, contains: str) -> dict:
+    """ptxas lines of kernel library ``name``'s entry functions whose
+    mangled name holds ``contains``."""
     from repro_torch.kernels import build
     log = build.library_path(name).with_suffix(".log")
-    return ptxas_report(log, "13__nv_bfloat16") if log.exists() else {}
+    return ptxas_report(log, contains) if log.exists() else {}
+
+
+def _ptxas_bf16(name: str) -> dict:
+    """ptxas lines of a kernel's instantiations with a bf16 type."""
+    return _ptxas(name, "13__nv_bfloat16")
 
 
 def _boundary_lengths(plan, bs, n_blk, S=0):
@@ -914,75 +945,118 @@ def time_gemv(torch, qm, ref, timer, M, K, N, *, seed=7, dev="cuda"):
     return row
 
 
+def _qm_weight(torch, qm, K, N, seed, dev="cuda"):
+    """A randn / sqrt(K) weight made on ``dev``, quantized per output
+    channel: one per projection, shared by the M > 8 cases."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.randn((K, N), generator=g, device=dev) * K ** -0.5
+    return qm.quantize_weights(w)
+
+
+def _qm_check(torch, ref, out, x, wq, scale, name, dt):
+    """max |kernel - plain| of one call, raising beyond QM_TOL[dt]."""
+    _sync(torch)
+    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+    err = float((out.float() - exp).abs().max())
+    if out.dtype != getattr(torch, dt) or not torch.allclose(
+            out.float(), exp, **QM_TOL[dt]):
+        raise AssertionError(f"quant_matmul {name} {dt}: max abs err {err} "
+                             f"beyond tolerance {QM_TOL[dt]}")
+    return err
+
+
 def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
-    """Hold the kernel against its plain version at the draft's shapes
-    (x in bf16 and f32, out_dtype = x's); show two broken versions fall
-    outside the tolerance; two calls of the M <= 8 kernel on the same
-    inputs give bitwise-equal outputs, K split or not; time kernel, plain
-    version and the bf16 yardstick at every decode shape (cold weights)
-    and at the prefill shape, and sum one draft layer's seven decode
-    launches."""
+    """Hold both kernels against their plain version (x in bf16 and f32,
+    out_dtype = x's): the M <= 8 GEMV at the draft's decode shapes, a
+    ragged one and one whose K is too short to split; the M > 8 kernel
+    at QM_PREFILL_M rows against every projection and at QM_EDGES.  Show
+    three broken versions fall outside the tolerance.  Two calls on the
+    same inputs give bitwise-equal outputs, K split or not, in either
+    kernel.  Time kernel, plain version and the bf16 yardstick at every
+    decode shape and at QM_TIMED_M rows of every projection (cold
+    weights), and sum one draft layer's seven decode launches."""
     errs, worst = {}, 0.0
     shapes = {f"decode {n}": (4, k, nn) for n, (k, nn) in QM_DECODE.items()}
-    shapes["prefill w_gate"] = QM_PREFILL
     shapes["ragged"] = (3, 200, 72)
     shapes["unsplit"] = QM_UNSPLIT
+    shapes.update({f"M > 8, {n}": s for n, s in QM_EDGES.items()})
     for i, (name, (M, K, N)) in enumerate(shapes.items()):
         for dt in ("bfloat16", "float32"):
-            x_dtype = getattr(torch, dt)
-            x, wq, scale = _qm_inputs(torch, qm, M, K, N, x_dtype, seed=i,
-                                      dev=dev)
-            out = qm.quant_matmul(x, wq, scale, out_dtype=x_dtype)
-            _sync(torch)
-            exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
-            err = float((out.float() - exp).abs().max())
-            if out.dtype != x_dtype or not torch.allclose(
-                    out.float(), exp, **QM_TOL[dt]):
-                raise AssertionError(f"quant_matmul {name} {dt}: max abs err "
-                                     f"{err} beyond tolerance {QM_TOL[dt]}")
+            x, wq, scale = _qm_inputs(torch, qm, M, K, N, getattr(torch, dt),
+                                      seed=i, dev=dev)
+            out = qm.quant_matmul(x, wq, scale, out_dtype=getattr(torch, dt))
+            err = _qm_check(torch, ref, out, x, wq, scale, name, dt)
             errs[f"{name} {M}x{K}x{N} {dt}"] = err
             worst = max(worst, err)
+    # the M > 8 kernel at the draft's prefill rows, one weight a projection
+    sms = _sms(torch, dev)
+    plans = {}
+    for i, (n, (K, N)) in enumerate(QM_DECODE.items()):
+        wq, scale = _qm_weight(torch, qm, K, N, seed=100 + i, dev=dev)
+        for M in QM_PREFILL_M:
+            plans[f"M={M} {n}"] = qm.mma_plan(M, K, N, sms)._asdict()
+            for dt in ("bfloat16", "float32"):
+                g = torch.Generator(device=dev).manual_seed(M)
+                x = torch.randn((M, K), generator=g, device=dev).to(
+                    torch.bfloat16).to(getattr(torch, dt))
+                out = qm.quant_matmul(x, wq, scale,
+                                      out_dtype=getattr(torch, dt))
+                err = _qm_check(torch, ref, out, x, wq, scale,
+                                f"M={M} {n}", dt)
+                errs[f"prefill M={M} {n} {dt}"] = err
+                worst = max(worst, err)
+        del wq, scale
 
     # two calls, bitwise equal: the split partials are summed in a fixed
-    # order (M <= 8 only; the M > 8 kernel does not split)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count \
-        if dev == "cuda" else 132
-    plans, repeat = {}, {}
+    # order (both kernels; split and unsplit plans)
+    repeat, rep_plans = {}, {}
     rep_shapes = dict((n, s) for n, s in shapes.items() if s[0] <= 8)
     rep_shapes["decode w_gate M=8"] = (8, *QM_DECODE["w_gate / w_up"])
+    rep_shapes["prefill w_gate M=512"] = (512, *QM_DECODE["w_gate / w_up"])
+    rep_shapes["prefill wk / wv M=512"] = (512, *QM_DECODE["wk / wv"])
+    rep_shapes["prefill w_down M=64"] = (64, *QM_DECODE["w_down"])
     for name, (M, K, N) in rep_shapes.items():
         x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.bfloat16,
                                   seed=11, dev=dev)
         a = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
         b = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
         _sync(torch)
-        plans[name] = qm.gemv_plan(M, K, N, sms)._asdict()
+        plan = (qm.gemv_plan if M <= qm.GEMV_MAX_M else qm.mma_plan)(
+            M, K, N, sms)
+        rep_plans[name] = plan._asdict()
         repeat[name] = bool(torch.equal(a, b))
         if not repeat[name]:
             raise AssertionError(f"quant_matmul {name}: two calls differ by "
                                  f"{float((a - b).abs().max())}")
-    if not any(p["splits"] == 1 for p in plans.values()) \
-            or not any(p["splits"] > 1 for p in plans.values()):
-        raise AssertionError(f"quant_matmul: the repeatability shapes must "
-                             f"hold split and unsplit plans, got {plans}")
+    for kernel_rows in ((0, 8), (9, 1 << 30)):
+        split = [p["splits"] for n, p in rep_plans.items()
+                 if kernel_rows[0] <= rep_shapes[n][0] <= kernel_rows[1]]
+        if min(split) != 1 or max(split) == 1:
+            raise AssertionError(f"quant_matmul: the repeatability shapes "
+                                 f"must hold split and unsplit plans of "
+                                 f"each kernel, got {rep_plans}")
 
-    # what two broken kernels would return, from the plain version: the
-    # scale along K (the square wq shape), and K short by one 32-row tile
-    M, K, N = 4, *QM_DECODE["wq / wo"]
-    x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.float32, seed=0,
-                              dev=dev)
-    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
-    broken = {
-        "scale_on_k_axis": x @ (wq.float() * scale[:, None]),
-        "k_short_one_tile": ref.quant_matmul_ref(
-            x[:, :K - 32], wq[:K - 32], scale, out_dtype=torch.float32),
-    }
-    moves = {k: float((v - exp).abs().max()) for k, v in broken.items()}
-    for k, v in broken.items():
-        if torch.allclose(v, exp, **QM_TOL["float32"]) \
-                or moves[k] <= QM_BROKEN_MOVES:
-            raise AssertionError(f"quant_matmul: the broken version {k} "
-                                 f"moves the output by only {moves[k]}")
+    # what three broken kernels would return, from the plain version: the
+    # scale along K (the square wq shape), K short by one 32-row tile, and
+    # (M > 8) K short by one 64-row step
+    moves = {}
+    for M, broken_names in ((4, ("scale_on_k_axis", "k_short_one_tile")),
+                            (64, ("k_short_one_64_row_step",))):
+        K, N = QM_DECODE["wq / wo"]
+        x, wq, scale = _qm_inputs(torch, qm, M, K, N, torch.float32, seed=0,
+                                  dev=dev)
+        exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+        cut = {"k_short_one_tile": 32, "k_short_one_64_row_step": 64}
+        for k in broken_names:
+            v = (x @ (wq.float() * scale[:, None]) if k == "scale_on_k_axis"
+                 else ref.quant_matmul_ref(x[:, :K - cut[k]],
+                                           wq[:K - cut[k]], scale,
+                                           out_dtype=torch.float32))
+            moves[k] = float((v - exp).abs().max())
+            if torch.allclose(v, exp, **QM_TOL["float32"]) \
+                    or moves[k] <= QM_BROKEN_MOVES:
+                raise AssertionError(f"quant_matmul: the broken version {k} "
+                                     f"moves the output by only {moves[k]}")
 
     # timing: bf16 x as the draft runs it; the yardstick (never called by
     # the port) is torch.matmul on the weight dequantized to bf16
@@ -991,11 +1065,17 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
     times = {f"decode {n}": time_gemv(torch, qm, ref, timer, 4, k, nn,
                                       dev=dev)
              for n, (k, nn) in QM_DECODE.items()}
-    times["prefill w_gate"] = time_gemv(torch, qm, ref, timer, *QM_PREFILL,
-                                        dev=dev)
+    for M in QM_TIMED_M:
+        for n, (k, nn) in QM_DECODE.items():
+            times[f"prefill M={M} {n}"] = time_gemv(torch, qm, ref, timer,
+                                                    M, k, nn, dev=dev)
     layer = {k: sum(QM_LAYER_LAUNCHES[n] * times[f"decode {n}"][k]
                     for n in QM_DECODE)
              for k in ("ms", "library_ms", "bound_ms")}
+    draft_prefill = {f"M={M}": {k: DRAFT_LAYERS * sum(
+        QM_LAYER_LAUNCHES[n] * times[f"prefill M={M} {n}"][k]
+        for n in QM_DECODE) for k in ("ms", "library_ms", "bound_ms")}
+        for M in QM_TIMED_M}
     row = times["decode w_gate / w_up"]
     return {
         "name": "quant_matmul", "route": "cuda",
@@ -1005,27 +1085,31 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
     }, {"errors": errs, "tolerance": QM_TOL, "broken_moves": moves,
-        "bitwise_repeatable": repeat, "plans": plans, "timed": times,
+        "bitwise_repeatable": repeat, "repeat_plans": rep_plans,
+        "prefill_plans": plans, "timed": times,
         "draft_layer_seven_launches": layer,
+        "draft_prefill_56_launches": draft_prefill,
         "row_shape": "decode w_gate, M=4 bf16",
         "cold_weights": f"timers walk copies of each weight totalling >= "
         f"{QM_COLD_BYTES / 1e6:.0f} MB",
         "library_call": "torch.matmul(x_bf16, w_bf16) with w dequantized to "
         "bf16 beforehand (twice the int8 weight bytes; not the same "
-        "rounding)"}
+        "rounding)",
+        "ptxas_wgmma": _ptxas(qm.NAME, "wgmma_kernel")}
 
 
 # ---------------------------------------------------------------------------
 # phase 3: ssd_scan against the plain chunked path
 # ---------------------------------------------------------------------------
 
-def _ssd_inputs(torch, b, l, dtype, *, seed=0, dev="cuda"):
-    """x, dt, A, B, C at mamba2-370m's width, with x, B and C as strided
-    views into one (b, l, h*p + 2n) tensor, as the model hands them to
-    the scan.  dt in [0.001, 0.021] and A in [-2, -0.5] keep a chunk's
-    decay at ~0.1, so the carried state moves the next chunk's rows by
-    about their own size: a dropped state or a missing decay shows."""
-    h, p, n = SSD_H, SSD_P, SSD_N
+def _ssd_inputs(torch, b, l, dtype, *, seed=0, dev="cuda", h=SSD_H,
+                p=SSD_P, n=SSD_N):
+    """x, dt, A, B, C at mamba2-370m's width (or h, p, n), with x, B and C
+    as strided views into one (b, l, h*p + 2n) tensor, as the model hands
+    them to the scan.  dt in [0.001, 0.021] and A in [-2, -0.5] keep a
+    chunk's decay at ~0.1, so the carried state moves the next chunk's
+    rows by about their own size: a dropped state or a missing decay
+    shows."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     xbc = torch.cat([torch.randn((b, l, h * p), generator=g),
                      torch.randn((b, l, 2 * n), generator=g) * n ** -0.5],
@@ -1038,21 +1122,22 @@ def _ssd_inputs(torch, b, l, dtype, *, seed=0, dev="cuda"):
 
 
 def _ssd_ops(b, l, h, p, n, Q) -> int:
-    """Operations one scan needs: per (b, h) chunk, the two intra-chunk
-    products over the causal pairs j <= i only, Q (Q + 1) / 2 of them,
-    at n (scores) and p (scores x x) multiply-adds each, plus the
-    inter-chunk product and the state update at Q p n each."""
+    """Least operations of one scan: per (b, chunk) the score product
+    C B^T once (every head shares B and C) over the causal pairs j <= i,
+    Q (Q + 1) / 2 of them at n multiply-adds; per (b, h, chunk) the
+    scores x (x dt) product over the same pairs at p, and the inter-chunk
+    product and the state update at Q p n each."""
     nc = -(-l // Q)
-    return 2 * b * h * nc * (Q * (Q + 1) // 2 * (n + p) + 2 * Q * p * n)
+    pairs = Q * (Q + 1) // 2
+    return 2 * b * nc * (pairs * n + h * (pairs * p + 2 * Q * p * n))
 
 
 def _ssd_bound(b, l, h, p, n, Q, x_elt: int, rate="float32"):
     """Least time (ms) of one scan: x, dt, A, B, C read once, y and the
     float32 final state written once, against ``_ssd_ops`` at the peak
-    rate of ``rate``.  The row takes the float32 rate: the TPU kernel
-    and this port do the scan's math in float32 whatever the operands'
-    type; the bfloat16 tensor-core rate gives the bound of a kernel
-    that would run the products there."""
+    rate of ``rate``: bfloat16 for the bf16 instantiation, whose
+    products run on the tensor cores, float32 for a scan on the CUDA
+    cores."""
     nbytes = (2 * b * l * h * p * x_elt + b * l * h * 4 + h * 4
               + 2 * b * l * n * x_elt + b * h * p * n * 4)
     return _roofline(nbytes, _ssd_ops(b, l, h, p, n, Q), rate)
@@ -1070,38 +1155,62 @@ def _ssd_err(torch, got, want, dtype) -> tuple:
     return float(diff.max()), bool((diff <= allowed).all())
 
 
+def _ssd_by_chunks(torch, ssm, x, dt, A, B, C, decay=True):
+    """The plain chunked path one chunk at a time, the state carried in
+    between: as the whole with ``decay``; without it, the broken version
+    whose carried state skips each chunk's decay exp(cums_last)
+    (state_c = state_{c-1} + local_c)."""
+    ys, carried = [], None
+    for i in range(0, x.shape[1], SSD_CHUNK):
+        part = (x[:, i:i + SSD_CHUNK], dt[:, i:i + SSD_CHUNK], A,
+                B[:, i:i + SSD_CHUNK], C[:, i:i + SSD_CHUNK], SSD_CHUNK)
+        y, h_next = ssm.ssd_chunked(*part, h0=carried)
+        ys.append(y)
+        if not decay:
+            local = ssm.ssd_chunked(*part)[1]
+            h_next = local if carried is None else carried + local
+        carried = h_next
+    return torch.cat(ys, dim=1)
+
+
 def check_ssd_scan(torch, ssd, ref, ssm, timer, dev="cuda"):
     """Hold the kernel against the model's plain chunked path in float32
     (``ssm.ssd_chunked`` without the kernel, on the same inputs rounded
-    to the kernel's input type) at b 1 and 4, l 16 / 256 / 300 (ragged)
-    / 1024 (4 chunks), x in bf16 and f32, at mamba2-370m's width and
-    chunk; a split sequence continued through ``h0`` must equal the
-    whole; two broken versions (the carried state dropped between
-    chunks, the decay left out) must land more than SSD_BROKEN_MOVES x
-    max |y| away.  Times the kernel, its plain version (the sequential
-    recurrence) and the plain chunked path at b=4, l=1024 (bf16, as the
-    model serves); no single PyTorch call computes this function."""
+    to the kernel's input type) at mamba2-370m's width and chunk for
+    SSD_CASES (b 1 and 4, l 16 / 256 / 300 (ragged) / 1024 / 2048, up to
+    8 chunks), at zamba2-7b's (112 heads, p 64, n 64) and at 30 heads, x
+    in bf16 and f32; a split sequence continued through ``h0`` must
+    equal the whole; three broken versions (the carried state dropped
+    between chunks, the decay left out everywhere, the state passed
+    without its decay) must land more than SSD_BROKEN_MOVES x max |y|
+    away.  Times the kernel and the plain chunked path at SSD_TIMED (bf16,
+    as the model serves) and its plain version (the sequential
+    recurrence) at the first; no single PyTorch call computes this
+    function."""
     errs, worst = {}, 0.0
-    for b in (1, 4):
-        for l in (16, 256, 300, 1024):
-            for dt_name in ("bfloat16", "float32"):
-                dtype = getattr(torch, dt_name)
-                x, dt, A, B, C = _ssd_inputs(torch, b, l, dtype, seed=b * l,
-                                             dev=dev)
-                y, hf = ssd.ssd_scan(x, dt, A, B, C, chunk=SSD_CHUNK)
-                _sync(torch)
-                yr, hr = ssm.ssd_chunked(x.float(), dt, A, B.float(),
-                                         C.float(), SSD_CHUNK)
-                ey, oky = _ssd_err(torch, y, yr, dtype)
-                eh, okh = _ssd_err(torch, hf, hr, torch.float32)
-                if y.dtype != dtype or not (oky and okh) \
-                        or not bool(torch.isfinite(y.float()).all()):
-                    raise AssertionError(
-                        f"ssd_scan b={b} l={l} {dt_name}: |y - plain| "
-                        f"{ey}, |h - plain| {eh} (max |y| "
-                        f"{float(yr.abs().max())})")
-                errs[f"b{b} l{l} {dt_name}"] = {"y": ey, "h_final": eh}
-                worst = max(worst, ey)
+    cases = [(b, l, {}) for b, l in SSD_CASES]
+    cases += [(2, 1024, dict(zip("hpn", SSD_ZAMBA))), (4, 1024, {"h": 30})]
+    for b, l, width in cases:
+        for dt_name in ("bfloat16", "float32"):
+            dtype = getattr(torch, dt_name)
+            x, dt, A, B, C = _ssd_inputs(torch, b, l, dtype, seed=b * l,
+                                         dev=dev, **width)
+            y, hf = ssd.ssd_scan(x, dt, A, B, C, chunk=SSD_CHUNK)
+            _sync(torch)
+            yr, hr = ssm.ssd_chunked(x.float(), dt, A, B.float(), C.float(),
+                                     SSD_CHUNK)
+            ey, oky = _ssd_err(torch, y, yr, dtype)
+            eh, okh = _ssd_err(torch, hf, hr, torch.float32)
+            name = f"b{b} l{l} {dt_name}" + "".join(
+                f" {k}={v}" for k, v in width.items())
+            if y.dtype != dtype or not (oky and okh) \
+                    or not bool(torch.isfinite(y.float()).all()):
+                raise AssertionError(
+                    f"ssd_scan {name}: |y - plain| {ey}, |h - plain| {eh} "
+                    f"(max |y| {float(yr.abs().max())})")
+            errs[name] = {"y": ey, "h_final": eh}
+            worst = max(worst, ey)
+            del x, dt, B, C, y, hf, yr, hr
     # a split sequence: [0, 300) then [300, 1024) from its final state
     for dt_name in ("bfloat16", "float32"):
         dtype = getattr(torch, dt_name)
@@ -1133,6 +1242,8 @@ def check_ssd_scan(torch, ssd, ref, ssm, timer, dev="cuda"):
             for i in range(0, 1024, SSD_CHUNK)], dim=1),
         "no_decay": ssm.ssd_chunked(x, dt, torch.zeros_like(A), B, C,
                                     SSD_CHUNK)[0],
+        "state_passed_without_decay": _ssd_by_chunks(
+            torch, ssm, x, dt, A, B, C, decay=False),
     }
     moves = {k: float((v - want).abs().max()) / scale
              for k, v in broken.items()}
@@ -1141,41 +1252,52 @@ def check_ssd_scan(torch, ssd, ref, ssm, timer, dev="cuda"):
                                              torch.float32)[1]:
             raise AssertionError(f"ssd_scan: the broken version {k} moves "
                                  f"y by only {v} x max |y|")
-    if not _ssd_err(torch, got, want, torch.float32)[1]:
-        raise AssertionError("ssd_scan: kernel off the plain chunked path")
+    if not _ssd_err(torch, got, want, torch.float32)[1] or not _ssd_err(
+            torch, _ssd_by_chunks(torch, ssm, x, dt, A, B, C), want,
+            torch.float32)[1]:
+        raise AssertionError("ssd_scan: kernel (or the chunk-by-chunk plain "
+                             "path) off the plain chunked path")
 
-    # timing at the serving path's largest prefill, bf16 as served
-    b, l = 4, 1024
-    x, dt, A, B, C = _ssd_inputs(torch, b, l, torch.bfloat16, seed=7,
-                                 dev=dev)
-    ms = timer(torch, lambda i: ssd.ssd_scan(x, dt, A, B, C,
-                                             chunk=SSD_CHUNK))
-    plain_ms = timer(torch, lambda i: ref.ssd_scan_ref(x, dt, A, B, C),
-                     iters=3, warmup=1)
-    chunked_ms = timer(torch, lambda i: ssm.ssd_chunked(x, dt, A, B, C,
-                                                        SSD_CHUNK),
-                       iters=5, warmup=1)
-    Q = min(SSD_CHUNK, l)
-    bound_ms, bound_by = _ssd_bound(b, l, SSD_H, SSD_P, SSD_N, Q, 2)
-    tc_ms, tc_by = _ssd_bound(b, l, SSD_H, SSD_P, SSD_N, Q, 2, "bfloat16")
+    # timing, bf16 as served; the row: the path's largest prefill
+    times = {}
+    for b, l in SSD_TIMED:
+        x, dt, A, B, C = _ssd_inputs(torch, b, l, torch.bfloat16, seed=7,
+                                     dev=dev)
+        Q = min(SSD_CHUNK, l)
+        row = {"ms": timer(torch, lambda i: ssd.ssd_scan(
+            x, dt, A, B, C, chunk=SSD_CHUNK)),
+            "chunked_path_ms": timer(torch, lambda i: ssm.ssd_chunked(
+                x, dt, A, B, C, SSD_CHUNK), iters=5, warmup=1),
+            "ops": _ssd_ops(b, l, SSD_H, SSD_P, SSD_N, Q)}
+        for rate in ("bfloat16", "float32"):
+            row[f"bound_ms_{rate}"], row[f"bound_by_{rate}"] = _ssd_bound(
+                b, l, SSD_H, SSD_P, SSD_N, Q, 2, rate)
+        if not times:
+            row["plain_ms"] = timer(torch, lambda i: ref.ssd_scan_ref(
+                x, dt, A, B, C), iters=3, warmup=1)
+        times[f"b={b} l={l}"] = row
+    first = next(iter(times.values()))
     return {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:69",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        "max_abs_err": worst, "ms": first["ms"],
+        "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms_bfloat16"],
+        "bound_by": first["bound_by_bfloat16"], "library_ms": None,
     }, {"errors": errs,
         "tolerance": f"{SSD_F32_REL} x max |y| (float32); plus one bf16 "
         f"step ({SSD_BF16_STEP} x |y|) for a bf16 y",
         "broken_moves_share_of_max_y": moves,
-        "row_shape": f"b={b} l={l} h={SSD_H} p={SSD_P} n={SSD_N} "
+        "row_shape": f"b=4 l=1024 h={SSD_H} p={SSD_P} n={SSD_N} "
         f"chunk={SSD_CHUNK}, bf16 x/B/C as strided views",
-        "ops": _ssd_ops(b, l, SSD_H, SSD_P, SSD_N, Q),
-        "bound_bf16_tensor_cores_ms": tc_ms,
-        "bound_bf16_tensor_cores_by": tc_by,
+        "timed": times,
+        "bound_note": "the row's bound is at the bf16 tensor-core rate, "
+        "where the bf16 instantiation runs its products; bound_ms_float32 "
+        "is a scan on the CUDA cores",
         "plain": "ref.ssd_scan_ref, the sequential recurrence",
-        "chunked_path_ms": chunked_ms,
-        "library_call": "none: no single PyTorch call computes the scan"}
+        "library_call": "none: no single PyTorch call computes the scan",
+        "ptxas_bf16": _ptxas_bf16(ssd.NAME)}
 
 
 # ---------------------------------------------------------------------------
@@ -1748,6 +1870,27 @@ def serve_spec_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
         draft_step_ms_int8=draft_step_ms(eng.spec.params), **bf16)
     fields["draft_step_profile_int8"] = _device_profile(
         torch, lambda: M.decode_step(dcfg, eng.spec.params, cache, tok, pos))
+    # one draft admission prefill of a full group: 4 rows padded to the
+    # bucket, M = 4 x DRAFT_BUCKET rows through each of the 7 x 8 int8
+    # projections (SpecDecoder.admit_group's call)
+    g = torch.Generator().manual_seed(5)
+    rows = torch.randint(0, cfg.vocab_size, (4, DRAFT_BUCKET), generator=g,
+                         dtype=torch.int32).to(dev)
+    true_len = torch.tensor([DRAFT_BUCKET, 400, 300, 200], dtype=torch.int32,
+                            device=dev)
+
+    def draft_prefill():
+        return M.prefill(dcfg, eng.spec.params, {"tokens": rows},
+                         SERVE["max_len"], true_len=true_len)
+    before = kernels["quant_matmul"].launches
+    draft_prefill()
+    fields.update(
+        draft_prefill_rows=[4, DRAFT_BUCKET],
+        draft_prefill_quant_matmul_launches=kernels["quant_matmul"].launches
+        - before,
+        draft_prefill_ms_int8=cuda_ms(torch, lambda i: draft_prefill(),
+                                      iters=5, warmup=1),
+        draft_prefill_profile_int8=_device_profile(torch, draft_prefill))
     return fields
 
 

@@ -59,6 +59,7 @@ KERNELS = {
     "ssd_scan": ("ssd_scan.cu", {
         "repro_ssd_scan": (
             [_P, _P, _P, _P, _P, _P, _P, _P,      # x dt A B C h0 y hout
+             _P,                                  # workspace
              _I, _I, _I, _I, _I, _I,              # batch L H P N Q
              _L, _L, _L, _L, _L, _L, _L, _L,      # x dt B C batch/row strides
              _I,                                  # dtype of x, B, C, y
@@ -76,10 +77,10 @@ KERNELS = {
     }),
     "quant_matmul": ("quant_matmul.cu", {
         "repro_quant_matmul": (
-            [_P, _P, _P, _P,                      # x wq scale out
+            [_P, _P, _P, _P, _P,                  # x, packed x, wq scale out
              _P, _P,                              # workspace, counters
              _I, _I, _I,                          # M K N
-             _I, _I, _I,                          # cols, splits, k_chunk
+             _I, _I, _I, _I,                      # rows cols splits k_chunk
              _I, _I,                              # x dtype, out dtype
              _P],                                 # stream
             _I),

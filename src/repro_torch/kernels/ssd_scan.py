@@ -3,17 +3,26 @@
 ``repro.kernels.ssd_scan.ssd_scan``).
 
 ``ssd_scan`` checks device, dtypes, shapes and strides, raises on
-anything the kernel does not take, allocates the outputs with
-``torch.empty`` and launches on PyTorch's current stream without
-synchronising.  It takes CUDA tensors only: ``kernels.ops`` routes CPU
-tensors to the plain version in ``kernels.ref``.  ``x``, ``dt``, ``B``
-and ``C`` are read through their batch and row strides (their last
-dimension, and x's head dimension, must be packed), so the model's
-strided views into the in_proj output, and slices of a longer sequence,
-go in without a copy.  ``launches`` counts the kernel
-launches made through this wrapper (reset it by assignment).
+anything the kernel does not take, allocates the outputs and a float32
+workspace with ``torch.empty`` and launches on PyTorch's current stream
+without synchronising.  It takes CUDA tensors only: ``kernels.ops``
+routes CPU tensors to the plain version in ``kernels.ref``.  ``x``,
+``dt``, ``B`` and ``C`` are read through their batch and row strides
+(their last dimension, and x's head dimension, must be packed), so the
+model's strided views into the in_proj output, and slices of a longer
+sequence, go in without a copy.  ``launches`` counts the calls that
+launched the kernel, one per call (a call is four CUDA launches: local
+states, the pass over chunks, the score tiles, y); reset it by
+assignment.
+
+``ssd_plan`` sizes the launches' shared memory and workspace from the
+shapes alone.
 """
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -22,17 +31,85 @@ from repro_torch.kernels import build, checks
 launches = 0
 
 NAME = "ssd_scan"
-MAX_HEAD_DIM = 64           # p: 4 column groups of the 16 x 16 threads
-MAX_STATE = 128             # n: 8 column groups
+MAX_HEAD_DIM = 64           # p: 4 warps x 16 rows
+MAX_STATE = 128             # n: 8 k steps of 16
 TILE = 64                   # rows of a chunk tile
+STATE_SLICE = 64            # state columns of a local-state block
 
 
-def shared_bytes(p: int, n: int, Q: int) -> int:
-    """Dynamic shared memory of one block: the (p, n) state, the C and B
-    row tiles, the x tile and the score tile (rows padded by one float),
-    the chunk's dt and cumsum, and the tile's row scales."""
-    return 4 * (p * (n + 1) + 2 * TILE * (n + 1) + TILE * (p + 1)
-                + TILE * (TILE + 1) + 2 * Q + TILE)
+def _pieces(dtype) -> tuple:
+    """(bf16 pieces of a float32 operand, of an input x / B / C): the
+    bf16 instantiation takes hi + lo and the inputs as they are; the
+    float32 one three pieces of everything."""
+    return (2, 1) if dtype == torch.bfloat16 else (3, 3)
+
+
+def _pad16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def state_smem(p: int, n: int, Q: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of a local-state block: the scaled x tile and the B
+    tile (64 rows, bf16 pieces, rows padded by 8), the chunk's dt and
+    cumsum, a tile's row weights and the scan's warp sums
+    (``csrc/ssd_scan.cu::state_smem``)."""
+    nd, ni = _pieces(dtype)
+    n16 = _pad16(min(n, STATE_SLICE))
+    return (2 * (nd * TILE * (_pad16(p) + 8) + ni * TILE * (n16 + 8))
+            + 4 * (2 * Q + TILE + 8))
+
+
+def score_smem(n: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of a score block: a C and a B tile
+    (``csrc/ssd_scan.cu::score_smem``)."""
+    return 2 * 2 * _pieces(dtype)[1] * TILE * (_pad16(n) + 8)
+
+
+def out_smem(p: int, n: int, dtype=torch.bfloat16) -> int:
+    """Shared memory of an output block: the C tile, then the larger of
+    the carried state (inter term) and the x tile, and the rows' cumsums
+    and dt (``csrc/ssd_scan.cu::out_smem``)."""
+    nd, ni = _pieces(dtype)
+    p16, n16 = _pad16(p), _pad16(n)
+    c_tile = ni * TILE * (n16 + 8)
+    keys = ni * TILE * (p16 + 8)
+    return 2 * (c_tile + max(nd * p16 * (n16 + 8), keys)) + 4 * 3 * TILE
+
+
+def shared_bytes(p: int, n: int, Q: int, dtype=torch.bfloat16) -> int:
+    """The most shared memory any block of a call takes: the chunk's dt
+    and cumsum grow with Q."""
+    return max(state_smem(p, n, Q, dtype), score_smem(n, dtype),
+               out_smem(p, n, dtype))
+
+
+class SsdPlan(NamedTuple):
+    chunks: int             # nc = ceil(l / Q)
+    row_tiles: int          # T = ceil(Q / 64) tiles of a chunk
+    state_smem: int
+    score_smem: int
+    out_smem: int
+    workspace: int          # float32: b x nc x (h (p n + Q + 1) + pairs 4096)
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(b: int, l: int, h: int, p: int, n: int, Q: int,
+             dtype=torch.bfloat16) -> SsdPlan:
+    """The shared memory of the four launches over a scan of chunk ``Q``
+    and their float32 workspace: shapes only.
+
+    The launches' grids (``csrc/ssd_scan.cu::launch``): local states, a
+    block per (b, chunk, head, 64 state columns); the pass, a thread per
+    (b, h, state element); scores, a block per (b, chunk, pair of 64-row
+    tiles j <= i), C B^T once for every head; output, a block per (b,
+    chunk, 64-row tile, head): at mamba2-370m's width that is 512 blocks
+    for one row of 1024 positions, about four an SM."""
+    nc = math.ceil(l / Q)
+    tiles = math.ceil(Q / TILE)
+    pairs = tiles * (tiles + 1) // 2
+    return SsdPlan(nc, tiles, state_smem(p, n, Q, dtype),
+                   score_smem(n, dtype), out_smem(p, n, dtype),
+                   b * nc * (h * (p * n + Q + 1) + pairs * TILE * TILE))
 
 
 def _check(x, dt, A, B, C, h0, chunk):
@@ -76,7 +153,7 @@ def _check(x, dt, A, B, C, h0, chunk):
                          f"state {n} (1..{MAX_STATE}) out of range")
     if chunk < 1:
         raise ValueError(f"{NAME}: chunk must be >= 1, got {chunk}")
-    checks.shared_memory(NAME, shared_bytes(p, n, min(chunk, max(l, 1))))
+    return b, l, h, p, n
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, h0=None):
@@ -85,28 +162,32 @@ def ssd_scan(x, dt, A, B, C, *, chunk: int = 128, h0=None):
     x (b, l, h, p) float32/bfloat16; dt (b, l, h) float32 post-softplus;
     A (h,) float32 negative; B, C (b, l, n) in x's dtype, one group shared
     by every head; h0 (b, h, p, n) float32 or None.  Chunks of
-    ``Q = min(chunk, l)`` positions run in order with the float32 state
-    carried; a ragged tail is a no-op pad.  Returns (y (b, l, h, p) in
-    x's dtype, final state (b, h, p, n) float32).
+    ``Q = min(chunk, l)`` positions: their local states in parallel, the
+    float32 state passed from chunk to chunk, then y in parallel; a
+    ragged tail is a no-op pad.  Returns (y (b, l, h, p) in x's dtype,
+    final state (b, h, p, n) float32).
     """
     global launches
-    _check(x, dt, A, B, C, h0, chunk)
-    b, l, h, p = x.shape
-    n = B.shape[2]
+    b, l, h, p, n = _check(x, dt, A, B, C, h0, chunk)
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
     if b == 0 or h == 0 or l == 0:
         hout = (h0.clone() if h0 is not None else
                 torch.zeros((b, h, p, n), dtype=torch.float32,
                             device=x.device))
         return y, hout
+    Q = min(chunk, l)
+    plan = ssd_plan(b, l, h, p, n, Q, x.dtype)
+    for smem in (plan.state_smem, plan.score_smem, plan.out_smem):
+        checks.shared_memory(NAME, smem)
     hout = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=x.device)
     lib = build.load(NAME)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.repro_ssd_scan(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), None if h0 is None else h0.data_ptr(),
-            y.data_ptr(), hout.data_ptr(), b, l, h, p, n, min(chunk, l),
+            y.data_ptr(), hout.data_ptr(), ws.data_ptr(), b, l, h, p, n, Q,
             x.stride(0), x.stride(1), dt.stride(0), dt.stride(1),
             B.stride(0), B.stride(1), C.stride(0), C.stride(1),
             checks.DTYPE_CODES[x.dtype], stream)

@@ -553,6 +553,78 @@ def test_quant_matmul_gemv_plan(M, K, N, decode):
         assert plan.splits == -(-K // lanes)
 
 
+# (M, K, N): the draft's prefill rows against phi3-medium-14b's four
+# projections, a ragged K and N, and M just past the one-pass kernel
+MMA_SHAPES = [(M, K, N) for M in (9, 16, 64, 300, 512, 2048)
+              for K, N in ((5120, 17920), (5120, 5120), (5120, 1280),
+                           (17920, 5120))] + [(130, 96, 8), (65, 5000, 72),
+                                              (200, 100, 1280)]
+
+
+def _mma_blocks(plan, M, K, N):
+    """(m0, n0, k_begin, k_end) of every block of an M > 8 plan, in
+    launch order, as ``csrc/quant_matmul.cu``'s kernel decodes its block
+    index (row blocks fastest, then column blocks, then slices of K)."""
+    m_blocks = -(-M // plan.rows)
+    out = []
+    for split in range(plan.splits):
+        k0 = split * plan.k_chunk
+        for t in range(plan.tiles):
+            out.append(((t % m_blocks) * plan.rows, (t // m_blocks) *
+                        plan.cols, k0, min(K, k0 + plan.k_chunk)))
+    return out
+
+
+@pytest.mark.parametrize("M,K,N", MMA_SHAPES,
+                         ids=[f"{m}x{k}x{n}" for m, k, n in MMA_SHAPES])
+def test_quant_matmul_mma_plan_covers_each_tile_once(M, K, N):
+    """The M > 8 kernel's plan on a 132-SM card: 64-row tiles up to 64
+    rows, 128- or 256-row ones above, K split only for 64-row tiles;
+    slices of whole 64-row K steps; its blocks (decoded as the kernel
+    decodes its block index) cover every output tile once and, within a
+    tile, every k once; a workspace of splits x M x N partials and one
+    counter a tile when K is split; the block's shared memory fits."""
+    plan = qm.mma_plan(M, K, N, 132)
+    assert (plan.rows == 64) == (M <= 64)
+    assert plan.splits == 1 or plan.rows == 64
+    assert (plan.rows, plan.cols) in qm.MMA_TILES
+    assert plan.k_chunk % qm.MMA_BK == 0
+    assert (plan.splits - 1) * plan.k_chunk < K <= plan.splits * plan.k_chunk
+    assert plan.tiles == -(-M // plan.rows) * -(-N // plan.cols)
+    assert plan.blocks == plan.tiles * plan.splits
+    assert plan.workspace == (plan.splits * M * N if plan.splits > 1 else 0)
+    assert plan.smem == qm.mma_smem(plan.rows, plan.cols) <= checks.SMEM_LIMIT
+    spans = {}
+    for m0, n0, k0, k1 in _mma_blocks(plan, M, K, N):
+        assert m0 % plan.rows == 0 and n0 % plan.cols == 0
+        assert 0 <= m0 < M and 0 <= n0 < N and 0 <= k0 < k1 <= K
+        spans.setdefault((m0, n0), []).append((k0, k1))
+    assert len(spans) == plan.tiles
+    for ranges in spans.values():
+        ranges.sort()
+        assert ranges[0][0] == 0 and ranges[-1][1] == K
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+def test_quant_matmul_mma_plan_follows_the_timed_choices():
+    """The plan's rules are the H100 timings' choices: up to 64 rows
+    (bound by the weight bytes) K is split until every SM has a block;
+    from 512 rows the wide projections take 256 x 128 tiles unsplit, and
+    the narrow wk / wv at 512 rows 128 x 128 (40 tiles beat 20 of 256
+    rows and every split); 300 rows pad to 384 in 128-row tiles, not to
+    512."""
+    for M in (9, 16, 64):
+        for K, N in ((5120, 17920), (5120, 5120), (5120, 1280),
+                     (17920, 5120)):
+            assert qm.mma_plan(M, K, N, 132).blocks >= 132
+    for M in (512, 2048):
+        for K, N in ((5120, 17920), (5120, 5120), (17920, 5120)):
+            plan = qm.mma_plan(M, K, N, 132)
+            assert (plan.rows, plan.cols, plan.splits) == (256, 128, 1)
+    assert qm.mma_plan(512, 5120, 1280, 132)[:3] == (128, 128, 1)
+    assert qm.mma_plan(300, 5120, 5120, 132).rows == 128
+
+
 def test_quant_matmul_counters_are_kept_per_stream():
     """Split calls on two streams may run at once, so each (device,
     stream) gets its own zeroed column-block counters; a stream's
@@ -604,11 +676,84 @@ def test_ssd_scan_cpu_tensors_dispatch_to_plain_version():
 @pytest.mark.parametrize("p,n,Q,fits", [(64, 128, 256, True),
                                         (32, 16, 256, True),
                                         (64, 128, 1024, True),
-                                        (64, 128, 16384, False)])
+                                        (64, 128, 32768, False)])
 def test_ssd_scan_shared_memory(p, n, Q, fits):
     """mamba2-370m's full width at its chunk of 256 fits a block; the
     chunk's dt and cumsum grow with Q, so a huge chunk does not."""
     assert (ssd.shared_bytes(p, n, Q) <= checks.SMEM_LIMIT) == fits
+
+
+# (b, l, h, p, n, Q): mamba2-370m's prefills (4 x 1024, one row, the
+# path's max_len 2048), zamba2-7b's state width, a head count no group
+# divides, a ragged chunk and tail
+SSD_PLANS = [(4, 1024, 32, 64, 128, 256), (1, 1024, 32, 64, 128, 256),
+             (4, 2048, 32, 64, 128, 256), (4, 1024, 32, 64, 64, 256),
+             (4, 1000, 30, 64, 128, 256), (2, 70, 8, 32, 16, 16),
+             (3, 5, 8, 32, 16, 5), (1, 600, 7, 24, 40, 100)]
+
+
+def _ssd_grids(b, l, h, n, Q):
+    """Blocks of the local-state, score and output launches, as
+    ``csrc/ssd_scan.cu::launch`` sizes their grids."""
+    nc, T = -(-l // Q), -(-Q // ssd.TILE)
+    return (b * nc * h * -(-n // ssd.STATE_SLICE), b * nc * T * (T + 1) // 2,
+            b * nc * T * h)
+
+
+def _ssd_out_blocks(b, l, h, Q):
+    """(row b, chunk, first position, end position, head) of every
+    output block that holds positions, as the output kernel decodes its
+    block index (head, chunk x row tile, row)."""
+    nc, T = -(-l // Q), -(-Q // ssd.TILE)
+    out = []
+    for bi in range(b):
+        for y in range(nc * T):
+            c, it = divmod(y, T)
+            t0, i0 = c * Q, it * ssd.TILE
+            qv = min(Q, l - t0)
+            if i0 >= qv:
+                continue
+            for head in range(h):
+                out.append((bi, c, t0 + i0, t0 + min(i0 + ssd.TILE, qv),
+                            head))
+    return out
+
+
+@pytest.mark.parametrize("b,l,h,p,n,Q", SSD_PLANS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_ssd_plan_covers_each_position_once(b, l, h, p, n, Q, dtype):
+    """The four launches: the output blocks that hold positions (decoded
+    as the kernel decodes its block index) cover every (row, position,
+    head) exactly once, in 64-row tiles that stay inside their chunk;
+    the plan's shared memory of every block fits; its workspace holds a
+    state per (b, chunk, head), the chunks' cumsums and totals, and the
+    score tiles of every tile pair j <= i."""
+    plan = ssd.ssd_plan(b, l, h, p, n, Q, dtype)
+    nc = -(-l // Q)
+    assert plan.chunks == nc and plan.row_tiles == -(-Q // ssd.TILE)
+    T = plan.row_tiles
+    assert max(plan.state_smem, plan.score_smem,
+               plan.out_smem) <= checks.SMEM_LIMIT
+    assert plan.workspace == b * nc * (h * (p * n + Q + 1)
+                                       + T * (T + 1) // 2 * 64 * 64)
+    seen = np.zeros((b, l, h), np.int32)
+    for bi, c, i0, i1, head in _ssd_out_blocks(b, l, h, Q):
+        assert c * Q <= i0 < i1 <= min(l, (c + 1) * Q) and i1 - i0 <= ssd.TILE
+        seen[bi, i0:i1, head] += 1
+    assert (seen == 1).all()
+
+
+def test_ssd_plan_fills_the_card():
+    """At mamba2-370m's served prefills every SM of a 132-SM card gets two
+    output blocks or more, and at least one local-state block, even for a
+    single row; the score tiles are computed once per (b, chunk), not per
+    head."""
+    for b in (1, 4):
+        state_blocks, score_blocks, out_blocks = _ssd_grids(b, 1024, 32,
+                                                            128, 256)
+        assert out_blocks >= 2 * 132 and state_blocks >= 132
+        assert score_blocks == b * 4 * 10       # 4 chunks, 10 tile pairs
 
 
 # ---------------------------------------------------------------------------

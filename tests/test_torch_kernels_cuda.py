@@ -543,6 +543,68 @@ def test_quant_matmul_gemv_is_bitwise_repeatable(device, M, K, N):
     assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
 
 
+# the draft's prefill rows (up to 4 prompts padded to a power-of-two
+# bucket) against phi3-medium-14b's projections: the M > 8 kernel
+PREFILL_M = [9, 16, 64, 300, 2048]
+
+
+@pytest.mark.parametrize("K,N", QM_DECODE[:4], ids=[f"{k}x{n}" for k, n in
+                                                      QM_DECODE[:4]])
+@pytest.mark.parametrize("M", PREFILL_M)
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_quant_matmul_prefill_shapes(device, M, K, N, x_dtype):
+    """The M > 8 kernel at the draft's prefill rows on its plan's tile
+    (64 rows with K split up to 64 rows, 128 or 256 above)."""
+    x, wq, scale = _qm_case(device, M, K, N, x_dtype, seed=M + N)
+    out = qm.quant_matmul(x, wq, scale, out_dtype=x_dtype)
+    torch.cuda.synchronize()
+    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+    torch.testing.assert_close(out.float(), exp, **QM_TOL[x_dtype])
+
+
+# per tile of the M > 8 kernel, shapes its plan maps to that tile on a
+# 132-SM card (64-row tiles split K) with the edges the projections do
+# not reach: K not a multiple of 64 (a split's last slice shorter), weight
+# rows not 16-byte vectors, x rows not 16-byte vectors
+PREFILL_TILE_CASES = {
+    (256, 128): [(512, 1000, 5120), (512, 1024, 5000), (512, 100, 5120)],
+    (128, 256): [(300, 1000, 11264), (300, 1024, 11272), (300, 100, 11264)],
+    (128, 128): [(300, 1000, 1280), (300, 1024, 1288), (130, 100, 1280)],
+    (64, 256): [(40, 1000, 4096), (40, 1024, 4104), (40, 100, 4096)],
+    (64, 128): [(40, 1000, 1280), (40, 200, 72), (40, 100, 1280)]}
+
+
+@pytest.mark.parametrize("tile,M,K,N", [
+    (tile, *shape) for tile, shapes in PREFILL_TILE_CASES.items()
+    for shape in shapes], ids=[
+    f"{t[0]}x{t[1]}-{edge}" for t in PREFILL_TILE_CASES
+    for edge in ("ragged-K", "N%16", "K%8")])
+def test_quant_matmul_every_prefill_tile(device, tile, M, K, N):
+    """Every tile of the M > 8 kernel, reached through the shapes
+    ``mma_plan`` gives it, on the edges the projections do not reach,
+    split and unsplit."""
+    plan = qm.mma_plan(M, K, N, _sms(device))
+    assert (plan.rows, plan.cols) == tile
+    x, wq, scale = _qm_case(device, M, K, N, torch.float32, seed=K + N)
+    out = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+    torch.testing.assert_close(out, exp, **QM_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("M,K,N", [(512, 5120, 17920), (512, 5120, 1280),
+                                   (64, 17920, 5120), (16, 5120, 1280)])
+def test_quant_matmul_prefill_is_bitwise_repeatable(device, M, K, N):
+    """Two calls of the M > 8 kernel give the same bits, K split (its
+    partials summed in split order) or not."""
+    x, wq, scale = _qm_case(device, M, K, N, torch.bfloat16, seed=4)
+    outs = [qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_quant_matmul_wrapper_rejects_bad_arguments(device):
     x, wq, scale = _qm_case(device, 4, 64, 72, torch.float32)
     call = qm.quant_matmul
@@ -588,7 +650,12 @@ def _ssd_close(got, want):
 @pytest.mark.parametrize("b,l,h,p,n,chunk", [
     (1, 16, 32, 64, 128, 256), (4, 300, 32, 64, 128, 256),
     (2, 1024, 32, 64, 128, 256), (2, 70, 8, 32, 16, 16),
-    (3, 5, 8, 32, 16, 256), (1, 200, 3, 24, 40, 64)])
+    (3, 5, 8, 32, 16, 256), (1, 200, 3, 24, 40, 64),
+    (4, 2048, 32, 64, 128, 256),   # the path's max_len: 8 chunks
+    (1, 1024, 32, 64, 128, 256),   # one row
+    (2, 1024, 112, 64, 64, 256),   # zamba2-7b's width
+    (4, 1000, 30, 64, 128, 256),   # 30 heads, a ragged tail
+    (1, 600, 7, 64, 128, 100)])    # a chunk no 64-row tile divides
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_ssd_scan_matches_plain_chunked_path(device, b, l, h, p, n, chunk,

@@ -112,6 +112,125 @@ def test_ssd_scan_ref_initial_state_continues_the_sequence():
     _close(h2, hj, rtol=1e-3, atol=1e-3)
 
 
+def _bf16_pieces(t, pieces: int):
+    """What the sum of ``pieces`` bfloat16 pieces of float32 ``t`` holds
+    (hi, then the bf16 of each remainder), as the kernel splits a float32
+    operand for the tensor cores."""
+    out = torch.zeros_like(t, dtype=torch.float32)
+    rest = t.float()
+    for _ in range(pieces):
+        piece = rest.to(torch.bfloat16).float()
+        out = out + piece
+        rest = rest - piece
+    return out
+
+
+def _chunk_parallel_reference(x, dt, A, B, C, chunk: int, h0=None,
+                              pieces: int = 0):
+    """The CUDA kernel's decomposition (``csrc/ssd_scan.cu``) in plain
+    PyTorch, float32: per (b, chunk) the cumsum of dt A, the score
+    product C B^T once for every head, each head's local end state
+    sum_j (x_j dt_j exp(last - cums_j)) (x) B_j; the states passed in
+    chunk order from ``h0``; then y = the inter term exp(cums_i) C_i
+    state^T + the intra term (the masked, decayed, dt-scaled scores
+    times x).  ``pieces`` > 0 replaces each float32 operand of a product
+    (the scaled x, the carried state, the decayed scores) by the sum of
+    that many bf16 pieces, as the bf16 instantiation computes them.
+    Returns (y in x's dtype, final state float32)."""
+    b, l, h, p = x.shape
+    n = B.shape[-1]
+    Q = min(chunk, l)
+    nc = -(-l // Q)
+    pad = nc * Q - l
+
+    def chunks(t):
+        t = t.float()
+        t = torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.reshape(b, nc, Q, *t.shape[2:])
+
+    def sp(t):
+        return _bf16_pieces(t, pieces) if pieces else t
+    xc, dtc, Bc, Cc = chunks(x), chunks(dt), chunks(B), chunks(C)
+    cums = torch.cumsum(dtc * A.float(), dim=2)               # (b,nc,Q,h)
+    last = cums[:, :, -1]                                      # (b,nc,h)
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)           # once
+    w = dtc * torch.exp(last[:, :, None] - cums)
+    local = torch.einsum("bcjhp,bcjn->bchpn", sp(xc * w[..., None]), Bc)
+    s = (h0.float() if h0 is not None
+         else torch.zeros((b, h, p, n), dtype=torch.float32))
+    entering = []
+    for c in range(nc):
+        entering.append(s)
+        s = torch.exp(last[:, c])[..., None, None] * s + local[:, c]
+    state = torch.stack(entering, dim=1)                       # (b,nc,h,p,n)
+    inter = torch.exp(cums)[..., None] * torch.einsum(
+        "bcin,bchpn->bcihp", Cc, sp(state))
+    seg = cums[:, :, :, None, :] - cums[:, :, None, :, :]     # (b,nc,i,j,h)
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool))[None, None, :,
+                                                            :, None]
+    decay = torch.where(mask, torch.exp(torch.where(mask, seg, 0.0)), 0.0)
+    scaled = sp(scores[..., None] * decay * dtc[:, :, None])   # (b,nc,i,j,h)
+    intra = torch.einsum("bcijh,bcjhp->bcihp", scaled, xc)
+    y = (inter + intra).reshape(b, nc * Q, h, p)[:, :l]
+    return y.to(x.dtype), s
+
+
+@pytest.mark.parametrize("l,h,p,n,chunk", SWEEP + [(70, 3, 24, 40, 32)])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+def test_chunk_parallel_decomposition_matches_jax(l, h, p, n, chunk,
+                                                  with_h0):
+    """The kernel's chunk-parallel decomposition in plain PyTorch
+    (``_chunk_parallel_reference``: C B^T once per (b, chunk),
+    local states, the pass from h0, inter + intra) at float32 against
+    the plain version, JAX's oracle and the Pallas kernel in interpret
+    mode, ragged tails and an initial state included."""
+    x, dt, A, B, C, H0 = _scan_inputs(l + 3 * h, 2, l, h, p, n, h0=with_h0)
+    t = [_t(a) for a in (x, dt, A, B, C)]
+    h0 = _t(H0) if with_h0 else None
+    y, hf = _chunk_parallel_reference(*t, chunk, h0=h0)
+    yr, hr = ref.ssd_scan_ref(*t, h0=h0)
+    torch.testing.assert_close(y, yr, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(hf, hr, rtol=1e-4, atol=1e-4)
+    j = list(map(jnp.asarray, (x, dt, A, B, C)))
+    jh0 = jnp.asarray(H0) if with_h0 else None
+    yj, hj = jax_ref.ssd_scan_ref(*j, h0=jh0)
+    _close(y, yj, rtol=1e-4, atol=1e-4)
+    _close(hf, hj, rtol=1e-4, atol=1e-4)
+    yk, hk = jax_ops.ssd_scan(*j, chunk=chunk, h0=jh0)
+    _close(y, yk, rtol=1e-3, atol=1e-3)
+    _close(hf, hk, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("l", [300, 512])
+def test_bf16_pieces_hold_the_float32_tolerance(l):
+    """The bf16 instantiation's arithmetic, modelled: x, B and C in
+    bf16 (one piece each), every float32 operand of a product (the
+    scaled x, the carried state, the decayed scores) as hi + lo bf16
+    pieces.  At mamba2-370m's width and chunk (h=32, p=64, n=128,
+    Q=256) and chip_smoke's input scale it stays within the card
+    checks' float32 tolerance, 1e-4 x max |y| of the plain chunked path
+    (states within 1e-4 x max |state|); one piece alone (plain bf16
+    operands) does not."""
+    g = torch.Generator().manual_seed(l)
+    h, p, n = 32, 64, 128
+    x = torch.randn((1, l, h, p), generator=g).to(torch.bfloat16).float()
+    B, C = [(torch.randn((1, l, n), generator=g) * n ** -0.5)
+            .to(torch.bfloat16).float() for _ in range(2)]
+    dt = torch.rand((1, l, h), generator=g) * 0.02 + 0.001
+    A = -(torch.rand((h,), generator=g) * 1.5 + 0.5)
+    h0 = torch.randn((1, h, p, n), generator=g) * 0.1
+    want, want_h = S.ssd_chunked(x, dt, A, B, C, 256, h0=h0)
+    errs = {}
+    for pieces in (1, 2):
+        y, hf = _chunk_parallel_reference(x, dt, A, B, C, 256, h0=h0,
+                                          pieces=pieces)
+        errs[pieces] = (float((y - want).abs().max() / want.abs().max()),
+                        float((hf - want_h).abs().max()
+                              / want_h.abs().max()))
+    assert max(errs[2]) <= 1e-4, errs
+    assert max(errs[1]) > 1e-4, errs
+
+
 @pytest.mark.parametrize("use_kernel", [False, True], ids=["plain", "kernel"])
 def test_ssd_chunked_matches_jax(use_kernel):
     """The plain chunked branch and the ``use_kernel`` branch (the plain
