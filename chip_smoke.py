@@ -23,10 +23,13 @@ non-zero without printing a result:
               that empties a split, two calls bitwise equal, and a
               plain merge without the last split's partial shown to
               fall outside the tolerance; gemma3-1b's global-layer shape
-              (H=4, K=1, hd=256); the decode read timed at the serving
-              shape, at 4 rows x 4096 tokens (8 pools, 670 MB) and at
-              the gemma shape, beside SDPA with the gather timed and
-              without; both reads' bf16 ptxas lines.
+              (H=4, K=1, hd=256) and the shapes gemma's serving gives
+              them (128-page tables; 16-token int8 catch-up waves); the
+              decode read timed at the serving shape, at 4 rows x 4096
+              tokens (8 pools, 670 MB), at the gemma shape and at its
+              served shape, beside SDPA with the gather timed and
+              without; the extend read timed at the serving shape and at
+              gemma's served chunk; both reads' bf16 ptxas lines.
               ``quant_matmul`` at the draft's decode shapes (M=4
               against every projection of a phi3-medium-14b layer), a
               ragged one and one whose K is too short to split; its
@@ -124,7 +127,26 @@ non-zero without printing a result:
               identical inputs within 2**-6 x max |o|; ``flash_attention``
               launches == 26 x forwards through it; one bf16 loss
               forward each way timed.
-13. reference — the phi3 smoke config at float32: the engine on the card
+13. serve_gemma — the sixth main path: gemma3-1b at full width and
+              depth (26 layers: 4 super-blocks of 5 local + 1 global and
+              2 remainder local layers, bf16 weights from a seeded
+              generator, ~2 GB) through ``launch.serve.build_engine`` on
+              a bf16 pool: local layers on dense rings of 512 per slot,
+              global layers on the pages; buckets to 512, catch-up chunk
+              16, 8 greedy requests of 16-1000 prompt tokens x 32 new
+              tokens, at least one past the largest bucket and the window
+              (its catch-up extend waves wrap the rings).  Every global
+              layer of every decode wave reads through
+              ``paged_attention`` (4 x decode waves), nothing through the
+              extend kernel.  Times and profiles one decode wave.
+14. serve_gemma_int8 — the same model and traffic on an int8 pool (the
+              rings stay bf16): ``paged_attention`` == 4 x decode waves,
+              ``paged_extend_attention`` == 4 x extend waves.
+15. reference_gemma — the gemma3-1b smoke config at float32 (window
+              16), prompts of 20-150 tokens: the engine on the card and on
+              the CPU emit the same greedy tokens on a float pool and
+              meet the int8 gate on an int8 pool, both kernels launched.
+16. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -273,6 +295,16 @@ LOGIT_F32_REL = 1e-4
 # moves an output by a large share of its size
 LAYER_BF16_REL = 2 ** -6
 SPEC = dict(spec_decode=True, spec_gamma=4, quant_draft=True)
+# the sixth path: gemma3-1b served, its 20 local layers on dense rings of
+# W = 512 per slot beside 4 global layers on the page pool; prompts past
+# the largest bucket (512 = W) catch up in 16-token extend waves, so the
+# rings wrap.  16 is also as wide as the int8 extend read's shared memory
+# stays on the tensor cores at 4 query heads over 1 kv head, hd 256
+GEMMA_ARCH = "gemma3-1b"
+GEMMA_SERVE = dict(max_slots=4, max_len=2048, policy="priority",
+                   prefill_buckets=(16, 32, 64, 128, 256, 512),
+                   catch_chunk=16)
+GEMMA_TRAFFIC = (8, 16, 1000, 32)             # requests, prompts, new
 # kernel vs gather read of the whole 40-layer model, as a share of
 # max |logit|: at float32 activations only the summation order differs;
 # at bf16 the gather path also rounds its probabilities to bf16, and
@@ -652,6 +684,28 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
                                 256 ** -0.5, dev)
     del q, kp, vp
 
+    # gemma3-1b's served decode waves: 128-page tables (max_len 2048) at
+    # its traffic's lengths (prompts 16-1000 plus 32 new tokens), bf16
+    # pages timed (16 pools cycled), int8 pages under bf16 queries held
+    served = dict(B=4, H=4, K=1, hd=256, n_blk=128)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    served_len = torch.randint(17, 1000 + 32 + 1, (4,), generator=g)
+    q, kp, vp, bt, ln, _ = _paged_inputs(torch, torch.bfloat16, layers=16,
+                                         lengths=served_len, seed=33,
+                                         dev=dev, **served)
+    held("bfloat16", "gemma3 served", q, kp[0], vp[0], bt, ln,
+         scale=256 ** -0.5)
+    timed_served = _decode_times(torch, pa, ref, timer, q, kp, vp, bt, ln,
+                                 256 ** -0.5, dev)
+    del q, kp, vp
+    q, kp, vp, bt, ln, sc = _paged_inputs(torch, torch.int8,
+                                          q_dtype=torch.bfloat16,
+                                          lengths=served_len, seed=34,
+                                          dev=dev, **served)
+    held("bfloat16", "gemma3 served int8", q, kp[0], vp[0], bt, ln,
+         scale=256 ** -0.5, **{k: v[0] for k, v in sc.items()})
+    del q, kp, vp
+
     # 4 rows of 4096 tokens (phi3-medium-4k's window), 8 pools (670 MB)
     q, kp, vp, bt, ln, _ = _paged_inputs(torch, torch.bfloat16, layers=8,
                                          n_blk=256, lengths=[4096] * 4,
@@ -685,7 +739,8 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
     }, {"errors": errs, "tolerance": TOL, "softcap50_moves": moves,
         "plan_serve": plan._asdict(),
         "broken_merge_without_last_split_err": boundary,
-        "timed": {"serve": row, "long": timed_long, "gemma3": timed_gemma},
+        "timed": {"serve": row, "long": timed_long, "gemma3": timed_gemma,
+                  "gemma3_served": timed_served},
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
         "over K/V gathered inside the timed call (library_ms); "
         "library_ms_gather_excluded gathers beforehand",
@@ -737,13 +792,80 @@ def _extend_bound(torch, q, kp, kn, bt, pos, scales):
     return _roofline(nbytes, 4 * hd * pairs, kp.dtype)
 
 
+def _extend_times(torch, pea, ref, timer, q, kp, vp, kn, vn, bt, pos, sc,
+                  scale):
+    """Device ms of the extend kernel (bf16 q over int8 pages), its plain
+    version and the library yardstick (never called by the port: gather
+    and dequantize the context, then SDPA over context + suffix with a
+    boolean mask) on a layer-deep pool cycled per call, the kernel held
+    to the bf16 tolerance, and the bound."""
+    import torch.nn.functional as F
+    ks, vs = sc["k_scale"], sc["v_scale"]
+    L = kp.shape[0]
+    B, S, H, hd = q.shape
+    K, bs = kp.shape[-2], kp.shape[2]
+
+    def kernel(i):
+        return pea.paged_extend_attention(q, kp[i % L], vp[i % L], kn, vn,
+                                          bt, pos, scale=scale,
+                                          k_scale=ks[i % L],
+                                          v_scale=vs[i % L])
+    ms = timer(torch, kernel)
+    plain_ms = timer(torch, lambda i: ref.paged_extend_attention_ref(
+        q, kp[i % L], vp[i % L], kn, vn, bt, pos, scale=scale,
+        k_scale=ks[i % L], v_scale=vs[i % L]), iters=20, warmup=3)
+
+    btc = bt.clamp(min=0).long()
+    n_ctx = bt.shape[1] * bs
+    t = torch.arange(n_ctx, device=q.device)
+    ctx_ok = (t[None, :] < pos[:, None]) \
+        & torch.repeat_interleave(bt >= 0, bs, dim=1)
+    i = torch.arange(S, device=q.device)
+    mask = torch.cat([ctx_ok[:, None, :].expand(B, S, n_ctx),
+                      (i[None, :] <= i[:, None])[None].expand(B, S, S)],
+                     dim=-1)[:, None]                       # (B,1,S,T)
+    qt = q.transpose(1, 2)
+
+    def library(j):
+        l = j % L
+        kg = (kp[l][btc].float() * ks[l][btc][..., None]).to(q.dtype)
+        vg = (vp[l][btc].float() * vs[l][btc][..., None]).to(q.dtype)
+        k_all = torch.cat([kg.reshape(B, n_ctx, K, hd), kn], dim=1)
+        v_all = torch.cat([vg.reshape(B, n_ctx, K, hd), vn], dim=1)
+        return F.scaled_dot_product_attention(
+            qt, k_all.transpose(1, 2), v_all.transpose(1, 2),
+            attn_mask=mask, scale=scale, enable_gqa=True).transpose(1, 2)
+    exp = ref.paged_extend_attention_ref(
+        q.float(), kp[0], vp[0], kn.float(), vn.float(), bt, pos,
+        scale=scale, k_scale=ks[0], v_scale=vs[0])
+    lib_err = float((library(0).float() - exp).abs().max())
+    out = kernel(0).float()
+    kernel_err = float((out - exp).abs().max())
+    if not torch.allclose(out, exp, **TOL["bfloat16"]):
+        raise AssertionError(f"paged_extend_attention timed case (bf16 q, "
+                             f"int8 pages, {B} x {S} x {H} heads, hd {hd}): "
+                             f"max abs err {kernel_err} beyond tolerance "
+                             f"{TOL['bfloat16']}")
+    library_ms = timer(torch, library)
+    sc0 = {k: v[0] for k, v in sc.items()}
+    bound_ms, bound_by = _extend_bound(torch, q, kp[0], kn, bt, pos, sc0)
+    plan = pea.paged_plan(B, K, H // K, S, bt.shape[1], bs, hd, kp.dtype,
+                          q.dtype, _sms(torch, q.device), suffix=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "kernel_max_abs_err": kernel_err, "library_max_abs_err": lib_err,
+            "pos": [int(x) for x in pos.tolist()], "pools": L,
+            "plan": plan._asdict(),
+            "shape": f"B={B} S={S} H={H} K={K} hd={hd} bs={bs} "
+            f"n_blk={bt.shape[1]} int8"}
+
+
 def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
     """Hold the extend kernel against its plain version on every case, on
     the split plan's boundaries and at gemma3-1b's global-layer shape;
     two calls bitwise equal; a merge that drops the last split's partial
     outside the tolerance; time the kernel (and its plain version and a
     library call) at the serving path's shapes."""
-    import torch.nn.functional as F
     errs, moves = {}, {}
     worst = 0.0
 
@@ -826,70 +948,39 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
     q, kp, vp, kn, vn, bt, pos, sc = _extend_inputs(
         torch, torch.int8, q_dtype=torch.bfloat16, layers=40, S=S, pos=pos,
         seed=11, dev=dev)
-    ks, vs = sc["k_scale"], sc["v_scale"]
-    scale = 128 ** -0.5
-    L = kp.shape[0]
+    row = _extend_times(torch, pea, ref, timer, q, kp, vp, kn, vn, bt, pos,
+                        sc, 128 ** -0.5)
+    worst = max(worst, row["kernel_max_abs_err"])
+    del q, kp, vp
 
-    def kernel(i):
-        return pea.paged_extend_attention(q, kp[i % L], vp[i % L], kn, vn,
-                                          bt, pos, scale=scale,
-                                          k_scale=ks[i % L],
-                                          v_scale=vs[i % L])
-    ms = timer(torch, kernel)
-    plain_ms = timer(torch, lambda i: ref.paged_extend_attention_ref(
-        q, kp[i % L], vp[i % L], kn, vn, bt, pos, scale=scale,
-        k_scale=ks[i % L], v_scale=vs[i % L]), iters=20, warmup=3)
-
-    # library yardstick (never called by the port): gather + dequantize
-    # the context, then SDPA over context + suffix with a boolean mask
-    B, _, H, hd = q.shape
-    K, bs = kp.shape[-2], kp.shape[2]
-    btc = bt.clamp(min=0).long()
-    n_ctx = bt.shape[1] * bs
-    t = torch.arange(n_ctx, device=q.device)
-    ctx_ok = (t[None, :] < pos[:, None]) \
-        & torch.repeat_interleave(bt >= 0, bs, dim=1)
-    i = torch.arange(S, device=q.device)
-    mask = torch.cat([ctx_ok[:, None, :].expand(B, S, n_ctx),
-                      (i[None, :] <= i[:, None])[None].expand(B, S, S)],
-                     dim=-1)[:, None]                       # (B,1,S,T)
-    qt = q.transpose(1, 2)
-
-    def library(j):
-        l = j % L
-        kg = (kp[l][btc].float() * ks[l][btc][..., None]).to(q.dtype)
-        vg = (vp[l][btc].float() * vs[l][btc][..., None]).to(q.dtype)
-        k_all = torch.cat([kg.reshape(B, n_ctx, K, hd), kn], dim=1)
-        v_all = torch.cat([vg.reshape(B, n_ctx, K, hd), vn], dim=1)
-        return F.scaled_dot_product_attention(
-            qt, k_all.transpose(1, 2), v_all.transpose(1, 2),
-            attn_mask=mask, scale=scale, enable_gqa=True).transpose(1, 2)
-    exp = plain(q, kp[0], vp[0], kn, vn, bt, pos, scale=scale,
-                k_scale=ks[0], v_scale=vs[0])
-    lib_err = float((library(0).float() - exp).abs().max())
-    out = kernel(0).float()
-    kernel_err = float((out - exp).abs().max())
-    if not torch.allclose(out, exp, **TOL["bfloat16"]):
-        raise AssertionError(f"paged_extend_attention timed case (bf16 q, "
-                             f"int8 pages): max abs err {kernel_err} "
-                             f"beyond tolerance {TOL['bfloat16']}")
-    worst = max(worst, kernel_err)
-    library_ms = timer(torch, library)
-    bound_ms, bound_by = _extend_bound(torch, q, kp[0], kn, bt, pos, sc)
+    # gemma3-1b's served int8 catch-up wave: 4 slots x 16 tokens past the
+    # 512-token window over 128-page tables, 4 query heads over one kv
+    # head of 256; 16 pools cycled
+    g = torch.Generator(device="cpu").manual_seed(9)
+    gpos = torch.randint(512, 2048 - 16 + 1, (4,), generator=g)
+    args = _extend_inputs(torch, torch.int8, q_dtype=torch.bfloat16,
+                          layers=16, S=16, H=4, K=1, hd=256, n_blk=128,
+                          pos=gpos, seed=32, dev=dev)
+    timed_gemma = _extend_times(torch, pea, ref, timer, *args, 256 ** -0.5)
+    errs["gemma3 served chunk (S=16)"] = timed_gemma["kernel_max_abs_err"]
+    worst = max(worst, timed_gemma["kernel_max_abs_err"])
+    del args
     return {
         "name": "paged_extend_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_extend_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:283",
-        "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms,
+        "max_abs_err": worst, "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
     }, {"errors": errs, "tolerance": TOL, "softcap50_moves": moves,
-        "timed_pos": [int(x) for x in pos.tolist()], "timed_S": S,
-        "timed_kernel_max_abs_err_bf16": kernel_err,
+        "timed_pos": row["pos"], "timed_S": S,
+        "timed_kernel_max_abs_err_bf16": row["kernel_max_abs_err"],
+        "timed_gemma3": timed_gemma,
         "library_call": "gather + dequantize, then "
         "F.scaled_dot_product_attention(enable_gqa=True) with a boolean "
         "mask, all timed",
-        "library_max_abs_err": lib_err, "plan_serve": plan._asdict(),
+        "library_max_abs_err": row["library_max_abs_err"],
+        "plan_serve": plan._asdict(),
         "broken_merge_without_last_split_err": boundary,
         "ptxas_bf16": _ptxas_bf16("paged_extend_attention")}
 
@@ -1558,7 +1649,7 @@ def _drive(torch, kernels, serve, eng, cfg, expected, needs,
         "arch": cfg.name, "depth": cfg.num_layers, "depth_cut": False,
         "d_model": cfg.d_model, "params": cfg.param_count(),
         "param_dtype": cfg.param_dtype,
-        "kv_pool": (str(eng.cache["layers"]["k"].dtype).replace("torch.", "")
+        "kv_pool": (str(_pool(eng)["k"].dtype).replace("torch.", "")
                     if eng.paged else "none (pool-free)"),
         "requests": raw["requests"], "tokens": raw["tokens"],
         "steps": raw["decode_steps"], "decode_waves": eng.decode_waves,
@@ -1572,6 +1663,13 @@ def _drive(torch, kernels, serve, eng, cfg, expected, needs,
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if dev.type == "cuda" else None),
     }
+
+
+def _pool(eng) -> dict:
+    """The engine's page pool: every layer's on a uniform trunk, the
+    global layers' on a local:global pattern."""
+    cache = eng.cache
+    return cache["layers"] if "layers" in cache else cache["super"]["global"]
 
 
 def _device_profile(torch, fn) -> dict:
@@ -2216,6 +2314,142 @@ def reference_train(torch, M, get_smoke_config, dev="cuda"):
     return res
 
 
+def _int8_gate(card: dict, cpu: dict) -> tuple:
+    """(first tokens equal, longest common prefix, tokens) of two runs'
+    greedy tokens by request: the JAX package's int8 gate reads them."""
+    first = sum(card[u][0] == cpu[u][0] for u in cpu)
+    lcp = total = 0
+    for u in cpu:
+        total += len(cpu[u])
+        for a, b in zip(cpu[u], card[u]):
+            if a != b:
+                break
+            lcp += 1
+    return first, lcp, total
+
+
+def _gemma_drive(torch, kernels, serve, M, eng, cfg, int8: bool, dev):
+    """Serve GEMMA_TRAFFIC through ``eng``: ``paged_attention`` launches
+    == global layers x decode waves, and on an int8 pool
+    ``paged_extend_attention`` launches == global layers x extend waves
+    (a float pool's extend waves read through the gather, as in JAX);
+    the traffic must hold a prompt past the largest bucket and the
+    window, which catches up through extend waves and wraps the rings.
+    Then times and profiles one 4-slot decode wave."""
+    n_global = cfg.pattern_blocks()[0]
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_attention": n_global * eng.decode_waves,
+        "paged_extend_attention": n_global * eng.extend_waves if int8 else 0,
+        "quant_matmul": 0, "ssd_scan": 0},
+        needs=("paged_attention",) + (("paged_extend_attention",)
+                                      if int8 else ()),
+        traffic=GEMMA_TRAFFIC)
+    longest = max(fields["prompt_lengths"])
+    W = min(cfg.local_window, eng.scfg.max_len)
+    if longest <= max(eng.scfg.prefill_buckets) or longest <= W \
+            or eng.extend_waves == 0 or not eng.extend_ok:
+        raise AssertionError(f"serve_gemma: longest prompt {longest}, "
+                             f"window {W}, {eng.extend_waves} extend waves")
+    _, bt, pos, tok = _wave_state(torch, eng, cfg, 1, dev)
+
+    def wave():
+        return M.decode_step_paged(cfg, eng.params, eng.cache, tok, pos, bt,
+                                   True)
+    fields.update(
+        global_layers=n_global, local_layers=cfg.num_layers - n_global,
+        window=W, catch_chunk=eng.K, longest_prompt_past_window=longest - W,
+        decode_wave_ms=cuda_ms(torch, lambda i: wave(), iters=10, warmup=2),
+        decode_wave_profile=_device_profile(torch, wave))
+    return fields
+
+
+def serve_gemma_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
+    """Drive the sixth main path: gemma3-1b at full width and depth
+    through ``launch.serve.build_engine`` on a bf16 pool; returns
+    (engine, cfg, phase fields)."""
+    clock = serve.default_clock
+    t0 = clock()
+    cfg, eng = serve.build_engine(GEMMA_ARCH, scale, GEMMA_SERVE, dev)
+    init_s = clock() - t0
+    fields = _gemma_drive(torch, kernels, serve, M, eng, cfg, False, dev)
+    fields["init_s"] = init_s
+    return eng, cfg, fields
+
+
+def serve_gemma_int8_phase(torch, kernels, serve, M, eng0, cfg):
+    """The same model (the first engine's weights) and traffic on an int8
+    pool; the rings stay in the activation dtype."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    eng = EdgeServingEngine(cfg, eng0.params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, quant_kv="int8",
+        **GEMMA_SERVE), device=eng0.device)
+    fields = _gemma_drive(torch, kernels, serve, M, eng, cfg, True,
+                          eng0.device)
+    ring = eng.cache["super"]["local"]["k"].dtype
+    if ring != eng0.cache["super"]["local"]["k"].dtype:
+        raise AssertionError(f"serve_gemma_int8: rings in {ring}")
+    return fields
+
+
+def reference_gemma(torch, M, serve_mod, get_smoke_config, kernels,
+                    dev="cuda"):
+    """The gemma3-1b smoke config at float32 (window 16, 2 super-blocks
+    of 2 local + 1 global layers): the engine on the card (hand kernels)
+    and on the CPU (plain versions), prompts of 20-150 tokens (all past
+    the window; those past the largest bucket catch up through extend
+    waves).  On a float pool the greedy tokens must be equal; on an int8
+    pool every first token equal and the longest common prefix at least
+    INT8_LCP_SHARE of the tokens.  The card legs must have launched
+    ``paged_attention`` and, on the int8 pool, ``paged_extend_attention``."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    cfg = get_smoke_config(GEMMA_ARCH).replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    res = {"arch": f"{GEMMA_ARCH} smoke, float32", "requests": 6,
+           "window": cfg.local_window}
+    for pool in ("float32", "int8"):
+        tokens = {}
+        for leg, leg_dev in (("cpu", "cpu"), ("card", dev)):
+            eng = EdgeServingEngine(cfg, _to(params, leg_dev), ServeConfig(
+                max_slots=3, max_len=192, prefix_cache=False,
+                use_pallas_paged=True, policy="priority",
+                quant_kv="int8" if pool == "int8" else None),
+                device=leg_dev)
+            reqs = serve_mod.make_requests(cfg, 6, 20, 150, 8, "priority")
+            _zero(kernels)
+            serve_mod.run_drain(eng, reqs)
+            tokens[leg] = {r.uid: list(r.generated) for r in eng.completed}
+        launches = _counts(kernels)
+        res[f"{pool}_card_launches"] = launches
+        res[f"{pool}_waves_decode_extend"] = [eng.decode_waves,
+                                              eng.extend_waves]
+        need = ["paged_attention"] + (["paged_extend_attention"]
+                                      if pool == "int8" else [])
+        if any(launches[n] == 0 for n in need) or eng.extend_waves == 0:
+            raise AssertionError(f"reference_gemma {pool}: launches "
+                                 f"{launches}, {eng.extend_waves} extend "
+                                 "waves")
+        cpu, card = tokens["cpu"], tokens["card"]
+        if len(card) != 6 or set(card) != set(cpu):
+            raise AssertionError(f"reference_gemma {pool}: requests "
+                                 f"{sorted(card)} on the card, "
+                                 f"{sorted(cpu)} on the CPU")
+        if pool == "float32":
+            if card != cpu:
+                raise AssertionError(f"reference_gemma: card tokens {card} "
+                                     f"!= CPU tokens {cpu}")
+            res["float32_tokens_equal"] = True
+            continue
+        first, lcp, total = _int8_gate(card, cpu)
+        res.update({"int8_first_tokens_equal": f"{first}/{len(cpu)}",
+                    "int8_lcp_share": lcp / total,
+                    "int8_tokens_equal": card == cpu})
+        if first != len(cpu) or lcp < INT8_LCP_SHARE * total:
+            raise AssertionError(f"reference_gemma int8: first tokens "
+                                 f"{first}/{len(cpu)}, LCP {lcp}/{total}: "
+                                 f"card {card} vs CPU {cpu}")
+    return res
+
+
 def reference_phase(torch, M, serve_mod, get_smoke_config, qm, dev="cuda"):
     """Small input: the engine on the card (hand kernels) and on the CPU
     (plain versions) at float32.  On a float pool the greedy tokens must
@@ -2274,14 +2508,7 @@ def reference_phase(torch, M, serve_mod, get_smoke_config, qm, dev="cuda"):
                                          f"{card} != CPU tokens {cpu}")
                 res[f"{name}_tokens_equal"] = True
                 continue
-            first = sum(card[u][0] == cpu[u][0] for u in cpu)
-            lcp = total = 0
-            for u in cpu:
-                total += len(cpu[u])
-                for a, b in zip(cpu[u], card[u]):
-                    if a != b:
-                        break
-                    lcp += 1
+            first, lcp, total = _int8_gate(card, cpu)
             res.update({f"{name}_first_tokens_equal": f"{first}/{len(cpu)}",
                         f"{name}_lcp_share": lcp / total,
                         f"{name}_tokens_equal": card == cpu,
@@ -2407,6 +2634,24 @@ def main() -> int:
     emit("model_train", seconds=clock() - t0, **fields)
 
     t0 = clock()
+    eng_g, cfg_g, fields = serve_gemma_phase(torch, kernels, serve, M)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_gemma", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_gemma_int8_phase(torch, kernels, serve, M, eng_g, cfg_g)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    del eng_g
+    _release(torch)
+    emit("serve_gemma_int8", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    emit("reference_gemma", **reference_gemma(
+        torch, M, serve, get_smoke_config, kernels), seconds=clock() - t0)
+
+    t0 = clock()
     fields = reference_phase(torch, M, serve, get_smoke_config, qm)
     fields.update(reference_ssm(torch, serve, get_smoke_config, ssd))
     fields.update(reference_train(torch, M, get_smoke_config))
@@ -2417,7 +2662,7 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name, row in rows.items():
-        # main-path launches: the four serve phases and model_train, each
+        # main-path launches: the six serve phases and model_train, each
         # counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}

@@ -1,25 +1,29 @@
 """Serve a model through the port's engine: the drain-mode CLI (PyTorch
 port of ``repro.launch.serve``; the asyncio frontend is a later slice).
 
+    python -m repro_torch.launch.serve --scale full
     python -m repro_torch.launch.serve --arch phi3-medium-14b --scale full
     python -m repro_torch.launch.serve --arch mamba2-370m --scale full
 
 submits ``--requests`` random prompts, steps the engine until it drains
-and prints one JSON line (the JAX CLI's drain-mode keys).  Weights are
-random, from a seeded ``torch.Generator`` on the device.  On a CUDA
-device the engine reads paged decode KV through the hand-written
-``paged_attention`` kernel (an ssm model, served without a page pool,
-runs its admission prefills' scan through ``ssd_scan`` instead) and
-stores weights in the activation dtype
-(every weight is cast to it before use, so the math is unchanged).
-``--spec`` serves speculatively (``--draft self`` for the early-exit
-self-draft or a registry id, ``--gamma`` tokens a round) and adds the
-acceptance numbers to the line.
+and prints one JSON line (the JAX CLI's drain-mode keys).  The default
+arch is gemma3-1b, as in the JAX CLI.  Weights are random, from a seeded
+``torch.Generator`` on the device, or restored from ``--params`` (a
+checkpoint of ``training.checkpoint.save``, as ``launch.train
+--checkpoint`` writes) onto them.  On a CUDA device the engine reads
+paged decode KV through the hand-written ``paged_attention`` kernel (an
+ssm model, served without a page pool, runs its admission prefills'
+scan through ``ssd_scan`` instead) and stores weights in the activation
+dtype (every weight is cast to it before use, so the math is
+unchanged).  ``--spec`` serves speculatively (``--draft self`` for the
+early-exit self-draft or a registry id, ``--gamma`` tokens a round) and
+adds the acceptance numbers to the line.
 """
 from __future__ import annotations
 
 import argparse
 import json
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,21 +33,33 @@ from repro_torch.devices import resolve_device
 from repro_torch.models import model as M
 from repro_torch.serving import (EdgeServingEngine, Request, ServeConfig,
                                  default_clock)
+from repro_torch.training import checkpoint as ckpt
 
 
 def build_engine(arch: str, scale: str, scfg_kw: dict, device=None,
-                 seed: int = 0):
+                 seed: int = 0, params_path: Optional[str] = None):
     """(cfg, engine) for ``arch`` at ``scale`` ("smoke" | "full") with
-    random weights from ``seed`` on ``device`` (default ``cuda``)."""
+    random weights from ``seed`` on ``device`` (default ``cuda``), or the
+    checkpoint at ``params_path`` restored onto them: each leaf on the
+    engine's device in the dtype of the weight it replaces."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if scale == "smoke" else get_config(arch)
     if dev.type == "cuda":
         cfg = cfg.replace(param_dtype=cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
     params = M.init_params(cfg, gen, dev)
+    if params_path:
+        restored = ckpt.restore(params_path, params)
+        params = _cast_like(restored, params)
     scfg = ServeConfig(prefix_cache=False,
                        use_pallas_paged=dev.type == "cuda", **scfg_kw)
     return cfg, EdgeServingEngine(cfg, params, scfg, device=dev)
+
+
+def _cast_like(tree, like):
+    if isinstance(tree, dict):
+        return {k: _cast_like(v, like[k]) for k, v in tree.items()}
+    return tree.to(like.dtype)
 
 
 def make_requests(cfg, n: int, min_prompt: int, max_prompt: int,
@@ -87,9 +103,9 @@ def run_drain(eng, reqs) -> dict:
             "ttft_ms": ttft}
 
 
-def main() -> None:
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="phi3-medium-14b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="gemma3-1b")
     ap.add_argument("--scale", choices=("smoke", "full"), default="smoke")
     ap.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain kernels")
@@ -116,14 +132,21 @@ def main() -> None:
                          "interleaved with decode (no blocking prefill)")
     ap.add_argument("--min-prompt", type=int, default=4)
     ap.add_argument("--max-prompt", type=int, default=24)
-    args = ap.parse_args()
+    ap.add_argument("--params", default=None,
+                    help="checkpoint to serve (training.checkpoint.save "
+                         "format), restored onto the seeded weights")
+    return ap.parse_args(argv)
 
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
     cfg, eng = build_engine(args.arch, args.scale, dict(
         max_slots=args.slots, max_len=args.max_len,
         temperature=args.temperature, top_k=args.top_k,
         policy=args.policy, spec_decode=args.spec,
         draft_arch=args.draft if args.spec else None,
-        spec_gamma=args.gamma, chunked_prefill=args.chunked), args.device)
+        spec_gamma=args.gamma, chunked_prefill=args.chunked), args.device,
+        params_path=args.params)
     reqs = make_requests(cfg, args.requests, args.min_prompt,
                          args.max_prompt, args.max_new, args.policy)
     raw = run_drain(eng, reqs)

@@ -21,11 +21,12 @@ Conventions
   channel (``quantize_matmul_params``): ``weight_einsum`` sends them to
   the hand-written ``quant_matmul`` kernel on a CUDA tensor, to its
   plain version on a CPU tensor.
-* The dense decode cache (``init_kv_cache`` / ``attention_decode``)
-  covers global strips and is updated IN PLACE like the pool.
-* Not ported yet, raising ``NotImplementedError``: local ring caches,
-  the long-sequence (blockwise) prefill branch and the prefix-hit
-  prefill.
+* The dense decode cache (``init_kv_cache`` / ``attention_decode`` /
+  ``attention_extend``) covers global strips and local ring windows and
+  is updated IN PLACE like the pool.
+* Not ported yet, raising ``NotImplementedError``: cross-attention
+  decode, the long-sequence (blockwise) prefill branch and the
+  prefix-hit prefill.
 """
 from __future__ import annotations
 
@@ -475,7 +476,7 @@ def _decode_project(cfg: ModelConfig, params, x, pos, *, is_global: bool):
 
 
 # ---------------------------------------------------------------------------
-# dense decode cache (global strips)
+# dense decode caches (global strips and local rings)
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(cfg: ModelConfig, batch: int, length: int, stack=(),
@@ -483,7 +484,7 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, stack=(),
     """Empty dense cache with a stacking prefix: ``k``/``v`` (stack...,
     batch, length, K, hd) in ``dtype`` (default the activation dtype)
     and ``slots`` (stack..., batch, length) int32, -1 = empty; ``slots``
-    holds the position each strip entry was written for."""
+    holds the position each strip or ring entry was written for."""
     dtype = dtype or cfg.activation_dtype
     K, hd = cfg.num_kv_heads, cfg.head_dim
     return {
@@ -496,21 +497,20 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, stack=(),
 
 def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
                      is_global: bool, cross_kv=None):
-    """Single-token decode against a dense cache of GLOBAL strips.
+    """Single-token decode against a dense cache: a global strip or a
+    local ring window.
 
     x: (B, 1, d); pos: (B,) int32 per-row write positions (a scalar is
     broadcast); cache: this layer's dict(k=(B, T, K, hd), v=..., slots=
-    (B, T)) with T the strip length.  The new token's K/V and position
-    are written IN PLACE at ``pos % T`` (== pos on a global strip), then
-    the row attends every entry whose slot lies in [0, pos].  A row that
-    writes past its frontier (the draft's parked writes) only ever
-    overwrites entries above that frontier.  Local ring windows
-    (``is_global=False``) and enc-dec cross attention are later slices.
-    Returns (out (B, 1, d), cache).
+    (B, T)), T the strip length (global) or the window W (local ring).
+    The new token's K/V and position are written IN PLACE at ``pos % T``
+    (== pos on a global strip), then the row attends every entry whose
+    slot lies in [0, pos] and, on a local layer, above ``pos -
+    local_window``.  A row that writes past its frontier (the draft's
+    parked writes) only ever overwrites entries above that frontier on
+    a strip.  Enc-dec cross attention is a later slice.  Returns (out
+    (B, 1, d), cache).
     """
-    if not is_global:
-        raise _not_ported("local ring-window decode cache",
-                          "A.2 (gemma ring layers)")
     if cross_kv is not None:
         raise _not_ported("cross-attention decode", "A.9.3 (encdec family)")
     B, S, d = x.shape
@@ -521,7 +521,7 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
     G = H // K
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
 
-    q, knew, vnew = _decode_project(cfg, params, x, pos, is_global=True)
+    q, knew, vnew = _decode_project(cfg, params, x, pos, is_global=is_global)
 
     kc, vc, slots = cache["k"], cache["v"], cache["slots"]
     T = kc.shape[1]
@@ -531,7 +531,10 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
     vc[rows, at] = vnew[:, 0].to(vc.dtype)
     slots[rows, at] = pos
 
+    window = 0 if is_global else cfg.local_window
     valid = (slots >= 0) & (slots <= pos[:, None])
+    if window:
+        valid &= slots > (pos[:, None] - window)
     mask = valid[:, None, None, None, :]          # (B,1,1,1,T)
     qg = q.reshape(B, 1, K, G, hd)
     out = attention_weights_and_out(qg, kc.to(x.dtype), vc.to(x.dtype),
@@ -539,6 +542,66 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
                                     softcap=cfg.attn_logit_softcap)
     o = weight_einsum("bshq,hqd->bsd", out.reshape(B, 1, H, hd),
                       params["wo"])
+    return o, cache
+
+
+def attention_extend(cfg: ModelConfig, params, x, cache, pos, *,
+                     is_global: bool, valid_len=None):
+    """Multi-token decode against a dense cache (global strip or local
+    ring): the non-paged leg of ``extend_paged`` for a trunk that mixes
+    paged global layers with dense ring layers.
+
+    x: (B, S, d) at absolute positions ``pos + i``.  The old entries are
+    read PRE-write, masked strictly below ``pos`` (and, on a local
+    layer, above each query's ``position - local_window``), and the S
+    new tokens attend each other as a causal, windowed suffix: the
+    sequential decode's semantics, since decode would evict ring entry
+    ``(pos + j) % W`` only at step ``j``, after steps ``i < j`` read it
+    (requires S <= W).  Then K/V and positions of rows ``i < valid_len``
+    are written IN PLACE at ``(pos + i) % T``; pad rows write nothing,
+    so they never evict live ring context.  Returns (out (B, S, d),
+    cache).
+    """
+    B, S, d = x.shape
+    pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                             device=x.device), (B,))
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+    rel = torch.arange(S, dtype=torch.int32, device=x.device)
+    positions = pos[:, None] + rel[None, :]
+
+    q, knew, vnew = _project_seq(cfg, params, x, positions,
+                                 is_global=is_global)
+
+    kc, vc, slots = cache["k"], cache["v"], cache["slots"]
+    T = kc.shape[1]
+    window = 0 if is_global else cfg.local_window
+    old_ok = (slots[:, None, :] >= 0) & (slots[:, None, :] < pos[:, None, None])
+    new_ok = rel[None, :] <= rel[:, None]                          # (S, S)
+    if window:
+        old_ok = old_ok & (slots[:, None, :]
+                           > (positions[:, :, None] - window))
+        new_ok &= (rel[:, None] - rel[None, :]) < window
+    mask = torch.cat([torch.broadcast_to(old_ok, (B, S, T)),
+                      torch.broadcast_to(new_ok, (B, S, S))], dim=-1)
+    k_all = torch.cat([kc.to(x.dtype), knew], dim=1)   # cat = a copy
+    v_all = torch.cat([vc.to(x.dtype), vnew], dim=1)
+    qg = q.reshape(B, S, K, G, hd)
+    out = attention_weights_and_out(qg, k_all, v_all, mask[:, None, None],
+                                    scale=scale,
+                                    softcap=cfg.attn_logit_softcap)
+    o = weight_einsum("bshq,hqd->bsd", out.reshape(B, S, H, hd),
+                      params["wo"])
+
+    keep = (rel[None, :] < valid_len[:, None] if valid_len is not None
+            else torch.ones((B, S), dtype=torch.bool, device=x.device))
+    rows = torch.arange(B, device=x.device)[:, None].expand(B, S)
+    _masked_put(((kc, knew.reshape(B * S, K, hd)),
+                 (vc, vnew.reshape(B * S, K, hd)),
+                 (slots, positions.reshape(-1))),
+                (rows.reshape(-1), (positions % T).long().reshape(-1)),
+                keep.reshape(-1))
     return o, cache
 
 

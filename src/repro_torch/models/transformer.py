@@ -9,11 +9,12 @@ no copies).  Architectures with a local:global attention pattern
 global layer, then the remainder local layers; ``init_params``,
 ``trunk_fwd`` and ``forward`` (training and evaluation) take them.
 Caches are updated IN PLACE: every ``*_paged`` function writes into the
-pool tensors it was given, and ``decode_step`` into the dense strips of
-``init_cache``; each returns that same cache.  The cache, paged and
-decode entry points take the uniform all-global trunk only; on a
-pattern config they raise ``NotImplementedError`` until the slice that
-serves the gemma ring layers.
+pool tensors it was given, and ``decode_step`` into the dense strips and
+rings of ``init_cache``; each returns that same cache.  On a pattern
+config the local layers keep a dense ring of ``W = min(local_window,
+max_len)`` entries per row, the global layers a ``max_len`` strip
+(``init_cache``) or the shared page pool (``init_paged_cache``); every
+cache entry point walks the layers with ``walk`` in the JAX order.
 """
 from __future__ import annotations
 
@@ -27,14 +28,6 @@ from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 
 Params = dict
-
-
-def _uniform_only(cfg: ModelConfig) -> None:
-    if cfg.pattern_period > 1:
-        raise L._not_ported(
-            f"{cfg.name}: serving local:global layer patterns "
-            f"(pattern_period={cfg.pattern_period})",
-            "A.2/A.3 (gemma ring caches)")
 
 
 # ---------------------------------------------------------------------------
@@ -104,18 +97,41 @@ def _layer(tree, i: int):
 
 
 def _uniform_layers(cfg: ModelConfig, trunk: Params):
-    """Per-layer views of the stacked trunk, the first ``cfg.num_layers``
-    of them (a tree holding more stacked layers is sliced, as in JAX)."""
-    _uniform_only(cfg)
+    """Per-layer views of a uniform stacked trunk, the first
+    ``cfg.num_layers`` of them (a tree holding more stacked layers is
+    sliced, as in JAX)."""
     return [_layer(trunk["layers"], i) for i in range(cfg.num_layers)]
 
 
+def walk(cfg: ModelConfig, trunk: Params, cache: Params):
+    """(layer params, layer cache, is_global) views of every layer in the
+    JAX order: the uniform stack's first ``cfg.num_layers`` layers; on a
+    pattern config each super-block's ``pattern_period - 1`` local
+    layers, then its global layer, then the ``rem_local`` layers.  The
+    layer cache is that layer's ring or strip (batch axis first) or, on
+    a paged global layer, its page pool."""
+    if cfg.pattern_period <= 1:
+        for i in range(cfg.num_layers):
+            yield (_layer(trunk["layers"], i), _layer(cache["layers"], i),
+                   True)
+        return
+    nb, rem = cfg.pattern_blocks()
+    for i in range(nb):
+        sp, sc = _layer(trunk["super"], i), _layer(cache["super"], i)
+        for j in range(cfg.pattern_period - 1):
+            yield _layer(sp["local"], j), _layer(sc["local"], j), False
+        yield sp["global"], sc["global"], True
+    for i in range(rem):
+        yield (_layer(trunk["rem_local"], i), _layer(cache["rem_local"], i),
+               False)
+
+
 def paged_layers(cfg: ModelConfig, params: Params, cache: Params):
-    """(layer params, layer pool) view pairs, first layer first: what the
-    paged trunk walks, one ``block_*_paged`` call per pair."""
-    return list(zip(_uniform_layers(cfg, params["trunk"]),
-                    [_layer(cache["layers"], i)
-                     for i in range(cfg.num_layers)]))
+    """(layer params, layer pool) view pairs of the paged (global)
+    layers, first layer first: one ``block_*_paged`` call per pair (every
+    layer of a uniform trunk)."""
+    return [(lp, c) for lp, c, is_global in walk(cfg, params["trunk"], cache)
+            if is_global]
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +175,15 @@ def block_decode(cfg: ModelConfig, p: Params, x, cache, pos, *, is_global):
     """A layer's decode step against its dense cache (in place)."""
     return _block(cfg, p, x, lambda h: L.attention_decode(
         cfg, p["attn"], h, cache, pos, is_global=is_global))
+
+
+def block_extend(cfg: ModelConfig, p: Params, x, cache, pos, *, is_global,
+                 valid_len=None):
+    """``block_decode`` for S tokens against a dense ring or strip cache
+    (``layers.attention_extend``, in place)."""
+    return _block(cfg, p, x, lambda h: L.attention_extend(
+        cfg, p["attn"], h, cache, pos, is_global=is_global,
+        valid_len=valid_len))
 
 
 def block_decode_paged(cfg: ModelConfig, p: Params, x, cache, pos,
@@ -263,23 +288,53 @@ def _logits(cfg: ModelConfig, params: Params, x):
 # dense cache + decode
 # ---------------------------------------------------------------------------
 
+def _cache(cfg: ModelConfig, batch: int, max_len: int, global_leaves,
+           dtype=None, device=None) -> Params:
+    """The cache tree around ``global_leaves`` (the global layers'
+    stacked strips or pool): ``{"layers"}`` on a uniform config; on a
+    pattern config ``{"super": {"local", "global"}}`` plus
+    ``"rem_local"``, the local layers' rings of ``W = min(local_window,
+    max_len)`` entries per row, in ``dtype`` (default the activation
+    dtype, also under an int8 pool: rings are per-slot state, not pool
+    capacity)."""
+    if cfg.pattern_period <= 1:
+        return {"layers": global_leaves}
+    nb, rem = cfg.pattern_blocks()
+    W = min(cfg.local_window, max_len)
+    c = {"super": {
+        "local": L.init_kv_cache(cfg, batch, W,
+                                 stack=(nb, cfg.pattern_period - 1),
+                                 dtype=dtype, device=device),
+        "global": global_leaves}}
+    if rem:
+        c["rem_local"] = L.init_kv_cache(cfg, batch, W, stack=(rem,),
+                                         dtype=dtype, device=device)
+    return c
+
+
+def _n_global(cfg: ModelConfig) -> int:
+    return (cfg.num_layers if cfg.pattern_period <= 1
+            else cfg.pattern_blocks()[0])
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Params:
-    """Dense decode cache, one ``max_len`` strip per row and layer:
-    ``{"layers": {"k", "v", "slots"}}`` stacked over the layers, on
-    ``device`` (default ``cuda``; ``"meta"`` gives shapes only)."""
-    _uniform_only(cfg)
-    return {"layers": L.init_kv_cache(cfg, batch, max_len,
-                                      stack=(cfg.num_layers,),
-                                      device=resolve_device(device))}
+    """Dense decode cache on ``device`` (default ``cuda``; ``"meta"``
+    gives shapes only): one ``max_len`` strip per row and global layer
+    (``{"layers": {"k", "v", "slots"}}`` stacked over the layers on a
+    uniform config) and, on a pattern config, one ring per row and
+    local layer (``_cache``)."""
+    dev = resolve_device(device)
+    return _cache(cfg, batch, max_len, L.init_kv_cache(
+        cfg, batch, max_len, stack=(_n_global(cfg),), device=dev),
+        device=dev)
 
 
 def trunk_decode(cfg: ModelConfig, trunk: Params, cache: Params, x, pos):
     """x: (B, 1, d); pos: (B,) int32 write positions.  Returns (x,
     cache), the cache updated in place."""
-    layers = [_layer(cache["layers"], i) for i in range(cfg.num_layers)]
-    for lp, c in zip(_uniform_layers(cfg, trunk), layers):
-        x, _ = block_decode(cfg, lp, x, c, pos, is_global=True)
+    for lp, c, is_global in walk(cfg, trunk, cache):
+        x, _ = block_decode(cfg, lp, x, c, pos, is_global=is_global)
     return x, cache
 
 
@@ -300,28 +355,32 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens,
 def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
                      num_blocks: int, block_size: int, kv_dtype=None,
                      device: DeviceLike = None) -> Params:
-    """Shared page pool for every (global) layer: ``{"layers": {"k", "v"}}``
-    of shape (L, num_blocks, block_size, K, hd) in the activation dtype,
-    on ``device`` (default ``cuda``).  ``kv_dtype="int8"`` makes the pool
-    int8 with float32 ``k_scale``/``v_scale`` leaves (L, num_blocks,
-    block_size, K) beside it.  ``batch``/``max_len`` size dense ring
-    layers, which this slice does not have."""
-    del batch, max_len
-    _uniform_only(cfg)
-    return {"layers": L.init_kv_pages(
-        cfg, num_blocks, block_size, stack=(cfg.num_layers,),
-        quant=kv_dtype == "int8", device=resolve_device(device))}
+    """Like ``init_cache``, but the global layers share a page pool (no
+    batch axis) of shape (n_global, num_blocks, block_size, K, hd) in the
+    activation dtype, on ``device`` (default ``cuda``);
+    ``kv_dtype="int8"`` makes the pool int8 with float32
+    ``k_scale``/``v_scale`` leaves (n_global, num_blocks, block_size, K)
+    beside it.  Local ring layers stay dense at W per row."""
+    dev = resolve_device(device)
+    return _cache(cfg, batch, max_len, L.init_kv_pages(
+        cfg, num_blocks, block_size, stack=(_n_global(cfg),),
+        quant=kv_dtype == "int8", device=dev), device=dev)
 
 
 def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
                       tokens, pos, block_tables, use_pallas: bool = False):
     """One decode token per row against the paged cache (updated in
-    place).  tokens: (B, 1) int32; pos: (B,) int32 write positions;
-    block_tables: (B, n_blk) int32.  Returns (logits (B, 1, V), cache)."""
+    place): global layers read and write their pages through
+    ``block_tables`` (B, n_blk) int32, local layers their rings.
+    tokens: (B, 1) int32; pos: (B,) int32 write positions.  Returns
+    (logits (B, 1, V), cache)."""
     x = L.embed(cfg, params["embed"], tokens)
-    for lp, c in paged_layers(cfg, params, cache):
-        x, _ = block_decode_paged(cfg, lp, x, c, pos, block_tables,
-                                  use_pallas)
+    for lp, c, is_global in walk(cfg, params["trunk"], cache):
+        if is_global:
+            x, _ = block_decode_paged(cfg, lp, x, c, pos, block_tables,
+                                      use_pallas)
+        else:
+            x, _ = block_decode(cfg, lp, x, c, pos, is_global=False)
     return _logits(cfg, params, x), cache
 
 
@@ -330,16 +389,24 @@ def extend_paged(cfg: ModelConfig, params: Params, cache: Params, tokens,
                  use_pallas: bool = False):
     """Score S tokens against the paged cache in one call (updated in
     place).  tokens: (B, S) int32 at absolute positions ``pos + i``.
-    Returns (logits (B, S, V), cache) — row i is the next-token
-    distribution after consuming ``tokens[:, :i+1]``; rows
-    ``i >= valid_len`` are padding (garbage logits, writes dropped)."""
+    Global layers extend through their pages
+    (``layers.attention_extend_paged``), local layers through their
+    rings with the same pre-write causal-suffix semantics
+    (``layers.attention_extend``; requires S <= W).  Returns (logits
+    (B, S, V), cache) — row i is the next-token distribution after
+    consuming ``tokens[:, :i+1]``; rows ``i >= valid_len`` are padding
+    (garbage logits, writes dropped)."""
     x = L.embed(cfg, params["embed"], tokens)
     pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
                                              device=x.device),
                              (x.shape[0],))
-    for lp, c in paged_layers(cfg, params, cache):
-        x, _ = block_extend_paged(cfg, lp, x, pos, c, block_tables,
-                                  valid_len, use_pallas=use_pallas)
+    for lp, c, is_global in walk(cfg, params["trunk"], cache):
+        if is_global:
+            x, _ = block_extend_paged(cfg, lp, x, pos, c, block_tables,
+                                      valid_len, use_pallas=use_pallas)
+        else:
+            x, _ = block_extend(cfg, lp, x, c, pos, is_global=False,
+                                valid_len=valid_len)
     return _logits(cfg, params, x), cache
 
 
@@ -378,13 +445,44 @@ def _fill_global(cache: Params, k, v, n=None) -> None:
                                      pos[None, :], -1))
 
 
+def _fill_local(cache: Params, k, v, n=None) -> None:
+    """Fill one layer's ring of W entries (an empty ``init_kv_cache``
+    ring) from prefill K/V (B, S, K, hd) in place.  With ``n`` (the
+    true lengths) ring slot j holds the largest position p <= n-1 with
+    p % W == j, so right-padding never evicts true context; without it
+    the ring holds the last min(S, W) positions."""
+    B, S = k.shape[0], k.shape[1]
+    W = cache["k"].shape[1]
+    if n is not None:
+        j = torch.arange(W, dtype=torch.int32, device=k.device)
+        p = j[None, :] + ((n[:, None] - 1 - j[None, :]) // W) * W  # (B, W)
+        valid = (p >= 0) & (p < n[:, None])
+        idx = torch.clamp(p, 0, S - 1).long()[..., None, None].expand(
+            B, W, *k.shape[2:])
+        for key, src in (("k", k), ("v", v)):
+            cache[key].copy_(torch.where(valid[..., None, None],
+                                         torch.gather(src, 1, idx), 0))
+        cache["slots"].copy_(torch.where(valid, p, -1))
+    elif S >= W:
+        pos = torch.arange(S - W, S, dtype=torch.int32, device=k.device)
+        at = (pos % W).long()
+        cache["k"][:, at] = k[:, S - W:].to(cache["k"].dtype)
+        cache["v"][:, at] = v[:, S - W:].to(cache["v"].dtype)
+        cache["slots"][:, at] = pos
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+        cache["slots"][:, :S] = torch.arange(S, dtype=torch.int32,
+                                             device=k.device)
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
             prefix_embeds=None, use_flash=False, true_len=None):
     """Run the prompt and return (last-token logits (B, 1, V), a dense
-    cache of B rows sized ``max_len``).  ``true_len`` (int | (B,) int32)
-    marks right-padded rows: logits come from each row's true last
-    token and pad positions stay invalid in the cache, so a padded
-    prefill decodes exactly like an unpadded one.  VLM prefix
+    cache of B rows sized ``max_len``: strips and rings).  ``true_len``
+    (int | (B,) int32) marks right-padded rows: logits come from each
+    row's true last token and pad positions stay out of the cache, so a
+    padded prefill decodes exactly like an unpadded one.  VLM prefix
     embeddings belong to the vlm slice."""
     if prefix_embeds is not None:
         raise L._not_ported("prefix embeddings", "A.9.2 (vlm family)")
@@ -393,13 +491,13 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
     n = broadcast_true_len(true_len, B, x.device)
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-    cache = {"layers": L.init_kv_cache(cfg, B, max_len,
-                                       stack=(cfg.num_layers,),
-                                       dtype=x.dtype, device=x.device)}
-    for i, lp in enumerate(_uniform_layers(cfg, params["trunk"])):
-        x, (k, v) = block_prefill(cfg, lp, x, positions, is_global=True,
+    cache = _cache(cfg, B, max_len, L.init_kv_cache(
+        cfg, B, max_len, stack=(_n_global(cfg),), dtype=x.dtype,
+        device=x.device), dtype=x.dtype, device=x.device)
+    for lp, c, is_global in walk(cfg, params["trunk"], cache):
+        x, (k, v) = block_prefill(cfg, lp, x, positions, is_global=is_global,
                                   use_flash=use_flash)
-        _fill_global(_layer(cache["layers"], i), k, v, n)
+        (_fill_global if is_global else _fill_local)(c, k, v, n)
     x = x[:, -1:] if n is None else gather_last(x, n)
     return _logits(cfg, params, x), cache
 
@@ -421,12 +519,14 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens, max_len,
                   ctx_len=None, true_len=None, prefix_embeds=None,
                   use_flash=False):
     """Admission prefill fused with cache insertion: runs ``m`` prompt
-    rows and writes their K/V DIRECTLY into the shared page pool through
-    ``write_tables`` (m, n_wblk), in place.  ``true_len`` (m,) marks the
-    right-padded bucket: logits come from each row's true last token.
-    The prefix-cache hit path (``ctx_tables``), VLM prefix embeddings
-    and the dense ``write_tables=None`` engine are later slices.
-    Returns (last-true-token logits (m, 1, V), cache)."""
+    rows and writes their decode state DIRECTLY into the engine's cache,
+    in place: global-layer K/V into the shared page pool through
+    ``write_tables`` (m, n_wblk), local-layer rings into their rows at
+    ``slots`` (m,).  ``true_len`` (m,) marks the right-padded bucket:
+    logits come from each row's true last token.  The prefix-cache hit
+    path (``ctx_tables``), VLM prefix embeddings and the dense
+    ``write_tables=None`` engine are later slices.  Returns
+    (last-true-token logits (m, 1, V), cache)."""
     if ctx_tables is not None:
         raise L._not_ported("prefix-cache hit prefill", "A.5 (prefix cache)")
     if write_tables is None:
@@ -434,14 +534,21 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens, max_len,
                             "A.4 (dense twin)")
     if prefix_embeds is not None:
         raise L._not_ported("prefix embeddings", "A.9.2 (vlm family)")
-    del max_len, slots     # no per-slot dense leaves in this trunk
     x = L.embed(cfg, params["embed"], tokens)
     B, S, _ = x.shape
     n = broadcast_true_len(true_len, B, x.device)
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-    for lp, pg in paged_layers(cfg, params, cache):
-        x, _ = block_prefill_paged(cfg, lp, x, positions, pg, write_tables,
-                                   use_flash=use_flash)
+    W = min(cfg.local_window, max_len)
+    for lp, c, is_global in walk(cfg, params["trunk"], cache):
+        if is_global:
+            x, _ = block_prefill_paged(cfg, lp, x, positions, c,
+                                       write_tables, use_flash=use_flash)
+            continue
+        x, (k, v) = block_prefill(cfg, lp, x, positions, is_global=False,
+                                  use_flash=use_flash)
+        rows = L.init_kv_cache(cfg, B, W, dtype=k.dtype, device=x.device)
+        _fill_local(rows, k, v, n)
+        scatter_cache_rows(c, rows, slots, 0)
     x = x[:, -1:] if n is None else gather_last(x, n)
     return _logits(cfg, params, x), cache

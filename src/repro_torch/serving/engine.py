@@ -336,9 +336,13 @@ class EdgeServingEngine:
             self.pool = None
             self.cache = M.init_cache(cfg, B, T, device=dev)
             self.axes = cache_batch_axes(cfg, T)
-        # static extend-wave width: the catch-up chunk
+        # static extend-wave width: the catch-up chunk; a local ring
+        # extends with pre-write semantics only while the chunk fits the
+        # window, as in JAX
         self.K = max(scfg.spec_gamma, scfg.catch_chunk or 0)
-        self.extend_ok = bool(M.extendable(cfg) and self.K >= 2)
+        self.extend_ok = bool(M.extendable(cfg) and self.K >= 2
+                              and (cfg.pattern_period <= 1
+                                   or self.K <= min(cfg.local_window, T)))
         self.chunked = bool(scfg.chunked_prefill)
         self.spec = self._make_spec(draft)
         self.tokens = np.zeros((B, 1), np.int32)
@@ -1148,9 +1152,9 @@ class EdgeServingEngine:
         ``extract_slot``) and decode position with it; its KV pages stay
         in the pool, DETACHED onto the request — re-submission restores
         the rows and the block table and resumes decode where it stopped,
-        with no re-prefill and no page copies.  The paged dense trunk
-        has no per-slot rows (empty placeholders); the pool-free ssm
-        cache is all rows.  A speculative engine also saves a copy of the
+        with no re-prefill and no page copies.  A uniform paged trunk
+        has no per-slot rows (empty placeholders), a pattern trunk's
+        rows are its local rings; the pool-free ssm cache is all rows.  A speculative engine also saves a copy of the
         slot's draft row and frontier."""
         req = self.slot_req[slot]
         if req is None:

@@ -543,12 +543,25 @@ def test_attention_decode_dense(cfgs):
 
 
 def test_attention_decode_local_ring_raises():
-    _, cfg = GEMMA
-    cache, pos = _dense_state(_rng(41), cfg)
-    p = _t(_attn_params(_rng(42), cfg, qk_norm=True))
-    with pytest.raises(NotImplementedError, match="A.2"):
-        L.attention_decode(cfg, p, torch.zeros((3, 1, cfg.d_model)),
-                           _t(cache), torch.from_numpy(pos), is_global=False)
+    """The local ring branch is ported: the 12-entry cache read as a
+    ring (write at ``pos % 12``, slots inside gemma's window) gives the
+    JAX output and cache; cross attention still raises (A.9.3)."""
+    jcfg, cfg = GEMMA
+    rng = _rng(41)
+    cache, pos = _dense_state(rng, cfg)
+    p = _attn_params(_rng(42), cfg, qk_norm=True)
+    x = _f32(rng, 3, 1, cfg.d_model)
+    mine = _t(cache)
+    out, _ = L.attention_decode(cfg, _t(p), _t(x), mine,
+                                torch.from_numpy(pos), is_global=False)
+    jout, jcache = JL.attention_decode(jcfg, _j(p), _j(x), _j(cache),
+                                       jnp.asarray(pos), is_global=False)
+    _close(out, jout)
+    for k in ("k", "v", "slots"):
+        _close(mine[k], jcache[k])
+    with pytest.raises(NotImplementedError, match="A.9.3"):
+        L.attention_decode(cfg, _t(p), _t(x), mine, torch.from_numpy(pos),
+                           is_global=False, cross_kv=(mine["k"], mine["v"]))
 
 
 # ---------------------------------------------------------------------------

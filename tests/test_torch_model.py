@@ -246,12 +246,18 @@ def test_init_params_matches_jax_layout(models):
                                   "granite-moe-1b-a400m"])
 def test_unported_configs_raise(arch):
     """Unported families raise at ``init_params``; gemma's local:global
-    pattern trains and evaluates, and raises where it would be served
-    (its ring caches)."""
+    pattern trains, evaluates and serves through the paged engine, and
+    raises at the admission of the dense twin (``write_tables=None``,
+    A.4)."""
     cfg = get_smoke_config(arch)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if cfg.family == "dense":
-            M.init_paged_cache(cfg, 2, 32, 8, 4, device="cpu")
+            params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
+            M.prefill_paged(cfg, params,
+                            {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+                            32, M.init_cache(cfg, 1, 32, "cpu"),
+                            slots=torch.zeros((1,), dtype=torch.int32))
         else:
             M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
@@ -366,9 +372,22 @@ def test_dense_decode_after_prefill_equals_forward(models):
 
 
 def test_dense_cache_of_a_local_ring_config_raises():
+    """A ring config's dense cache is ported (the speculative draft's):
+    rings of W = min(window, max_len) beside the global strips, as JAX
+    lays them out.  The dense twin engine built on it (``paged=False``)
+    still raises (ROADMAP A.4)."""
     cfg = get_smoke_config("gemma3-1b")
+    jc = JM.init_cache(jax_smoke_config("gemma3-1b"), 2, 32)
+    c = M.init_cache(cfg, 2, 32, "cpu")
+    assert jax.tree.map(lambda a: a.shape, jc) == {
+        k: {kk: {kkk: tuple(t.shape) for kkk, t in vv.items()}
+            for kk, vv in v.items()} for k, v in c.items()}
+    assert c["super"]["local"]["k"].shape[-3] == min(cfg.local_window, 32)
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_cache(cfg, 2, 32, "cpu")
+        EdgeServingEngine(cfg, params, ServeConfig(prefix_cache=False,
+                                                   paged=False), device="cpu")
 
 
 def test_scatter_cache_rows_matches_jax(models, dense_prefilled):

@@ -165,6 +165,25 @@ def test_spec_pool_consistent_and_no_leak(replay):
     assert eng.extend_waves == eng.steps and eng.decode_waves == 0
 
 
+def test_quant_draft_greedy_is_bit_exact(models, reference):
+    """``test_engine_matrix.test_quant_draft_greedy_is_bit_exact`` on the
+    port: a gemma3-1b registry draft (local rings beside global strips,
+    its dense cache through ``init_cache`` / ``prefill`` /
+    ``decode_step``) with int8 projection weights changes proposals
+    only; the phi3 verify model decides every token, so the tokens are
+    the dense vanilla engine's."""
+    _, _, cfg, params = models
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**dict(
+        SPEC, policy="fifo", draft_arch="gemma3-1b", quant_draft=True)),
+        device="cpu")
+    assert eng.spec.cfg.pattern_period > 1
+    assert set(eng.spec.cache) == {"super"}
+    got = _drain(eng, _traffic(Request, cfg.vocab_size))
+    assert got == reference, "quantized draft leaked into verify output"
+    stats = eng.stats()
+    assert stats["quant_draft"] is True and stats["spec_rounds"] >= 1
+
+
 # ---------------------------------------------------------------------------
 # draft construction and validation
 # ---------------------------------------------------------------------------
@@ -386,8 +405,9 @@ def test_serve_config_spec_fields_are_ported():
 def test_cli_spec_flags(monkeypatch, capsys):
     from repro_torch.launch import serve
     monkeypatch.setattr(sys, "argv", [
-        "serve", "--device", "cpu", "--requests", "3", "--max-new", "5",
-        "--max-prompt", "20", "--spec", "--draft", "self", "--gamma", "3"])
+        "serve", "--arch", "phi3-medium-14b", "--device", "cpu",
+        "--requests", "3", "--max-new", "5", "--max-prompt", "20", "--spec",
+        "--draft", "self", "--gamma", "3"])
     serve.main()
     out = json.loads(capsys.readouterr().out.strip().splitlines()[0])
     assert out["requests"] == 3 and out["tokens"] == 15
