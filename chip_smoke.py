@@ -25,11 +25,18 @@ non-zero without printing a result:
               fall outside the tolerance; gemma3-1b's global-layer shape
               (H=4, K=1, hd=256) and the shapes gemma's serving gives
               them (128-page tables; 16-token int8 catch-up waves); the
+              extend read on int8 pages at every width class a catch-up
+              wave may have (gemma3-1b S = 16, 21, 22, 64, 512; phi3
+              S = 41, 64: the first version refused S >= 22 and 41
+              there) and at G x S one and four rows past a 64-row tile,
+              each with its plan's merge without the last split shown
+              to fail; the
               decode read timed at the serving shape, at 4 rows x 4096
               tokens (8 pools, 670 MB), at the gemma shape and at its
               served shape, beside SDPA with the gather timed and
               without; the extend read timed at the serving shape and at
-              gemma's served chunk; both reads' bf16 ptxas lines.
+              gemma's served chunk of 16 and at 64 and 512; both reads'
+              bf16 ptxas lines.
               ``quant_matmul`` at the draft's decode shapes (M=4
               against every projection of a phi3-medium-14b layer), a
               ragged one and one whose K is too short to split; its
@@ -50,12 +57,16 @@ non-zero without printing a result:
               f32, a split sequence continued through ``h0``, and three
               broken versions (state dropped between chunks, decay left
               out, the state passed without its decay); timed at 4 x
-              1024, 1 x 1024 and 4 x 2048 beside its bound at the bf16
-              tensor-core and the float32 rates; its bf16 ptxas lines.
+              1024, 1 x 1024 and 4 x 2048, and at zamba2-7b's width at
+              4 x 1024, beside its bound at the bf16 tensor-core and the
+              float32 rates; its bf16 ptxas lines.
               ``flash_attention`` at the evaluation path's shape (B=2,
               S=T=4096, H=4, K=1, hd=256) with window 0 and 512, phi3's
               GQA (H=40, K=10, hd=128, S=512), a ragged S=300, T < S and
-              T > S, bf16 and f32, a softcap of 50 that binds, two broken
+              T > S, zamba2-7b's prefill (B=4, S=T=1024, 32 heads over
+              32 of hd 112, in the 128-wide instantiation; also timed
+              beside its bound and SDPA), bf16 and f32, a softcap of 50
+              that binds, two broken
               versions (window ignored, causal mask one key late), and
               the window-512 launch under half the global one's time;
               the ptxas lines of its bf16 tensor-core kernel.
@@ -142,11 +153,33 @@ non-zero without printing a result:
 14. serve_gemma_int8 — the same model and traffic on an int8 pool (the
               rings stay bf16): ``paged_attention`` == 4 x decode waves,
               ``paged_extend_attention`` == 4 x extend waves.
-15. reference_gemma — the gemma3-1b smoke config at float32 (window
+15. serve_gemma_wide — the gemma3-1b weights on an int8 pool with
+              catch-up chunk 64, 4 greedy requests of 600-1000 prompt
+              tokens x 8 new: every extend call at S = 64 through
+              ``paged_extend_attention`` (4 x extend waves), held against
+              the same engine reading through the gather by the int8
+              gate.
+16. serve_hybrid — the seventh main path: zamba2-7b at full width and
+              depth (81 layers: 13 super-blocks of 5 mamba blocks and
+              the shared attention block, 3 remainder mamba blocks;
+              bf16, ~11.2 GB) through ``launch.serve.build_engine``
+              behind the pool-free engine (rings of min(max_len,
+              4096) = 2048 per slot and application), buckets to 1024,
+              8 greedy requests of 16-1000 prompt tokens x 32 new: each
+              admission prefill scans 68 mamba blocks through
+              ``ssd_scan`` and runs the 13 shared-block applications
+              through ``flash_attention``; no paged or quant kernel
+              launches.  Profiles one decode wave.
+17. model_hybrid — one 4-row bucket-1024 hybrid prefill with ragged
+              ``true_len`` through the kernels and through the plain
+              path at float32: logits, mamba states and ring K/V within
+              the stated share of their max, greedy tokens equal; one
+              bf16 prefill of each timed.
+18. reference_gemma — the gemma3-1b smoke config at float32 (window
               16), prompts of 20-150 tokens: the engine on the card and on
               the CPU emit the same greedy tokens on a float pool and
               meet the int8 gate on an int8 pool, both kernels launched.
-16. reference — the phi3 smoke config at float32: the engine on the card
+19. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -156,7 +189,9 @@ non-zero without printing a result:
               engine's tokens exactly on the float pool and meet the
               int8 gate on the int8 pool; the mamba2 smoke config behind
               the pool-free engine, with prompts past the largest
-              bucket, must emit the CPU's tokens on the card; the
+              bucket, must emit the CPU's tokens on the card, and so
+              must the zamba2 smoke config (window 16: rings wrap),
+              with ``ssd_scan`` and ``flash_attention`` launched; the
               gemma3-1b smoke config (8 layers) at float32: the card's
               ``loss_fn(use_flash=True)`` within 1e-5 of the CPU's, two
               train steps' losses and gradient norms within 1e-4.
@@ -251,6 +286,8 @@ SSD_ZAMBA = (112, 64, 64)
 SSD_CASES = ((1, 16), (1, 256), (1, 300), (1, 1024), (1, 2048), (4, 16),
              (4, 256), (4, 300), (4, 1024), (4, 2048))
 SSD_TIMED = ((4, 1024), (1, 1024), (4, 2048))
+# and timed at zamba2-7b's width on its served prefill (b, l)
+SSD_ZAMBA_TIMED = (4, 1024)
 # the kernel against the plain chunked path, both float32 on the same
 # inputs: the same sums in another order (and exp of cumsum differences
 # taken from another cumsum order), of order 1e-6 x max |y|; allowed
@@ -268,7 +305,11 @@ FLASH_CASES = (                               # name, B, S, T, H, K, hd, window
     ("phi3 gqa", 2, 512, 512, 40, 10, 128, 0),
     ("ragged S=300", 2, 300, 300, 4, 1, 256, 64),
     ("T=200 < S=300", 2, 300, 200, 8, 2, 128, 0),
-    ("T=190 > S=130", 1, 130, 190, 4, 4, 64, 16))
+    ("T=190 > S=130", 1, 130, 190, 4, 4, 64, 16),
+    ("zamba2 mha hd112", 4, 1024, 1024, 32, 32, 112, 0))
+# zamba2-7b's admission prefill (a full bucket of 4 rows x 1024, 32 heads
+# over 32 kv heads of 112, causal): a case above and a timed row
+FLASH_HYBRID = (4, 1024, 1024, 32, 32, 112)   # B, S, T, H, K, hd
 # the window-512 launch must take less than this share of the global
 # one's time: its band holds 0.23 of the global launch's pairs
 FLASH_BAND_SHARE = 0.5
@@ -298,8 +339,7 @@ SPEC = dict(spec_decode=True, spec_gamma=4, quant_draft=True)
 # the sixth path: gemma3-1b served, its 20 local layers on dense rings of
 # W = 512 per slot beside 4 global layers on the page pool; prompts past
 # the largest bucket (512 = W) catch up in 16-token extend waves, so the
-# rings wrap.  16 is also as wide as the int8 extend read's shared memory
-# stays on the tensor cores at 4 query heads over 1 kv head, hd 256
+# rings wrap
 GEMMA_ARCH = "gemma3-1b"
 GEMMA_SERVE = dict(max_slots=4, max_len=2048, policy="priority",
                    prefill_buckets=(16, 32, 64, 128, 256, 512),
@@ -316,6 +356,28 @@ BF16_REL_TOL = 0.1
 # package's int8 gate (tests/test_engine_matrix.py): every first token
 # equal and a longest common prefix of at least this share of tokens
 INT8_LCP_SHARE = 0.6
+# the int8 extend read at the widths a catch-up wave may have: gemma3-1b's
+# global layers (4 slots, 128-page tables; the first version refused
+# S >= 22) and phi3's (32-page tables; S >= 41); and a row count one past
+# a 64-row tile (G = 1) and four past one (G = 4); the gemma widths timed
+EXTEND_WIDTHS = (("gemma3", dict(H=4, K=1, hd=256, n_blk=128),
+                  (16, 21, 22, 64, 512)),
+                 ("phi3", dict(n_blk=32), (41, 64)),
+                 ("tile+1", dict(H=4, K=4, hd=128, n_blk=16), (65,)),
+                 ("tile+4", dict(H=8, K=2, hd=64, n_blk=16), (17,)))
+EXTEND_TIMED_GEMMA = (64, 512)
+# a short gemma3-1b int8 drive whose catch-up waves send 64 tokens a slot
+# through the extend read, held to the gather read by the int8 gate
+GEMMA_WIDE_SERVE = dict(GEMMA_SERVE, catch_chunk=64)
+GEMMA_WIDE_TRAFFIC = (4, 600, 1000, 8)        # requests, prompts, new
+# the seventh path: zamba2-7b (81 layers: 13 super-blocks of 5 mamba
+# blocks and the shared attention block, then 3 mamba blocks) behind the
+# pool-free engine; each admission prefill scans 68 mamba blocks through
+# ssd_scan and runs 13 applications of the shared block through
+# flash_attention
+HYBRID_ARCH = "zamba2-7b"
+HYBRID_SERVE = dict(SSM_SERVE)
+HYBRID_TRAFFIC = (8, 16, 1000, 32)            # requests, prompts, new
 
 
 def emit(phase: str, **fields) -> None:
@@ -533,8 +595,8 @@ def _decode_plans(torch, pa, q, kp, bt, dev):
     if not plan.mma:
         return plan, None
     return plan, plan._replace(mma=False, smem=pa.smem_bytes(
-        H // K, 1, hd, bs, plan.chunk, plan.stages, kp.element_size(),
-        suffix=False, mma=False))
+        H // K, hd, bs, plan.chunk, plan.stages, kp.element_size(),
+        q.element_size(), suffix=False, mma=False))
 
 
 def _decode_times(torch, pa, ref, timer, q, kp, vp, bt, ln, scale,
@@ -938,6 +1000,37 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
     held("bfloat16", "gemma3 global", q, kp[0], vp[0], kn, vn, bt, pos,
          scale=256 ** -0.5, **{k: v[0] for k, v in sc.items()})
 
+    # the widths a catch-up wave may have, bf16 q over int8 pages (a
+    # -1 hole below row 0's pos, the last row at pos 0); each plan's
+    # merge without its last split (the suffix's) must fail
+    widths = {}
+    for name, shape, widths_S in EXTEND_WIDTHS:
+        for S in widths_S:
+            q, kp, vp, kn, vn, bt, pos, sc = _extend_inputs(
+                torch, torch.int8, q_dtype=torch.bfloat16, S=S,
+                seed=40 + S, dev=dev, **shape)
+            B, _, H, hd = q.shape
+            K = kp.shape[-2]
+            kw = dict(scale=hd ** -0.5, **{k: v[0] for k, v in sc.items()})
+            args = (q, kp[0], vp[0], kn, vn, bt, pos)
+            case = f"{name} S={S}"
+            held("bfloat16", case, *args, **kw)
+            plan = pea.paged_plan(B, K, H // K, S, bt.shape[1], 16, hd,
+                                  torch.int8, torch.bfloat16,
+                                  _sms(torch, dev), suffix=True)
+            row = {"rows": H // K * S, "plan": plan._asdict()}
+            if plan.splits > 1:
+                broken = pea.split_reference(*args, plan,
+                                             drop=plan.splits - 1, **kw)
+                exp = plain(*args, **kw)
+                row["broken_merge_err"] = float((broken - exp).abs().max())
+                if torch.allclose(broken, exp, **TOL["bfloat16"]):
+                    raise AssertionError(f"paged_extend_attention {case}: "
+                                         "a merge without the last split "
+                                         "passes the tolerance")
+            widths[case] = row
+            del q, kp, vp, kn, vn, args
+
     # timing at the serving path's shapes: a catch-up wave of 4 slots x 4
     # tokens at prompt positions past the largest prefill bucket (128),
     # bf16 queries over int8 pages, one pool per layer (40 pools) cycled
@@ -965,6 +1058,17 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
     errs["gemma3 served chunk (S=16)"] = timed_gemma["kernel_max_abs_err"]
     worst = max(worst, timed_gemma["kernel_max_abs_err"])
     del args
+    # and at wider catch-up chunks, 8 pools cycled
+    timed_wide = {}
+    for S in EXTEND_TIMED_GEMMA:
+        gpos = torch.randint(512, 2048 - S + 1, (4,), generator=g)
+        args = _extend_inputs(torch, torch.int8, q_dtype=torch.bfloat16,
+                              layers=8, S=S, H=4, K=1, hd=256, n_blk=128,
+                              pos=gpos, seed=33 + S, dev=dev)
+        timed_wide[f"S={S}"] = _extend_times(torch, pea, ref, timer, *args,
+                                             256 ** -0.5)
+        worst = max(worst, timed_wide[f"S={S}"]["kernel_max_abs_err"])
+        del args
     return {
         "name": "paged_extend_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_extend_attention.cu",
@@ -975,7 +1079,8 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
     }, {"errors": errs, "tolerance": TOL, "softcap50_moves": moves,
         "timed_pos": row["pos"], "timed_S": S,
         "timed_kernel_max_abs_err_bf16": row["kernel_max_abs_err"],
-        "timed_gemma3": timed_gemma,
+        "timed_gemma3": timed_gemma, "timed_gemma3_wide": timed_wide,
+        "widths": widths,
         "library_call": "gather + dequantize, then "
         "F.scaled_dot_product_attention(enable_gqa=True) with a boolean "
         "mask, all timed",
@@ -1367,6 +1472,24 @@ def check_ssd_scan(torch, ssd, ref, ssm, timer, dev="cuda"):
             row["plain_ms"] = timer(torch, lambda i: ref.ssd_scan_ref(
                 x, dt, A, B, C), iters=3, warmup=1)
         times[f"b={b} l={l}"] = row
+    # zamba2-7b's width on its served prefill
+    b, l = SSD_ZAMBA_TIMED
+    h, p, n = SSD_ZAMBA
+    x, dt, A, B, C = _ssd_inputs(torch, b, l, torch.bfloat16, seed=8,
+                                 dev=dev, h=h, p=p, n=n)
+    Q = min(SSD_CHUNK, l)
+    row = {"ms": timer(torch, lambda i: ssd.ssd_scan(
+        x, dt, A, B, C, chunk=SSD_CHUNK)),
+        "chunked_path_ms": timer(torch, lambda i: ssm.ssd_chunked(
+            x, dt, A, B, C, SSD_CHUNK), iters=5, warmup=1),
+        "plain_ms": timer(torch, lambda i: ref.ssd_scan_ref(
+            x, dt, A, B, C), iters=3, warmup=1),
+        "ops": _ssd_ops(b, l, h, p, n, Q)}
+    for rate in ("bfloat16", "float32"):
+        row[f"bound_ms_{rate}"], row[f"bound_by_{rate}"] = _ssd_bound(
+            b, l, h, p, n, Q, 2, rate)
+    times[f"zamba2 b={b} l={l} h={h} p={p} n={n}"] = row
+    del x, dt, B, C
     first = next(iter(times.values()))
     return {
         "name": "ssd_scan", "route": "cuda",
@@ -1541,6 +1664,26 @@ def check_flash_attention(torch, fa, ref, timer, dev="cuda"):
                                          enable_gqa=True, is_causal=True)
     lib_err = float((lib.transpose(1, 2).float() - ref.flash_attention_ref(
         q.float(), k.float(), v.float(), scale=scale)).abs().max())
+    del lib, qt, kt, vt
+
+    # zamba2-7b's admission prefill: 32 heads over 32 kv heads of 112
+    # (the 128-wide instantiation), causal, bf16
+    hB, hS, hT, hH, hK, hhd = FLASH_HYBRID
+    hq, hk, hv = _flash_inputs(torch, *FLASH_HYBRID, torch.bfloat16,
+                               seed=22, dev=dev)
+    hscale = hhd ** -0.5
+    hqt, hkt, hvt = (t.transpose(1, 2).contiguous() for t in (hq, hk, hv))
+    bound_ms, bound_by, ops = _flash_bound(*FLASH_HYBRID, 0, 2, "bfloat16")
+    times["zamba2 prefill"] = {
+        "shape": f"B={hB} S=T={hS} H={hH} K={hK} hd={hhd} bf16 causal",
+        "ms": timer(torch, lambda i: fa.flash_attention(
+            hq, hk, hv, scale=hscale)),
+        "plain_ms": timer(torch, lambda i: ref.flash_attention_ref(
+            hq, hk, hv, scale=hscale), iters=10, warmup=2),
+        "library_ms": timer(torch, lambda i: F.scaled_dot_product_attention(
+            hqt, hkt, hvt, scale=hscale, is_causal=True)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops}
+    del hq, hk, hv, hqt, hkt, hvt
     share = times["local"]["ms"] / times["global"]["ms"]
     if share >= FLASH_BAND_SHARE:
         raise AssertionError(f"flash_attention: the window-512 launch takes "
@@ -1992,27 +2135,29 @@ def serve_spec_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
     return fields
 
 
-def serve_ssm_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
-    """Drive the fourth main path: mamba2-370m at full width and depth
-    behind the pool-free engine (``use_pallas_paged=True``: admission
-    prefills scan through ``ssd_scan``).  Admission prefill calls are
-    counted around the engine's ``_admit_group`` (one fused prefill each,
-    no pool to refuse a row), and ``ssd_scan`` must have launched once
-    per layer of each; no paged or quant kernel runs.  Also profiles one
-    4-row decode wave.  Returns (engine, cfg, phase fields)."""
+def _serve_pool_free(torch, kernels, serve, M, arch, serve_kw, traffic,
+                     per_prefill, scale, dev):
+    """Serve ``traffic`` through ``launch.serve.build_engine(arch)``
+    behind the pool-free engine (``use_pallas_paged=True``).  Admission
+    prefill calls are counted around the engine's ``_admit_group`` (one
+    fused prefill each, no pool to refuse a row), and each kernel of
+    ``per_prefill(cfg)`` ({name: launches per prefill call}) must have
+    launched that many times per call, every other kernel never.  Also
+    times and profiles one 4-row decode wave.  Returns (engine, cfg,
+    phase fields)."""
     clock = serve.default_clock
     t0 = clock()
-    cfg, eng = serve.build_engine(SSM_ARCH, scale, SSM_SERVE, dev)
+    cfg, eng = serve.build_engine(arch, scale, serve_kw, dev)
     init_s = clock() - t0
     if eng.paged or eng.pool is not None:
-        raise AssertionError("serve_ssm: the ssm engine has a page pool")
+        raise AssertionError(f"serve {arch}: the pool-free engine has a "
+                             "page pool")
     calls = {"_admit_group": 0}
     _count_calls(eng, calls, calls)
-    L = cfg.num_layers
+    per = per_prefill(cfg)
     fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
-        "paged_attention": 0, "paged_extend_attention": 0,
-        "quant_matmul": 0, "ssd_scan": L * calls["_admit_group"]},
-        needs=("ssd_scan",), traffic=SSM_TRAFFIC)
+        name: n * calls["_admit_group"] for name, n in per.items()},
+        needs=tuple(per), traffic=traffic)
     tok = torch.zeros((4, 1), dtype=torch.int32, device=dev)
     pos = torch.zeros((4,), dtype=torch.int32, device=dev)
 
@@ -2020,10 +2165,20 @@ def serve_ssm_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
         return M.decode_step(cfg, eng.params, eng.cache, tok, pos)
     fields.update(
         init_s=init_s, paged=eng.paged, prefill_calls=calls["_admit_group"],
-        prefill_buckets=list(SSM_SERVE["prefill_buckets"]),
+        prefill_buckets=list(serve_kw["prefill_buckets"]),
         decode_wave_ms=cuda_ms(torch, lambda i: wave(), iters=10, warmup=2),
         decode_wave_profile=_device_profile(torch, wave))
     return eng, cfg, fields
+
+
+def serve_ssm_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
+    """Drive the fourth main path: mamba2-370m at full width and depth
+    behind the pool-free engine: every layer of every admission prefill
+    scans through ``ssd_scan``; no paged or quant kernel runs."""
+    return _serve_pool_free(torch, kernels, serve, M, SSM_ARCH, SSM_SERVE,
+                            SSM_TRAFFIC,
+                            lambda cfg: {"ssd_scan": cfg.num_layers}, scale,
+                            dev)
 
 
 def model_ssm_phase(torch, M, eng, cfg, dev="cuda"):
@@ -2076,36 +2231,49 @@ def model_ssm_phase(torch, M, eng, cfg, dev="cuda"):
                 torch, lambda: run(cfg, True))}
 
 
-def reference_ssm(torch, serve_mod, get_smoke_config, ssd, dev="cuda"):
-    """The mamba2 smoke config at float32 behind the pool-free engine,
-    with prompts past the largest bucket (they catch up one token a
-    decode wave): the card (``ssd_scan``) and the CPU (the sequential
-    plain version) must emit the same greedy tokens."""
+def _reference_pool_free(torch, serve_mod, get_smoke_config, kernels, arch,
+                         needs, dev):
+    """``arch``'s smoke config at float32 behind the pool-free engine,
+    prompts of 4-150 tokens (those past the largest bucket, 64, catch up
+    one token a decode wave): the card (hand kernels) and the CPU (plain
+    versions) must emit the same greedy tokens, and each kernel of
+    ``needs`` must have launched on the card.  Returns (card launches,
+    longest prompt)."""
     from repro_torch.models import model as M
     from repro_torch.serving import EdgeServingEngine, ServeConfig
-    cfg = get_smoke_config(SSM_ARCH).replace(dtype="float32")
+    cfg = get_smoke_config(arch).replace(dtype="float32")
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    tokens, launches = {}, 0
+    tokens = {}
     for leg, leg_dev in (("cpu", "cpu"), ("card", dev)):
         eng = EdgeServingEngine(cfg, _to(params, leg_dev), ServeConfig(
             max_slots=3, max_len=192, prefix_cache=False,
             use_pallas_paged=True, policy="priority",
             prefill_buckets=(16, 32, 64)), device=leg_dev)
         reqs = serve_mod.make_requests(cfg, 6, 4, 150, 8, "priority")
-        ssd.launches = 0
+        _zero(kernels)
         serve_mod.run_drain(eng, reqs)
         tokens[leg] = {r.uid: list(r.generated) for r in eng.completed}
-        if leg == "card":
-            launches = ssd.launches
-            catch = max(len(r.prompt) for r in reqs) > 64
+    launches = _counts(kernels)
+    longest = max(len(r.prompt) for r in reqs)
     if tokens["card"] != tokens["cpu"] or len(tokens["cpu"]) != 6 \
-            or launches == 0 or not catch:
-        raise AssertionError(f"reference ssm: card tokens {tokens['card']} "
-                             f"vs CPU {tokens['cpu']}, {launches} ssd_scan "
-                             "launches")
+            or any(launches[n] == 0 for n in needs) or longest <= 64:
+        raise AssertionError(f"reference {arch}: card tokens "
+                             f"{tokens['card']} vs CPU {tokens['cpu']}, "
+                             f"launches {launches}, longest prompt "
+                             f"{longest}")
+    return launches, longest
+
+
+def reference_ssm(torch, serve_mod, get_smoke_config, kernels, dev="cuda"):
+    """The mamba2 smoke config: card (``ssd_scan``) tokens equal to the
+    CPU's (the sequential plain version)."""
+    launches, longest = _reference_pool_free(
+        torch, serve_mod, get_smoke_config, kernels, SSM_ARCH,
+        ("ssd_scan",), dev)
     return {"ssm_arch": f"{SSM_ARCH} smoke, float32",
-            "ssm_tokens_equal": True, "ssm_ssd_scan_launches": launches,
-            "ssm_longest_prompt_past_bucket_64": catch}
+            "ssm_tokens_equal": True,
+            "ssm_ssd_scan_launches": launches["ssd_scan"],
+            "ssm_longest_prompt_past_bucket_64": longest > 64}
 
 
 def train_phase(torch, kernels, train, M, argv=TRAIN_ARGV, dev="cuda"):
@@ -2391,6 +2559,158 @@ def serve_gemma_int8_phase(torch, kernels, serve, M, eng0, cfg):
     return fields
 
 
+def serve_gemma_wide_phase(torch, kernels, M, eng0, cfg):
+    """A short drive of the first gemma engine's weights on an int8 pool
+    with ``catch_chunk=64`` (GEMMA_WIDE_TRAFFIC: every prompt past the
+    largest bucket catches up 64 tokens a slot a wave): with the hand
+    kernels, ``paged_extend_attention`` launches == 4 global layers x
+    extend waves, each call at S = 64 (the first version refused S >=
+    22 at this shape); held against the same engine reading through the
+    gather (``use_pallas_paged=False``) by the int8 gate."""
+    from repro_torch.kernels import paged_extend_attention as pea
+    from repro_torch.launch import serve
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    n_global = cfg.pattern_blocks()[0]
+    widths = []
+    kernel = pea.paged_extend_attention
+
+    def recorded(q, *args, **kw):
+        widths.append(int(q.shape[1]))
+        return kernel(q, *args, **kw)
+    tokens, res = {}, {}
+    for leg, use_kernels in (("gather", False), ("kernels", True)):
+        eng = EdgeServingEngine(cfg, eng0.params, ServeConfig(
+            prefix_cache=False, use_pallas_paged=use_kernels,
+            quant_kv="int8", **GEMMA_WIDE_SERVE), device=eng0.device)
+        reqs = serve.make_requests(cfg, *GEMMA_WIDE_TRAFFIC, "priority")
+        _zero(kernels)
+        pea.paged_extend_attention = recorded
+        try:
+            raw = serve.run_drain(eng, reqs)
+        finally:
+            pea.paged_extend_attention = kernel
+        launches = _counts(kernels)
+        tokens[leg] = {r.uid: list(r.generated) for r in eng.completed}
+        res[leg] = {"steps": raw["decode_steps"],
+                    "decode_waves": eng.decode_waves,
+                    "extend_waves": eng.extend_waves, "catch_chunk": eng.K,
+                    "tok_per_s": raw["tok_per_s"], "launches": launches}
+    extend = n_global * eng.extend_waves
+    if launches["paged_extend_attention"] != extend or extend == 0 \
+            or set(widths) != {GEMMA_WIDE_SERVE["catch_chunk"]} \
+            or len(widths) != extend \
+            or launches["paged_attention"] != n_global * eng.decode_waves:
+        raise AssertionError(f"serve_gemma_wide: launches {launches} for "
+                             f"{eng.decode_waves} decode and "
+                             f"{eng.extend_waves} extend waves, extend "
+                             f"widths {sorted(set(widths))}")
+    first, lcp, total = _int8_gate(tokens["kernels"], tokens["gather"])
+    n = len(tokens["gather"])
+    if len(tokens["kernels"]) != n or first != n \
+            or lcp < INT8_LCP_SHARE * total:
+        raise AssertionError(f"serve_gemma_wide: first tokens {first}/{n}, "
+                             f"LCP {lcp}/{total}: kernels "
+                             f"{tokens['kernels']} vs gather "
+                             f"{tokens['gather']}")
+    return {"legs": res, "extend_widths": sorted(set(widths)),
+            "prompt_lengths": [len(r.prompt) for r in reqs],
+            "int8_first_tokens_equal": f"{first}/{n}",
+            "int8_lcp_share": lcp / total,
+            "tokens_equal": tokens["kernels"] == tokens["gather"],
+            "launches": launches}
+
+
+def serve_hybrid_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
+    """Drive the seventh main path: zamba2-7b at full width and depth
+    behind the pool-free engine: each admission prefill scans its 68
+    mamba blocks through ``ssd_scan`` and runs the shared block's 13
+    applications through ``flash_attention``; no paged or quant kernel
+    runs."""
+    def per_prefill(cfg):
+        n_attn = cfg.num_layers // cfg.hybrid_attn_period
+        return {"ssd_scan": cfg.num_layers - n_attn, "flash_attention": n_attn}
+    eng, cfg, fields = _serve_pool_free(
+        torch, kernels, serve, M, HYBRID_ARCH, HYBRID_SERVE, HYBRID_TRAFFIC,
+        per_prefill, scale, dev)
+    per = per_prefill(cfg)
+    fields.update(mamba_blocks=per["ssd_scan"],
+                  attention_applications=per["flash_attention"],
+                  ring=eng.cache["attn"]["k"].shape[2])
+    return eng, cfg, fields
+
+
+def model_hybrid_phase(torch, M, eng, cfg, dev="cuda"):
+    """``hybrid.prefill`` of one 4-row bucket-1024 batch with ragged
+    ``true_len`` through the kernels (``ssd_scan`` and
+    ``flash_attention``) and through the plain path: at float32
+    activations the logits must agree within F32_REL_TOL x max |logit|,
+    every mamba state (conv and ssm) and every ring's K and V within
+    F32_REL_TOL x their max, and the greedy next tokens must be equal;
+    then one such prefill of each is timed at the serving bf16
+    activations."""
+    g = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 1024), generator=g,
+                           dtype=torch.int32).to(dev)
+    true_len = torch.tensor([1000, 777, 513, 300], dtype=torch.int32,
+                            device=dev)
+    batch = {"tokens": tokens}
+
+    def run(c, kernels):
+        return M.prefill(c, eng.params, batch, HYBRID_SERVE["max_len"],
+                         true_len=true_len, use_kernel=kernels,
+                         use_flash=kernels)
+    cfg32 = cfg.replace(dtype="float32")
+    ker, ker_cache = run(cfg32, True)
+    gat, gat_cache = run(cfg32, False)
+    ker, gat = ker[:, 0].float(), gat[:, 0].float()
+    if not bool(torch.isfinite(ker).all() and torch.isfinite(gat).all()):
+        raise AssertionError("model_hybrid: non-finite logits")
+    scale = float(gat.abs().max())
+    d_logit = float((ker - gat).abs().max())
+    states = {}
+    for part, leaves in (("mamba", ("conv", "ssm")), ("attn", ("k", "v"))):
+        for leaf in leaves:
+            want = gat_cache[part][leaf].float()
+            states[f"{part}.{leaf}"] = (
+                float((ker_cache[part][leaf].float() - want).abs().max()),
+                float(want.abs().max()))
+    if not torch.equal(ker_cache["attn"]["slots"], gat_cache["attn"]["slots"]):
+        raise AssertionError("model_hybrid: ring slots differ")
+    same = int((ker.argmax(-1) == gat.argmax(-1)).sum())
+    bad = {k: v for k, v in states.items() if v[0] > F32_REL_TOL * v[1]}
+    if d_logit > F32_REL_TOL * scale or bad or same != 4:
+        raise AssertionError(
+            f"model_hybrid: kernel vs plain prefill: logits differ by "
+            f"{d_logit} (max {scale}), states beyond tolerance {bad}, "
+            f"greedy tokens agree {same}/4")
+    del ker_cache, gat_cache
+    times = {k: cuda_ms(torch, lambda i, k=k: run(cfg, k), iters=5, warmup=1)
+             for k in (True, False)}
+    return {"rows": 4, "bucket": 1024, "true_len": true_len.tolist(),
+            "max_abs_logit_f32": scale, "f32_kernel_vs_plain": d_logit,
+            "f32_tolerance": f"{F32_REL_TOL} x max |logit| (and x max "
+            "|value| of each state)",
+            "f32_states_kernel_vs_plain_and_max": states,
+            "greedy_agree_f32": f"{same}/4",
+            "prefill_ms_bf16_kernels": times[True],
+            "prefill_ms_bf16_plain": times[False],
+            "prefill_profile_bf16_kernels": _device_profile(
+                torch, lambda: run(cfg, True))}
+
+
+def reference_hybrid(torch, serve_mod, get_smoke_config, kernels,
+                     dev="cuda"):
+    """The zamba2 smoke config (6 layers, window 16: prompts past 16
+    wrap the rings): card (``ssd_scan`` and ``flash_attention``) tokens
+    equal to the CPU's (plain versions)."""
+    launches, longest = _reference_pool_free(
+        torch, serve_mod, get_smoke_config, kernels, HYBRID_ARCH,
+        ("ssd_scan", "flash_attention"), dev)
+    return {"hybrid_arch": f"{HYBRID_ARCH} smoke, float32, window 16",
+            "hybrid_tokens_equal": True, "hybrid_card_launches": launches,
+            "hybrid_longest_prompt": longest}
+
+
 def reference_gemma(torch, M, serve_mod, get_smoke_config, kernels,
                     dev="cuda"):
     """The gemma3-1b smoke config at float32 (window 16, 2 super-blocks
@@ -2643,9 +2963,27 @@ def main() -> int:
     fields = serve_gemma_int8_phase(torch, kernels, serve, M, eng_g, cfg_g)
     for name, n in fields["launches"].items():
         launches[name] += n
+    emit("serve_gemma_int8", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_gemma_wide_phase(torch, kernels, M, eng_g, cfg_g)
+    for name, n in fields["launches"].items():
+        launches[name] += n
     del eng_g
     _release(torch)
-    emit("serve_gemma_int8", seconds=clock() - t0, **fields)
+    emit("serve_gemma_wide", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    eng_h, cfg_h, fields = serve_hybrid_phase(torch, kernels, serve, M)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_hybrid", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = model_hybrid_phase(torch, M, eng_h, cfg_h)
+    del eng_h
+    _release(torch)
+    emit("model_hybrid", seconds=clock() - t0, **fields)
 
     t0 = clock()
     emit("reference_gemma", **reference_gemma(
@@ -2653,7 +2991,8 @@ def main() -> int:
 
     t0 = clock()
     fields = reference_phase(torch, M, serve, get_smoke_config, qm)
-    fields.update(reference_ssm(torch, serve, get_smoke_config, ssd))
+    fields.update(reference_ssm(torch, serve, get_smoke_config, kernels))
+    fields.update(reference_hybrid(torch, serve, get_smoke_config, kernels))
     fields.update(reference_train(torch, M, get_smoke_config))
     emit("reference", seconds=clock() - t0, **fields)
 
@@ -2662,8 +3001,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name, row in rows.items():
-        # main-path launches: the six serve phases and model_train, each
-        # counted from 0
+        # main-path launches: the serve phases (the gemma int8 drive at
+        # catch chunk 64 included) and model_train, each counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))

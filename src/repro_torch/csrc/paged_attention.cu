@@ -76,6 +76,7 @@ extern "C" int repro_paged_attention(
   a.ws = static_cast<float*>(ws);
   a.counters = static_cast<unsigned*>(counters);
   a.S = 1;
+  a.rows = H / K;  // one tile: the G rows of a kv head
   a.H = H;
   a.K = K;
   a.hd = hd;

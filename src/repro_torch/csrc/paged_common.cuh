@@ -5,25 +5,32 @@
 // suffix; the .cu files hold the header notes, the launch checks and the
 // C entry points.
 //
-// The kernel, for one (kv head kh, sequence b, split) block of 128 threads:
+// The kernel, for one (row tile, kv head kh, sequence b, split) block of 128
+// threads:
 //
 // * Rows.  The R = G * S query rows of the kv head's group (row r = s * G +
-//   g reads q[b, s, kh * G + g]) are staged once as float in shared memory;
-//   each scoring pass loads its rows' slices into registers.
+//   g reads q[b, s, kh * G + g]) are cut into tiles of `rows` (at most 64,
+//   the host's plan; decode has one tile of G rows).  A block stages its
+//   tile's rows once as float in shared memory, with a float accumulator
+//   beside them, so its shared memory does not grow with S; each scoring
+//   pass loads its rows' slices into registers.
 // * Split.  The block owns table entries [split * pages, + pages) of row b,
 //   clipped to the entries below the row's limit (its length for decode,
 //   pos for extend).  A split with nothing to read writes an empty partial
 //   (m = -1e30, l = 0) and goes straight to the arrival count.
 // * Staging.  The split's pages are read `chunk` pages at a time, in a ring
-//   of one or two chunk stages: the K and V rows of this kv head (and the
-//   int8 row scales) go to shared memory in the pool's own type by 16-byte
+//   of one or two stages: the K and V rows of this kv head (and the int8
+//   row scales) go to shared memory in the pool's own type by 16-byte
 //   `cp.async.cg` copies (4-byte `cp.async.ca` for the scales).  Both
 //   stages are issued before the first wait, so one memory latency covers
 //   a split of up to two chunks; a longer split reloads a stage as soon as
 //   its chunk has been used.  Slots of -1 table entries, positions at or
 //   past the limit and padding are zero-filled (the copy reads no byte), so
 //   nothing past a row's keys is dereferenced and no stale value reaches a
-//   product.
+//   product.  The extend read's last split then streams the causal suffix
+//   through the same ring, 16 keys a stage in q's type: only the keys t <=
+//   s of the tile's last token s, so no block holds more than a 16-key
+//   tile of the suffix.
 // * Scores, softmax, P.V in block steps (CUDA cores, or tensor cores
 //   where the by-warp path below does not apply).  Scores: on the CUDA
 //   cores a team of lanes (a power of two, up to 32, each lane 16 bytes of
@@ -43,22 +50,22 @@
 //   split into bf16 hi + lo (two products into one float32 accumulator)
 //   so P is used to about 2^-17 of its value.  O stays in shared memory
 //   as float32 across chunks; three barriers a chunk.
-// * By warp (tensor cores, R <= 16 rows, hd <= 128, a split of several
-//   chunks): each warp takes its own 16-key groups of every chunk and
-//   keeps an online softmax of its own, m, l and the 16 x hd accumulator
-//   in registers; the score fragments of a group are the A fragment of
-//   its p.v (P never leaves registers), V's fragments come by
+// * By warp (tensor cores, a tile of <= 16 rows, hd <= 128, a split of
+//   several chunks): each warp takes its own 16-key groups of every chunk
+//   and keeps an online softmax of its own, m, l and the 16 x hd
+//   accumulator in registers; the score fragments of a group are the A
+//   fragment of its p.v (P never leaves registers), V's fragments come by
 //   `ldmatrix.trans`, and a byte mask written with the copies says which
 //   slots hold keys.  No barrier within a chunk; the four warps are merged
 //   in warp order once, at the end.
 // * Merge.  Unsplit (one split), the block writes acc / max(l, 1e-30).
-//   Split, it writes its partial (m, l, acc[hd]) per row to a float32
-//   workspace, then counts its arrival on the (b, kh) counter; the last
-//   block to arrive merges the partials in split order (empty ones weigh
-//   nothing) from shared-memory weights, several float4 loads of the
-//   partials in flight a thread, writes the output and resets the
-//   counter.  The result is bitwise repeatable, and a row with no visible
-//   key is 0.
+//   Split, it writes its tile's partials (m, l, acc[hd]) per row to a
+//   float32 workspace, then counts its arrival on the (b, kh, row tile)
+//   counter; the last block to arrive merges the tile's partials in split
+//   order (empty ones weigh nothing) from shared-memory weights, several
+//   float4 loads of the partials in flight a thread, writes the output and
+//   resets the counter.  The result is bitwise repeatable, and a row with
+//   no visible key is 0.
 
 #pragma once
 
@@ -98,11 +105,13 @@ struct Args {
   const int32_t* limit;     // (B,): lengths (decode) or pos (extend)
   void* out;                // (B, S, H, hd) TQ
   float* ws;                // partials of a split launch
-  unsigned* counters;       // B * K arrival counters of a split launch
+  unsigned* counters;       // B * K * tiles arrival counters (split launch)
   int S, H, K, hd, bs, n_blk;
-  int splits, pages, chunk, stages, mma;  // the host's plan
+  int rows, splits, pages, chunk, stages, mma;  // the host's plan
   float scale, softcap;
 };
+
+constexpr int kSfxTile = 16;  // suffix keys a stage holds
 
 // Byte offsets of a block's dynamic shared memory.  The wrappers'
 // `smem_bytes` computes the same total, and the launch refuses a plan
@@ -110,30 +119,30 @@ struct Args {
 struct Layout {
   int nkp;      // key slots of a staged chunk (chunk * bs, to 16 for mma)
   int rsb;      // bytes of a staged page row (padded by 16 for mma)
-  int sfx;      // suffix rows staged (S, to 16 for mma); 0 for decode
-  int sfx_ld;   // floats of a staged suffix row (padded by 4 for mma)
+  int xsb;      // bytes of a staged suffix row, q's type (0 for decode)
+  int half;     // bytes of a stage's K (or V) half
   int pw;       // floats of a score row
   // byte offsets of q, o, p, the int8 scales, the row statistics, and on
   // the tensor cores the warps' (m, l) of 16 rows and the chunk slots' key
-  // mask (the ring, or the staged suffix, starts at 0), and the total
+  // mask (the ring starts at 0), and the total
   size_t q, o, p, sc, st, wm, vk, total;
 };
 
 __host__ __device__ inline int round16(int x) { return (x + 15) / 16 * 16; }
 
-__host__ __device__ inline Layout layout(int R, int S, int hd, int bs,
-                                         int chunk, int stages,
-                                         int page_elt, bool suffix,
-                                         bool mma) {
+// R: the rows of a tile (the plan's `rows`)
+__host__ __device__ inline Layout layout(int R, int hd, int bs, int chunk,
+                                         int stages, int page_elt, int q_elt,
+                                         bool suffix, bool mma) {
   Layout L;
   L.nkp = mma ? round16(chunk * bs) : chunk * bs;
   L.rsb = hd * page_elt + (mma ? 16 : 0);
-  L.sfx = suffix ? (mma ? round16(S) : S) : 0;
-  L.sfx_ld = hd + (mma ? 4 : 0);
-  L.pw = (L.nkp > L.sfx ? L.nkp : L.sfx) + (mma ? 4 : 0);
-  const size_t ring = static_cast<size_t>(stages) * 2 * L.nkp * L.rsb;
-  const size_t sfx = static_cast<size_t>(2) * L.sfx * L.sfx_ld * 4;
-  L.q = ring > sfx ? ring : sfx;  // the suffix reuses the ring
+  L.xsb = suffix ? hd * q_elt + (mma ? 16 : 0) : 0;
+  const int kb = L.nkp * L.rsb, xb = kSfxTile * L.xsb;
+  L.half = kb > xb ? kb : xb;
+  const int keys = suffix && kSfxTile > L.nkp ? kSfxTile : L.nkp;
+  L.pw = keys + (mma ? 4 : 0);
+  L.q = static_cast<size_t>(stages) * 2 * L.half;
   L.o = L.q + static_cast<size_t>(R) * hd * 4;
   L.p = L.o + static_cast<size_t>(R) * hd * 4;
   L.sc = L.p + static_cast<size_t>(R) * L.pw * 4;
@@ -287,10 +296,21 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
 // the steps of a chunk
 // ---------------------------------------------------------------------------
 
+// The suffix's causal rule for a staged tile: slot t (suffix key key0 + t)
+// is visible to tile row r (query row row0 + r, token (row0 + r) / g) when
+// key0 + t <= (row0 + r) / g; g = 0 (a context chunk) sees every slot.
+struct Causal {
+  int g, key0, row0;
+  __device__ __forceinline__ bool ok(int t, int r) const {
+    return g == 0 || key0 + t <= (row0 + r) / g;
+  }
+};
+
+
 // Score of query row r against key slot t of a staged chunk (rows of
 // `ld` elements of type TS from `keys`): cap(scale * ks[t] * (q_r . k_t)),
-// or kNegInf where the slot holds no key (!key_ok(t)) or, with causal_g >
-// 0, t > r / causal_g (the suffix); into p[r * pw + t] for t < nk.
+// or kNegInf where the slot holds no key (!key_ok(t)) or the causal rule
+// `cz` hides it (the suffix); into p[r * pw + t] for t < nk.
 // CUDA cores: teams of lanes over the row, four query rows a pass.
 template <typename TS, typename KeyOk>
 __device__ __forceinline__ void scores_cuda(const float* q_s, int R, int hd,
@@ -298,7 +318,7 @@ __device__ __forceinline__ void scores_cuda(const float* q_s, int R, int hd,
                                             const float* ks, float* p,
                                             int pw, float scale,
                                             float softcap, KeyOk key_ok,
-                                            int causal_g) {
+                                            Causal cz) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(TS));
   constexpr int VPL = sizeof(TS) == 4 ? 2 : 1;  // vectors a lane, hd <= 256
   const int nv = hd / VEC;
@@ -348,7 +368,7 @@ __device__ __forceinline__ void scores_cuda(const float* q_s, int R, int hd,
         if (tlane == 0 && t < nk && r < R) {
           float s = part * kscale;
           if (softcap > 0.f) s = softcap * tanhf(s / softcap);
-          const bool ok = kv && (causal_g == 0 || t <= r / causal_g);
+          const bool ok = kv && cz.ok(t, r);
           p[r * pw + t] = ok ? s : kNegInf;
         }
       }
@@ -365,7 +385,7 @@ __device__ __forceinline__ void scores_mma(const float* q_s, int R, int hd,
                                            int nkp, const float* ks,
                                            float* p, int pw, float scale,
                                            float softcap, KeyOk key_ok,
-                                           int causal_g) {
+                                           Causal cz) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t4 = lane & 3;
   for (int m0 = 0; m0 < R; m0 += 16) {
@@ -401,7 +421,7 @@ __device__ __forceinline__ void scores_mma(const float* q_s, int R, int hd,
         if (r >= R) continue;
         float x = s[e] * scale * (ks != nullptr ? ks[t] : 1.f);
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-        const bool ok = kv[e & 1] && (causal_g == 0 || t <= r / causal_g);
+        const bool ok = kv[e & 1] && cz.ok(t, r);
         p[r * pw + t] = ok ? x : kNegInf;
       }
     }
@@ -566,7 +586,7 @@ struct WarpAcc {
 
 // One warp's step over key slots [k0, k0 + 16) of a staged chunk (rows of
 // `ld` elements of type TS: keys, vals; the first nk slots may hold keys,
-// key_ok and causal_g as for scores_cuda; ks / vs the int8 row scales or
+// key_ok and cz as for scores_cuda; ks / vs the int8 row scales or
 // null): scores on the tensor cores, each k step into a fresh fragment;
 // the online-softmax update in registers; P (times vs) split into bf16 hi
 // + lo as the A fragment of the p.v product, so P never leaves registers;
@@ -578,7 +598,7 @@ __device__ __forceinline__ void warp_group(WarpAcc& w, const float* q_s,
                                            int nk, const float* ks,
                                            const float* vs, float scale,
                                            float softcap, KeyOk key_ok,
-                                           int causal_g) {
+                                           Causal cz) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int r[2] = {g, g + 8};
@@ -587,6 +607,11 @@ __device__ __forceinline__ void warp_group(WarpAcc& w, const float* q_s,
   const bool in0 = r[0] < R, in1 = r[1] < R;
   const TS* kr0 = keys + static_cast<size_t>(k0 + g) * ld;
   const TS* kr1 = kr0 + 8 * static_cast<size_t>(ld);
+  // the last slot each of rows g, g + 8 sees under the causal rule
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    lim[h] = cz.g == 0 ? 0x7fffffff : (cz.row0 + r[h]) / cz.g - cz.key0;
   float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll 4
   for (int d = 0; d < hd; d += 16) {
@@ -624,7 +649,7 @@ __device__ __forceinline__ void warp_group(WarpAcc& w, const float* q_s,
         float x = s[j][e] * kscale;
         if (softcap > 0.f) x = softcap * tanhf(x / softcap);
         const bool v =
-            kv && r[h] < R && (causal_g == 0 || t <= r[h] / causal_g);
+            kv && r[h] < R && t <= lim[h];
         ok |= static_cast<unsigned>(v) << (4 * j + e);
         s[j][e] = x;
         if (v) mx[h] = fmaxf(mx[h], x);
@@ -837,6 +862,28 @@ __device__ __forceinline__ void issue_chunk(
   }
 }
 
+// Issue the copies of one suffix tile: k_new / v_new[b, key0 + t, kh, :]
+// (rows of hd elements of q's type TQ) for t < kSfxTile into kx / vx (rows
+// of ld elements); keys at or past n (the tile's last visible key + 1) are
+// zero-filled and read nothing.
+template <typename TQ>
+__device__ __forceinline__ void issue_suffix(const TQ* kn, const TQ* vn,
+                                             int b, int S, int K, int hd,
+                                             int kh, int key0, int n, int ld,
+                                             TQ* kx, TQ* vx) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(TQ));
+  const int nvec = hd / VEC;
+  for (int i = threadIdx.x; i < kSfxTile * nvec; i += kThreads) {
+    const int t = i / nvec;
+    const int off = (i - t * nvec) * VEC;
+    const bool ok = key0 + t < n;
+    const size_t src =
+        ok ? ((static_cast<size_t>(b) * S + key0 + t) * K + kh) * hd + off : 0;
+    cp_async16(kx + static_cast<size_t>(t) * ld + off, kn + src, ok ? 16 : 0);
+    cp_async16(vx + static_cast<size_t>(t) * ld + off, vn + src, ok ? 16 : 0);
+  }
+}
+
 
 // tensor cores take bf16 queries over bf16 or int8 pages
 template <typename TQ, typename TP>
@@ -856,11 +903,17 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
   static_assert(!kWarp || kMma, "the warp path runs on the tensor cores");
   constexpr bool kI8 = std::is_same<TP, int8_t>::value;
   constexpr bool mma = kMma;
-  const int kh = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int G = a.H / a.K, S = a.S, R_all = G * S, hd = a.hd, bs = a.bs;
+  const int tiles = (R_all + a.rows - 1) / a.rows;
+  const int kh = blockIdx.x / tiles, rt = blockIdx.x - kh * tiles;
+  const int b = blockIdx.y, split = blockIdx.z;
   const int tid = threadIdx.x;
-  const int G = a.H / a.K, S = a.S, R = G * S, hd = a.hd, bs = a.bs;
-  const Layout L = layout(R, S, hd, bs, a.chunk, a.stages,
-                          static_cast<int>(sizeof(TP)), kSuffix, mma);
+  // this block's rows: [r0, r0 + R) of the R_all rows of (b, kh)
+  const int r0 = rt * a.rows;
+  const int R = min(a.rows, R_all - r0);
+  const Layout L = layout(a.rows, hd, bs, a.chunk, a.stages,
+                          static_cast<int>(sizeof(TP)),
+                          static_cast<int>(sizeof(TQ)), kSuffix, mma);
 
   extern __shared__ __align__(16) unsigned char smem[];
   float* q_s = reinterpret_cast<float*>(smem + L.q);  // (R, hd) queries
@@ -868,8 +921,8 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
   float* p_s = reinterpret_cast<float*>(smem + L.p);  // (R, pw) scores / p
   float* sc_s = reinterpret_cast<float*>(smem + L.sc);  // int8 row scales
   float* m_s = reinterpret_cast<float*>(smem + L.st);   // (R,) running max
-  float* l_s = m_s + R;                                 // (R,) denominator
-  float* a_s = l_s + R;                                 // (R,) rescale
+  float* l_s = m_s + a.rows;                            // (R,) denominator
+  float* a_s = l_s + a.rows;                            // (R,) rescale
   __shared__ bool last;
   unsigned char* vk_s = smem + L.vk;  // (stages, nkp) key mask (mma)
   constexpr bool by_warp = kWarp;
@@ -888,10 +941,13 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
   const int n_chunks =
       j_end > j_begin ? (j_end - j_begin + a.chunk - 1) / a.chunk : 0;
   const bool has_suffix = kSuffix && split == a.splits - 1;
-  const bool empty = n_chunks == 0 && !has_suffix;
+  // the suffix keys the tile sees: t <= s of its last token s
+  const int n_sfx = has_suffix ? min(S, (r0 + R - 1) / G + 1) : 0;
+  const int n_steps = n_chunks + (n_sfx + kSfxTile - 1) / kSfxTile;
+  const bool empty = n_steps == 0;
   const int32_t* table = a.tables + static_cast<size_t>(b) * a.n_blk;
   const int ld = L.rsb / static_cast<int>(sizeof(TP));  // staged row, elts
-  const size_t stage_elts = static_cast<size_t>(L.nkp) * ld;
+  const int ldx = L.xsb / static_cast<int>(sizeof(TQ));  // suffix row, elts
   // query / output row r = s * G + g: (b, s, kh * G + g, :)
   const int H = a.H;
   const size_t row0 = static_cast<size_t>(b) * S * H + kh * G;
@@ -902,114 +958,118 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
 
   const TP* kp = static_cast<const TP*>(a.k_pages);
   const TP* vp = static_cast<const TP*>(a.v_pages);
+  const TQ* kn = static_cast<const TQ*>(a.k_new);
+  const TQ* vn = static_cast<const TQ*>(a.v_new);
   const float* k_scale = a.k_scale;
   const float* v_scale = a.v_scale;
-  const int K = a.K, chunk = a.chunk, nkp = L.nkp;
+  const int K = a.K, chunk = a.chunk, nkp = L.nkp, half = L.half;
+  // step c < n_chunks stages chunk c of the split, a later step the
+  // suffix tile c - n_chunks; stage st holds K at 2 st half, V after it
   auto issue = [=](int c, int st) {
-    const int j0 = j_begin + c * chunk;
-    TP* ks = reinterpret_cast<TP*>(smem) + 2 * st * stage_elts;
-    issue_chunk<TP>(kp, vp, k_scale, v_scale, table, K, hd, bs, kh, j0,
-                    min(j0 + chunk, j_end), limit, nkp, ld, ks,
-                    ks + stage_elts, sc_s + 2 * st * nkp,
-                    mma ? vk_s + st * nkp : nullptr);
+    unsigned char* base = smem + static_cast<size_t>(2 * st) * half;
+    if (c < n_chunks) {
+      const int j0 = j_begin + c * chunk;
+      issue_chunk<TP>(kp, vp, k_scale, v_scale, table, K, hd, bs, kh, j0,
+                      min(j0 + chunk, j_end), limit, nkp, ld,
+                      reinterpret_cast<TP*>(base),
+                      reinterpret_cast<TP*>(base + half), sc_s + 2 * st * nkp,
+                      mma ? vk_s + st * nkp : nullptr);
+    } else if constexpr (kSuffix) {
+      issue_suffix<TQ>(kn, vn, b, S, K, hd, kh, (c - n_chunks) * kSfxTile,
+                       n_sfx, ldx, reinterpret_cast<TQ*>(base),
+                       reinterpret_cast<TQ*>(base + half));
+    }
   };
 
   if (!empty) {
     const TQ* q = static_cast<const TQ*>(a.q);
     for (int i = tid; i < R * hd; i += kThreads) {
       const int r = i / hd;
-      q_s[i] = to_float(q[row_at(r) * hd + (i - r * hd)]);
+      q_s[i] = to_float(q[row_at(r0 + r) * hd + (i - r * hd)]);
       o_s[i] = 0.f;
     }
     for (int r = tid; r < R; r += kThreads) {
       m_s[r] = kNegInf;
       l_s[r] = 0.f;
     }
-    for (int c = 0; c < a.stages && c < n_chunks; ++c) {
+    for (int c = 0; c < a.stages && c < n_steps; ++c) {
       issue(c, c);
       cp_async_commit();
     }
 
-    for (int c = 0; c < n_chunks; ++c) {
-      // chunk c + 1 may still be in flight
-      if (a.stages == 2 && c + 1 < n_chunks)
+    for (int c = 0; c < n_steps; ++c) {
+      // step c + 1 may still be in flight
+      if (a.stages == 2 && c + 1 < n_steps)
         cp_async_wait<1>();
       else
         cp_async_wait<0>();
-      __syncthreads();  // chunk c staged; the last chunk's readers done
+      __syncthreads();  // step c staged; the last step's readers done
       const int st = c % a.stages;
-      const TP* ks = reinterpret_cast<const TP*>(smem) + 2 * st * stage_elts;
-      const TP* vs = ks + stage_elts;
-      const float* ksc = kI8 ? sc_s + 2 * st * L.nkp : nullptr;
-      const float* vsc = kI8 ? ksc + L.nkp : nullptr;
-      const int j0 = j_begin + c * a.chunk;
-      const int j1 = min(j0 + a.chunk, j_end);
-      const int nk = (j1 - j0) * bs;
-      const ChunkKeys in_chunk{table, j0, j1, bs, limit};
-      if (by_warp) {
-        const MaskKeys in_mask{vk_s + st * L.nkp};
-        for (int k0 = 16 * (tid >> 5); k0 < L.nkp; k0 += 16 * kWarps)
-          warp_group(acc, q_s, R, hd, ks, vs, ld, k0, nk, ksc, vsc, a.scale,
-                     a.softcap, in_mask, 0);
-      } else {
-        if (mma)
-          scores_mma(q_s, R, hd, ks, ld, nk, L.nkp, ksc, p_s, L.pw, a.scale,
-                     a.softcap, in_chunk, 0);
-        else
-          scores_cuda(q_s, R, hd, ks, ld, nk, ksc, p_s, L.pw, a.scale,
-                      a.softcap, in_chunk, 0);
-        __syncthreads();
-        softmax_step(p_s, L.pw, R, nk, mma ? L.nkp : nk, vsc, m_s, l_s, a_s);
-        __syncthreads();
-        if (mma)
-          pv_mma(p_s, L.pw, R, hd, L.nkp, vs, ld, a_s, o_s);
-        else
-          pv_cuda(p_s, L.pw, R, hd, nk, vs, ld, a_s, o_s);
+      const unsigned char* base = smem + static_cast<size_t>(2 * st) * half;
+      if (c < n_chunks) {
+        const TP* ks = reinterpret_cast<const TP*>(base);
+        const TP* vs = reinterpret_cast<const TP*>(base + half);
+        const float* ksc = kI8 ? sc_s + 2 * st * L.nkp : nullptr;
+        const float* vsc = kI8 ? ksc + L.nkp : nullptr;
+        const int j0 = j_begin + c * a.chunk;
+        const int j1 = min(j0 + a.chunk, j_end);
+        const int nk = (j1 - j0) * bs;
+        const ChunkKeys in_chunk{table, j0, j1, bs, limit};
+        const Causal all{0, 0, 0};
+        if (by_warp) {
+          const MaskKeys in_mask{vk_s + st * L.nkp};
+          for (int k0 = 16 * (tid >> 5); k0 < L.nkp; k0 += 16 * kWarps)
+            warp_group(acc, q_s, R, hd, ks, vs, ld, k0, nk, ksc, vsc,
+                       a.scale, a.softcap, in_mask, all);
+        } else {
+          if (mma)
+            scores_mma(q_s, R, hd, ks, ld, nk, L.nkp, ksc, p_s, L.pw,
+                       a.scale, a.softcap, in_chunk, all);
+          else
+            scores_cuda(q_s, R, hd, ks, ld, nk, ksc, p_s, L.pw, a.scale,
+                        a.softcap, in_chunk, all);
+          __syncthreads();
+          softmax_step(p_s, L.pw, R, nk, mma ? L.nkp : nk, vsc, m_s, l_s,
+                       a_s);
+          __syncthreads();
+          if (mma)
+            pv_mma(p_s, L.pw, R, hd, L.nkp, vs, ld, a_s, o_s);
+          else
+            pv_cuda(p_s, L.pw, R, hd, nk, vs, ld, a_s, o_s);
+        }
+      } else if constexpr (kSuffix) {
+        // suffix keys [key0, key0 + nk) in q's type; tile row r (query row
+        // r0 + r, token (r0 + r) / G) sees keys t <= its token
+        const TQ* kx = reinterpret_cast<const TQ*>(base);
+        const TQ* vx = reinterpret_cast<const TQ*>(base + half);
+        const int key0 = (c - n_chunks) * kSfxTile;
+        const int nk = min(kSfxTile, n_sfx - key0);
+        const Causal cz{G, key0, r0};
+        if (by_warp) {
+          if ((tid >> 5) == 0)
+            warp_group(acc, q_s, R, hd, kx, vx, ldx, 0, nk, nullptr, nullptr,
+                       a.scale, a.softcap, AllKeys{}, cz);
+        } else {
+          if (mma)
+            scores_mma(q_s, R, hd, kx, ldx, nk, kSfxTile, nullptr, p_s, L.pw,
+                       a.scale, a.softcap, AllKeys{}, cz);
+          else
+            scores_cuda(q_s, R, hd, kx, ldx, nk, nullptr, p_s, L.pw, a.scale,
+                        a.softcap, AllKeys{}, cz);
+          __syncthreads();
+          softmax_step(p_s, L.pw, R, nk, mma ? kSfxTile : nk, nullptr, m_s,
+                       l_s, a_s);
+          __syncthreads();
+          if (mma)
+            pv_mma(p_s, L.pw, R, hd, kSfxTile, vx, ldx, a_s, o_s);
+          else
+            pv_cuda(p_s, L.pw, R, hd, nk, vx, ldx, a_s, o_s);
+        }
       }
-      if (c + a.stages < n_chunks) {
+      if (c + a.stages < n_steps) {
         __syncthreads();  // stage st is free
         issue(c + a.stages, st);
         cp_async_commit();
-      }
-    }
-
-    if (has_suffix) {
-      // k_new / v_new[b, t, kh, :] for t < S, as float (rows past S zero),
-      // in the ring's space; query row r = s * G + g sees keys t <= s
-      __syncthreads();
-      float* kx = reinterpret_cast<float*>(smem);
-      float* vx = kx + static_cast<size_t>(L.sfx) * L.sfx_ld;
-      const TQ* kn = static_cast<const TQ*>(a.k_new);
-      const TQ* vn = static_cast<const TQ*>(a.v_new);
-      for (int i = tid; i < L.sfx * hd; i += kThreads) {
-        const int t = i / hd;
-        const int d = i - t * hd;
-        const size_t src =
-            ((static_cast<size_t>(b) * S + t) * a.K + kh) * hd + d;
-        kx[t * L.sfx_ld + d] = t < S ? to_float(kn[src]) : 0.f;
-        vx[t * L.sfx_ld + d] = t < S ? to_float(vn[src]) : 0.f;
-      }
-      __syncthreads();
-      const float* kxc = kx;
-      const float* vxc = vx;
-      if (by_warp) {
-        for (int k0 = 16 * (tid >> 5); k0 < L.sfx; k0 += 16 * kWarps)
-          warp_group(acc, q_s, R, hd, kxc, vxc, L.sfx_ld, k0, S, nullptr,
-                     nullptr, a.scale, a.softcap, AllKeys{}, G);
-      } else {
-        if (mma)
-          scores_mma(q_s, R, hd, kxc, L.sfx_ld, S, L.sfx, nullptr, p_s, L.pw,
-                     a.scale, a.softcap, AllKeys{}, G);
-        else
-          scores_cuda(q_s, R, hd, kxc, L.sfx_ld, S, nullptr, p_s, L.pw,
-                      a.scale, a.softcap, AllKeys{}, G);
-        __syncthreads();
-        softmax_step(p_s, L.pw, R, S, L.sfx, nullptr, m_s, l_s, a_s);
-        __syncthreads();
-        if (mma)
-          pv_mma(p_s, L.pw, R, hd, L.sfx, vxc, L.sfx_ld, a_s, o_s);
-        else
-          pv_cuda(p_s, L.pw, R, hd, S, vxc, L.sfx_ld, a_s, o_s);
       }
     }
     if (by_warp)
@@ -1022,47 +1082,49 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
   if (a.splits == 1) {
     for (int i = tid; i < R * hd; i += kThreads) {
       const int r = i / hd;
-      store(out + row_at(r) * hd + (i - r * hd),
+      store(out + row_at(r0 + r) * hd + (i - r * hd),
             empty ? 0.f : o_s[i] / fmaxf(l_s[r], 1e-30f));
     }
     return;
   }
 
-  // the partial of each row: acc[hd] to [head][split][R][hd] of the
-  // workspace, (m, l) to [head][split][R] after all the accumulators; an
-  // empty split writes (m, l) only
+  // the partial of each row: acc[hd] to [head][split][R_all][hd] of the
+  // workspace, (m, l) to [head][split][R_all] after all the accumulators;
+  // this tile's rows start at r0; an empty split writes (m, l) only
   const size_t head = static_cast<size_t>(b) * a.K + kh;
   const size_t n_acc =
-      static_cast<size_t>(gridDim.y) * a.K * a.splits * R * hd;
-  const float* acc_ws = a.ws + head * a.splits * R * hd;
-  const float2* st_ws =
-      reinterpret_cast<const float2*>(a.ws + n_acc) + head * a.splits * R;
+      static_cast<size_t>(gridDim.y) * a.K * a.splits * R_all * hd;
+  const float* acc_ws = a.ws + (head * a.splits * R_all + r0) * hd;
+  const float2* st_ws = reinterpret_cast<const float2*>(a.ws + n_acc) +
+                        head * a.splits * R_all + r0;
   if (!empty) {
-    float* mine = a.ws + (head * a.splits + split) * R * hd;
+    float* mine = a.ws + ((head * a.splits + split) * R_all + r0) * hd;
     for (int i = tid; i < R * hd; i += kThreads) mine[i] = o_s[i];
   }
   for (int r = tid; r < R; r += kThreads) {
-    reinterpret_cast<float2*>(a.ws + n_acc)[(head * a.splits + split) * R +
-                                            r] =
+    reinterpret_cast<float2*>(a.ws + n_acc)[(head * a.splits + split) * R_all +
+                                            r0 + r] =
         empty ? make_float2(kNegInf, 0.f) : make_float2(m_s[r], l_s[r]);
   }
   __threadfence();  // this block's partials are visible device-wide
   __syncthreads();
-  if (tid == 0) last = atomicAdd(&a.counters[head], 1u) == a.splits - 1u;
+  unsigned* counter = a.counters + head * tiles + rt;
+  if (tid == 0) last = atomicAdd(counter, 1u) == a.splits - 1u;
   __syncthreads();
   if (!last) return;
   __threadfence();
 
-  // the last block merges the partials in split order.  Every split's
-  // (m, l) into shared memory (the space of q and the accumulator, which
-  // holds 2 * hd floats a row: the plan keeps splits <= hd); a warp per
-  // row takes its max M, the weights w = exp(m - M) (0 for a split
+  // the last block merges the tile's partials in split order.  Every
+  // split's (m, l) into shared memory (the space of q and the accumulator,
+  // which holds 2 * hd floats a row: the plan keeps splits <= hd); a warp
+  // per row takes its max M, the weights w = exp(m - M) (0 for a split
   // without keys) and L = sum l * w; then each thread sums 4 columns of
   // w * acc over the splits, several loads in flight
   float* w_s = reinterpret_cast<float*>(smem + L.q);  // (splits, R)
   float* ls_s = w_s + a.splits * R;                  // (splits, R)
   for (int i = tid; i < a.splits * R; i += kThreads) {
-    const float2 v = __ldcg(st_ws + i);
+    const int s = i / R;
+    const float2 v = __ldcg(st_ws + static_cast<size_t>(s) * R_all + (i - s * R));
     w_s[i] = v.y > 0.f ? v.x : kNegInf;
     ls_s[i] = v.y;
   }
@@ -1095,7 +1157,7 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
 #pragma unroll 8
     for (int s = 0; s < a.splits; ++s) {
       const float4 v = __ldcg(reinterpret_cast<const float4*>(
-          acc_ws + (static_cast<size_t>(s) * R + r) * hd + c));
+          acc_ws + (static_cast<size_t>(s) * R_all + r) * hd + c));
       const float w = w_s[s * R + r];
       o[0] = w != 0.f ? fmaf(v.x, w, o[0]) : o[0];
       o[1] = w != 0.f ? fmaf(v.y, w, o[1]) : o[1];
@@ -1104,9 +1166,10 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
     }
     const float denom = fmaxf(l_s[r], 1e-30f);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) store(out + row_at(r) * hd + c + e, o[e] / denom);
+    for (int e = 0; e < 4; ++e)
+      store(out + row_at(r0 + r) * hd + c + e, o[e] / denom);
   }
-  if (tid == 0) a.counters[head] = 0u;  // ready for the next call
+  if (tid == 0) *counter = 0u;  // ready for the next call
 }
 
 // ---------------------------------------------------------------------------
@@ -1114,15 +1177,17 @@ __global__ void __launch_bounds__(kThreads, kWarp ? 3 : 1)
 // ---------------------------------------------------------------------------
 
 // Check the plan and launch paged_kernel<TQ, TP, kSuffix> on `stream`:
-// grid (K, B, splits), 128 threads, `smem` bytes of dynamic shared memory
-// (which must equal the layout's total).  cudaErrorInvalidValue for an
-// argument the kernel does not take.
+// grid (K * tiles, B, splits), tiles = ceil(G * S / rows), 128 threads,
+// `smem` bytes of dynamic shared memory (which must equal the layout's
+// total).  cudaErrorInvalidValue for an argument the kernel does not take.
 template <typename TQ, typename TP, bool kSuffix>
 cudaError_t launch(const Args& a, int B, int smem, cudaStream_t stream) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(TP));
+  constexpr int QVEC = 16 / static_cast<int>(sizeof(TQ));
   const bool mma = a.mma != 0;
   if (a.hd <= 0 || a.hd > kMaxHeadDim || a.hd % VEC != 0 || a.hd % 4 != 0 ||
       a.K <= 0 || a.H % a.K != 0 || a.S <= 0 || a.bs <= 0 ||
+      a.rows < 1 || a.rows > a.H / a.K * a.S ||
       a.splits < 1 || a.pages < 1 || a.chunk < 1 || a.chunk > a.pages ||
       a.stages < 1 || a.stages > 2 ||
       static_cast<long long>(a.splits) * a.pages < a.n_blk ||
@@ -1131,16 +1196,21 @@ cudaError_t launch(const Args& a, int B, int smem, cudaStream_t stream) {
       reinterpret_cast<uintptr_t>(a.k_pages) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(a.v_pages) % 16 != 0)
     return cudaErrorInvalidValue;
-  const Layout L = layout(a.H / a.K * a.S, a.S, a.hd, a.bs, a.chunk, a.stages,
-                          static_cast<int>(sizeof(TP)), kSuffix, mma);
+  // the suffix is staged in 16-byte copies of q's type
+  if (kSuffix && (a.hd % QVEC != 0 ||
+                  reinterpret_cast<uintptr_t>(a.k_new) % 16 != 0 ||
+                  reinterpret_cast<uintptr_t>(a.v_new) % 16 != 0))
+    return cudaErrorInvalidValue;
+  const Layout L = layout(a.rows, a.hd, a.bs, a.chunk, a.stages,
+                          static_cast<int>(sizeof(TP)),
+                          static_cast<int>(sizeof(TQ)), kSuffix, mma);
   if (L.total != static_cast<size_t>(smem)) return cudaErrorInvalidValue;
   auto kernel = paged_kernel<TQ, TP, kSuffix, false, false>;
   if constexpr (kMmaTypes<TQ, TP>) {
     // a split of several chunks, one 16-row tile of hd <= 128: each warp
     // on its own key groups (it saves two barriers a chunk and pays one
     // merge of the warps a block, which one chunk does not repay)
-    if (mma && a.stages == 2 && a.H / a.K * a.S <= 16 &&
-        a.hd <= 8 * kWarpTiles)
+    if (mma && a.stages == 2 && a.rows <= 16 && a.hd <= 8 * kWarpTiles)
       kernel = paged_kernel<TQ, TP, kSuffix, true, true>;
     else if (mma)
       kernel = paged_kernel<TQ, TP, kSuffix, true, false>;
@@ -1150,7 +1220,8 @@ cudaError_t launch(const Args& a, int B, int smem, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(a.K, B, a.splits);
+  const int tiles = (a.H / a.K * a.S + a.rows - 1) / a.rows;
+  const dim3 grid(a.K * tiles, B, a.splits);
   kernel<<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }

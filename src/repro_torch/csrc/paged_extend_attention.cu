@@ -32,40 +32,44 @@
 // shape.
 //
 // Design (`paged::paged_kernel` in paged_common.cuh, with the suffix), as
-// for paged_attention.cu: grid (K, B, splits) from the wrapper's
+// for paged_attention.cu: grid (K * tiles, B, splits) from the wrapper's
 // shape-only `paged_plan`, a block's pages staged with `cp.async` in the
-// pool's type (both ring stages before the first wait), all R rows of
-// the kv head's group per block, float32 partials merged in split order
-// by the row's last block.  The S x S causal suffix is read by the last
-// split only.  For bf16 queries over bf16 or int8 pages (what int8
-// serving and the speculative verify run) with hd a multiple of 16, q.k
-// and p.v run on the tensor cores: R = 16 rows are one `mma.sync.m16n8k16`
-// tile; K's int8 bytes are exact in bf16, each k step accumulates into a
-// fresh float32 fragment, and the row scale multiplies the sum; P (times
-// the V row scale) is split into bf16 hi + lo, as in flash_attention.cu,
-// so the output stays within a bf16 step of the float32 plain version.
-// Splits of several chunks with R <= 16 go through the per-warp path.
-// Float32 queries, and bf16 queries over float32 pages, keep the CUDA-core
-// scores and p.v.  The plan falls back to one page a chunk, one stage and
-// the CUDA cores when a larger block would not fit, so every shape the
-// first version took still fits.
+// pool's type (both ring stages before the first wait), float32 partials
+// merged in split order by the last block of each (row, row tile).  The
+// R = G * S rows of a kv head's group are cut into tiles of at most 64
+// rows, one block each, and the causal suffix is streamed through the
+// stage ring 16 keys at a time by the last split, only up to the tile's
+// last token: so a block's shared memory is bounded whatever S is (the
+// first version held all R rows of q and the accumulator and the whole
+// float suffix, and refused S >= 22 at gemma3-1b's hd 256).  The plan
+// gives a split at least as many keys as its tile has rows and counts the
+// tiles among the blocks it aims at.  For bf16 queries over bf16 or int8
+// pages (what int8 serving and the speculative verify run) with hd a
+// multiple of 16, q.k and p.v run on the tensor cores: 16 rows are one
+// `mma.sync.m16n8k16` tile; K's int8 bytes are exact in bf16, each k step
+// accumulates into a fresh float32 fragment, and the row scale multiplies
+// the sum; P (times the V row scale) is split into bf16 hi + lo, as in
+// flash_attention.cu, so the output stays within a bf16 step of the
+// float32 plain version.  Splits of several chunks with tiles of <= 16
+// rows go through the per-warp path.  Float32 queries, and bf16 queries
+// over float32 pages, keep the CUDA-core scores and p.v.
 
 #include "paged_common.cuh"
 
 // C entry point, bound with ctypes.  Every pointer is a device pointer
 // (k_scale / v_scale are null for a float pool; k_new / v_new are in q's
-// dtype; ws and counters are needed only when splits > 1: B * K * splits
-// * R * (hd + 2) floats, R = S * H / K, and B * K zeroed counters, which
-// the kernel leaves zero); dtype codes: 0 float32, 1 bfloat16, 2 int8
-// (pages only).  splits / pages / chunk / stages / mma / smem are the
-// wrapper's plan.  Launches on `stream` without synchronising and returns
+// dtype, 16-byte aligned; ws and counters are needed only when splits >
+// 1: B * K * splits * R * (hd + 2) floats, R = S * H / K, and B * K *
+// ceil(R / rows) zeroed counters, which the kernel leaves zero); dtype
+// codes: 0 float32, 1 bfloat16, 2 int8 (pages only).  rows / splits /
+// pages / chunk / stages / mma / smem are the wrapper's plan.  Launches on `stream` without synchronising and returns
 // cudaGetLastError() of the launch.
 extern "C" int repro_paged_extend_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* k_new,
     const void* v_new, const void* block_tables, const void* pos, void* out,
     void* ws, void* counters, int B, int S, int H, int K, int hd, int bs,
-    int n_blk, int splits, int pages, int chunk, int stages, int mma,
+    int n_blk, int rows, int splits, int pages, int chunk, int stages, int mma,
     int smem, float scale, float softcap, int q_dtype, int page_dtype,
     void* stream) {
   paged::Args a{};
@@ -82,6 +86,7 @@ extern "C" int repro_paged_extend_attention(
   a.ws = static_cast<float*>(ws);
   a.counters = static_cast<unsigned*>(counters);
   a.S = S;
+  a.rows = rows;
   a.H = H;
   a.K = K;
   a.hd = hd;

@@ -49,8 +49,8 @@ KERNELS = {
              _P, _P, _P, _P, _P,                  # k_new v_new tables pos out
              _P, _P,                              # workspace, counters
              _I, _I, _I, _I, _I, _I, _I,          # B S H K hd bs n_blk
-             _I, _I, _I, _I, _I, _I,              # splits pages chunk stages
-                                                  # mma smem
+             _I, _I, _I, _I, _I, _I, _I,          # rows splits pages chunk
+                                                  # stages mma smem
              _F, _F,                              # scale softcap
              _I, _I,                              # q dtype, page dtype
              _P],                                 # stream

@@ -33,6 +33,8 @@ BLOCKS_PER_SM = 2           # blocks a split launch aims at, at least
 STAGE_BYTES = 32 * 1024     # K + V bytes of a staged chunk, at most
 MAX_STAGES = 2              # chunks a block has in flight, at most
 MAX_SPLITS = 64             # partials one block merges, at most
+ROW_TILE = 64               # query rows a block holds, at most
+SFX_TILE = 16               # suffix keys a ring stage holds
 
 
 class PagedPlan(NamedTuple):
@@ -42,28 +44,29 @@ class PagedPlan(NamedTuple):
     stages: int             # chunks in the ring: 1 to MAX_STAGES
     mma: bool               # tensor-core scores and p.v (bf16 q)
     smem: int               # dynamic shared memory of a block, bytes
-    blocks: int             # K x B x splits
+    blocks: int             # K x B x tiles x splits
     workspace: int          # float32 partials, 0 unsplit
+    rows: int               # query rows of a tile (tiles = ceil(G S / rows))
 
 
-def smem_bytes(R: int, S: int, hd: int, bs: int, chunk: int, stages: int,
-               page_elt: int, *, suffix: bool, mma: bool) -> int:
-    """Dynamic shared memory of a block (``paged::layout``): the ring of
-    K/V chunk stages in the page type (or, reusing it, the float suffix),
-    q and the accumulator as float32 (R x hd each), the score rows, the
-    int8 row scales, three float32 statistics a row and, on the tensor
-    cores, the four warps' (m, l) of 16 rows and a byte a chunk slot
-    saying whether it holds a key."""
+def smem_bytes(rows: int, hd: int, bs: int, chunk: int, stages: int,
+               page_elt: int, q_elt: int, *, suffix: bool, mma: bool) -> int:
+    """Dynamic shared memory of a block of ``rows`` query rows
+    (``paged::layout``): the ring of stages, each a K/V chunk in the page
+    type or, for the extend read, a ``SFX_TILE``-key tile of the suffix
+    in q's type (whichever is larger), q and the accumulator as float32
+    (rows x hd each), the score rows, the int8 row scales, three float32
+    statistics a row and, on the tensor cores, the four warps' (m, l) of
+    16 rows and a byte a chunk slot saying whether it holds a key."""
     nkp = -(-chunk * bs // 16) * 16 if mma else chunk * bs
     rsb = hd * page_elt + (16 if mma else 0)
-    sfx = (-(-S // 16) * 16 if mma else S) if suffix else 0
-    sfx_ld = hd + (4 if mma else 0)
-    pw = max(nkp, sfx) + (4 if mma else 0)
-    ring = stages * 2 * nkp * rsb
+    xsb = hd * q_elt + (16 if mma else 0) if suffix else 0
+    half = max(nkp * rsb, SFX_TILE * xsb)
+    pw = (max(nkp, SFX_TILE) if suffix else nkp) + (4 if mma else 0)
     scales = stages * 2 * nkp * 4 if page_elt == 1 else 0
     warps = 4 * 16 * 2 * 4 + -(-stages * nkp // 16) * 16 if mma else 0
-    return (max(ring, 2 * sfx * sfx_ld * 4) + 8 * R * hd + 4 * R * pw
-            + scales + 12 * R + warps)
+    return (stages * 2 * half + 8 * rows * hd + 4 * rows * pw + scales
+            + 12 * rows + warps)
 
 
 @functools.lru_cache(maxsize=None)
@@ -76,24 +79,31 @@ def paged_plan(B: int, K: int, G: int, S: int, n_blk: int, bs: int,
     from the shapes alone (never from lengths or pos, which live on the
     card).
 
-    Each row's table is cut into ``splits`` ranges of ``pages`` entries,
-    one block each per kv head: the longest ranges that still launch at
-    least ``BLOCKS_PER_SM`` blocks an SM, or one page a split, but at most
-    ``MAX_SPLITS`` and hd splits (the merging block holds two floats a
-    split and row where q and the accumulator were).  A block stages its range
-    ``chunk`` pages at a time, at most ``STAGE_BYTES`` of K and V, in
-    one stage (the whole range) or a ring of up to ``MAX_STAGES``.  bf16
+    The R = G x S query rows of a kv head are cut into tiles of ``rows``
+    = min(R, ``ROW_TILE``), one block each, so a block's shared memory
+    does not grow with S.  Each row's table is cut into ``splits`` ranges
+    of ``pages`` entries, one block each per kv head and tile: the
+    longest ranges that still launch at least ``BLOCKS_PER_SM`` blocks an
+    SM (the tiles counted), but at least as many keys as a tile has rows
+    (or the whole table), at most ``MAX_SPLITS`` and hd splits (the
+    merging block holds two floats a split and row where q and the
+    accumulator were).  A block stages its range ``chunk`` pages at a
+    time, at most ``STAGE_BYTES`` of K and V, in one stage (the whole
+    range) or a ring of up to ``MAX_STAGES``; the extend read's suffix
+    follows through the same ring ``SFX_TILE`` keys a stage.  bf16
     queries over bf16 or int8 pages with hd a multiple of 16 run on the
     tensor cores.  Fewer stages, smaller chunks, then the CUDA cores are
     tried until the block fits ``checks.SMEM_LIMIT``; the last of them
-    (one page, one stage, CUDA cores) needs no more shared memory than
-    the kernel's first version did."""
+    (one page, one stage, CUDA cores) fits every hd up to 256."""
     R = G * S
+    rows = max(1, min(R, ROW_TILE))
+    tiles = math.ceil(R / rows)
     want = max(1, min(n_blk, hd, MAX_SPLITS,
-                      math.ceil(BLOCKS_PER_SM * sms / max(B * K, 1))))
-    pages = max(1, n_blk // want)
+                      math.ceil(BLOCKS_PER_SM * sms / max(B * K * tiles, 1))))
+    pages = max(1, n_blk // want, min(n_blk, math.ceil(rows / bs)))
     splits = max(1, math.ceil(n_blk / pages))
     elt = torch.empty((), dtype=page_dtype).element_size()
+    q_elt = torch.empty((), dtype=q_dtype).element_size()
     mma_ok = (q_dtype == torch.bfloat16 and hd % 16 == 0
               and page_dtype in (torch.bfloat16, torch.int8))
     fit = max(1, STAGE_BYTES // (2 * bs * hd * elt))
@@ -106,13 +116,13 @@ def paged_plan(B: int, K: int, G: int, S: int, n_blk: int, bs: int,
                              0 if c >= pages else 1, -1)]
     tries.append((False, 1, 1))
     for mma, chunk, stages in tries:
-        smem = smem_bytes(R, S, hd, bs, chunk, stages, elt, suffix=suffix,
-                          mma=mma)
+        smem = smem_bytes(rows, hd, bs, chunk, stages, elt, q_elt,
+                          suffix=suffix, mma=mma)
         if smem <= checks.SMEM_LIMIT:
             break
     workspace = B * K * splits * R * (hd + 2) if splits > 1 else 0
     return PagedPlan(splits, pages, chunk, stages, mma, smem,
-                     K * B * splits, workspace)
+                     K * B * tiles * splits, workspace, rows)
 
 
 def split_merge(s, v, split_of_key, splits: int, drop=None):

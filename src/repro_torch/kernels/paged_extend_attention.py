@@ -3,16 +3,16 @@
 ``repro.kernels.flash_attention.paged_extend_attention``).
 
 ``paged_extend_attention`` checks device, dtypes, shapes and
-contiguity, raises on anything the kernel does not take (a shape whose
-thread block would need more shared memory than a block may use
-included), plans the launch (``paged_attention.paged_plan`` with the
+contiguity, raises on anything the kernel does not take, plans the launch (``paged_attention.paged_plan`` with the
 suffix), allocates the output (and, split, a float32 workspace of
 partials) with ``torch.empty`` and launches on PyTorch's current stream
 without synchronising.  It takes CUDA tensors only: ``kernels.ops``
 routes CPU tensors to the plain version in ``kernels.ref``.
 ``launches`` counts the kernel launches made through this wrapper (reset
 it by assignment).  ``split_reference`` is the plain model of the
-kernel's split arithmetic.
+kernel's split arithmetic over row tiles.  Every S the engine sends
+plans a block within ``checks.SMEM_LIMIT``: a block holds one tile of at
+most ``paged_attention.ROW_TILE`` query rows and streams the suffix.
 """
 from __future__ import annotations
 
@@ -47,7 +47,12 @@ def split_reference(q, k_pages, v_pages, k_new, v_new, block_tables, pos,
         sx = softcap * torch.tanh(sx / softcap)
     i = torch.arange(S, device=q.device)
     sx = torch.where((i[None, :] <= i[:, None])[:, None, :], sx, -1e30)
-    s = torch.cat([s, sx.reshape(B, K, S * G, S)], dim=-1)
+    # the keys a row's tile streams: t below its last token + 1
+    r = torch.arange(S * G, device=q.device)
+    tile_end = torch.clamp((r // plan.rows + 1) * plan.rows, max=S * G)
+    seen = i[None, :] < ((tile_end - 1) // G + 1)[:, None]       # (R, S)
+    sx = torch.where(seen, sx.reshape(B, K, S * G, S), -1e30)
+    s = torch.cat([s, sx], dim=-1)
     v = torch.cat([v, v_new.float().transpose(1, 2)[:, :, None]], dim=-2)
     n_ctx = block_tables.shape[1] * k_pages.shape[1]
     split_of_key = torch.cat([
@@ -78,6 +83,12 @@ def _check(q, k_pages, v_pages, k_new, v_new, block_tables, pos, k_scale,
             raise ValueError(f"{NAME}: {name} must be {q.dtype} "
                              f"{(B, S, K, hd)}, got {t.dtype} "
                              f"{tuple(t.shape)}")
+    for name, t in (("k_new", k_new), ("v_new", v_new)):
+        # the suffix is staged in 16-byte copies
+        if (hd * t.element_size()) % 16 or t.data_ptr() % 16:
+            raise ValueError(f"{NAME}: {name} rows of head_dim {hd} "
+                             f"{t.dtype} are not whole 16-byte vectors at "
+                             "a 16-byte aligned base")
     checks.int32_rows(NAME, "block_tables", block_tables, B, 2)
     checks.int32_rows(NAME, "pos", pos, B, 1)
 
@@ -113,7 +124,8 @@ def paged_extend_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
     if plan.splits > 1:
         ws = torch.empty(plan.workspace, dtype=torch.float32,
                          device=q.device)
-        counters = _splits.counters_for(q.device, stream, B * K)
+        counters = _splits.counters_for(
+            q.device, stream, B * K * -(-S * (H // K) // plan.rows))
     lib = build.load(NAME)
     with torch.cuda.device(q.device):
         err = lib.repro_paged_extend_attention(
@@ -123,7 +135,8 @@ def paged_extend_attention(q, k_pages, v_pages, k_new, v_new, block_tables,
             block_tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(),
             None if counters is None else counters.data_ptr(),
-            B, S, H, K, hd, bs, n_blk, plan.splits, plan.pages, plan.chunk,
+            B, S, H, K, hd, bs, n_blk, plan.rows, plan.splits, plan.pages,
+            plan.chunk,
             plan.stages, int(plan.mma), plan.smem,
             float(scale), float(softcap),
             checks.DTYPE_CODES[q.dtype], checks.DTYPE_CODES[k_pages.dtype],

@@ -4,6 +4,7 @@ port of ``repro.launch.serve``; the asyncio frontend is a later slice).
     python -m repro_torch.launch.serve --scale full
     python -m repro_torch.launch.serve --arch phi3-medium-14b --scale full
     python -m repro_torch.launch.serve --arch mamba2-370m --scale full
+    python -m repro_torch.launch.serve --arch zamba2-7b --scale full
 
 submits ``--requests`` random prompts, steps the engine until it drains
 and prints one JSON line (the JAX CLI's drain-mode keys).  The default
@@ -12,9 +13,10 @@ arch is gemma3-1b, as in the JAX CLI.  Weights are random, from a seeded
 checkpoint of ``training.checkpoint.save``, as ``launch.train
 --checkpoint`` writes) onto them.  On a CUDA device the engine reads
 paged decode KV through the hand-written ``paged_attention`` kernel (an
-ssm model, served without a page pool, runs its admission prefills'
-scan through ``ssd_scan`` instead) and stores weights in the activation
-dtype (every weight is cast to it before use, so the math is
+ssm or hybrid model, served without a page pool, runs its admission
+prefills' scan through ``ssd_scan`` instead, and the hybrid's shared
+attention block through ``flash_attention``) and stores weights in the
+activation dtype (every weight is cast to it before use, so the math is
 unchanged).  ``--spec`` serves speculatively (``--draft self`` for the
 early-exit self-draft or a registry id, ``--gamma`` tokens a round) and
 adds the acceptance numbers to the line.

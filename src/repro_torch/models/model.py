@@ -1,8 +1,9 @@
 """Unified model API (PyTorch port of ``repro.models.model``).
 
 The same entry points, dispatched on ``cfg.family``; the port has the
-dense family (``models.transformer``) and the ssm family
-(``models.ssm``), and every other family raises
+dense family (``models.transformer``), the ssm family (``models.ssm``)
+and the hybrid family (``models.hybrid``: mamba blocks and one shared
+attention block), and every other family raises
 ``NotImplementedError`` naming its ROADMAP item:
 
     init_params(cfg, generator, device)           -> params
@@ -38,11 +39,10 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.devices import DeviceLike
-from repro_torch.models import ssm, transformer
+from repro_torch.models import hybrid, ssm, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": ssm}
-_FAMILY_ITEMS = {"moe": "A.9.1", "vlm": "A.9.2", "encdec": "A.9.3",
-                 "hybrid": "A.9.5"}
+_FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
+_FAMILY_ITEMS = {"moe": "A.9.1", "vlm": "A.9.2", "encdec": "A.9.3"}
 
 
 def family_module(cfg: ModelConfig):
@@ -71,16 +71,19 @@ def specialize(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
 def apply(cfg: ModelConfig, params, batch: dict, *, use_flash: bool = False,
           use_kernel: bool = False, remat: Optional[str] = None):
     """Full-sequence logits (B, S, V) and a scalar aux loss (0 where n/a,
-    float32).  ``use_flash`` sends the dense family's attention through
-    ``kernels.ops.flash_attention`` and ``use_kernel`` the ssm family's
-    scan through ``kernels.ops.ssd_scan`` (neither kernel has a
-    backward); ``remat`` is the JAX checkpoint policy name
-    (``transformer._maybe_remat``)."""
+    float32).  ``use_flash`` sends the attention of the dense and hybrid
+    families through ``kernels.ops.flash_attention`` and ``use_kernel``
+    the ssm and hybrid families' scan through ``kernels.ops.ssd_scan``
+    (neither kernel has a backward); ``remat`` is the JAX checkpoint
+    policy name (``transformer._maybe_remat``)."""
     tokens = batch["tokens"]
     zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
     if cfg.family == "ssm":
         return ssm.forward(cfg, params, tokens, use_kernel=use_kernel,
                            remat=remat), zero
+    if cfg.family == "hybrid":
+        return hybrid.forward(cfg, params, tokens, use_flash=use_flash,
+                              use_kernel=use_kernel, remat=remat), zero
     return family_module(cfg).forward(cfg, params, tokens,
                                       use_flash=use_flash, remat=remat), zero
 
@@ -149,11 +152,16 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int, *,
     right-padded row; logits come from each row's true last token and
     pad positions stay out of the decode state, so padded prefill
     decodes exactly like an unpadded one.  ``use_kernel`` sends the ssm
-    family's scan through ``kernels.ops.ssd_scan``; ``use_flash`` is the
-    attention families' switch."""
+    and hybrid families' scan through ``kernels.ops.ssd_scan``;
+    ``use_flash`` is the attention families' switch (the hybrid's shared
+    block included)."""
     if cfg.family == "ssm":
         return ssm.prefill(cfg, params, batch["tokens"], max_len,
                            use_kernel=use_kernel, true_len=true_len)
+    if cfg.family == "hybrid":
+        return hybrid.prefill(cfg, params, batch["tokens"], max_len,
+                              use_flash=use_flash, use_kernel=use_kernel,
+                              true_len=true_len)
     return family_module(cfg).prefill(cfg, params, batch["tokens"], max_len,
                                       use_flash=use_flash,
                                       true_len=true_len)
@@ -212,14 +220,21 @@ def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
                   use_kernel: bool = False):
     """Admission prefill fused with cache insertion: prompt K/V is
     written directly into the page pool through ``write_tables``; the
-    ssm family (no pages) writes each row's state at ``slots`` and runs
-    its scan through ``kernels.ops.ssd_scan`` with ``use_kernel``.
-    Returns (last-true-token logits, cache)."""
+    ssm and hybrid families (no pages) write each row's states and rings
+    at ``slots`` and run their scan through ``kernels.ops.ssd_scan`` with
+    ``use_kernel`` (the ssm family ignores ``use_flash``).  Returns
+    (last-true-token logits, cache)."""
     if cfg.family == "ssm":
         return ssm.prefill_paged(
             cfg, params, batch["tokens"], max_len, cache, slots=slots,
             write_tables=write_tables, ctx_tables=ctx_tables,
             ctx_len=ctx_len, true_len=true_len, use_kernel=use_kernel)
+    if cfg.family == "hybrid":
+        return hybrid.prefill_paged(
+            cfg, params, batch["tokens"], max_len, cache, slots=slots,
+            write_tables=write_tables, ctx_tables=ctx_tables,
+            ctx_len=ctx_len, true_len=true_len, use_flash=use_flash,
+            use_kernel=use_kernel)
     return family_module(cfg).prefill_paged(
         cfg, params, batch["tokens"], max_len, cache, slots=slots,
         write_tables=write_tables, ctx_tables=ctx_tables, ctx_len=ctx_len,

@@ -64,7 +64,9 @@ the JAX engine.  Greedy tokens match the JAX engine; sampled tokens
 match it in distribution only (the generators differ).
 
 Pool-free path: a family whose paged cache has no pool leaf (ssm: O(1)
-recurrent state per row) runs with ``self.paged = False``, as in JAX: no
+recurrent state per row; hybrid: that and the shared attention block's
+rings of ``min(max_len, local_window)`` entries per row) runs with
+``self.paged = False``, as in JAX: no
 ``KVBlockPool`` and no block tables; the cache is ``model.init_cache``
 with one row per slot (batch axes from ``cache_batch_axes``); admission
 prefills write each row's state at its slot (``prefill_paged`` without
@@ -75,10 +77,13 @@ back (``insert_slot``).  ``quant_kv="int8"`` is disarmed there (no pages
 to quantize) and ``spec_decode`` is quietly ignored (the recurrence
 cannot roll back).  One choice is the port's own: on a pool-free config
 ``use_pallas_paged=True`` sends the admission prefill's scan through the
-hand-written ``ssd_scan`` kernel (``prefill_paged(use_kernel=True)``).
-The JAX engine sets ``use_kernel`` nowhere, and the flag is its only
-"serve through the hand kernels" switch; with it off the port runs the
-plain chunked scan, which is what the JAX engine runs.
+hand-written ``ssd_scan`` kernel (``prefill_paged(use_kernel=True)``)
+and, on the hybrid, the shared block's causal prefill attention through
+the hand-written ``flash_attention`` kernel (``use_flash=True``).  The
+JAX engine sets neither ``use_kernel`` nor ``use_flash``, and the flag
+is its only "serve through the hand kernels" switch; with it off the
+port runs the plain chunked scan and the plain masked softmax, which is
+what the JAX engine runs.
 
 Not ported yet — each raises ``NotImplementedError`` when its
 ``ServeConfig`` field is set: the radix prefix cache and its
@@ -625,8 +630,11 @@ class EdgeServingEngine:
             kw = dict(write_tables=torch.from_numpy(tables).to(dev))
         else:
             # the port's choice: the hand-kernel switch also runs the
-            # pool-free family's prefill scan through ssd_scan
-            kw = dict(use_kernel=self.scfg.use_pallas_paged)
+            # pool-free families' prefill scan through ssd_scan and the
+            # hybrid's shared-block prefill attention through
+            # flash_attention (the ssm family has no attention)
+            kw = dict(use_kernel=self.scfg.use_pallas_paged,
+                      use_flash=self.scfg.use_pallas_paged)
         logits, self.cache = M.prefill_paged(
             self.cfg, self.params, {"tokens": torch.from_numpy(prompts).to(dev)},
             self.scfg.max_len, self.cache,

@@ -342,8 +342,8 @@ def test_int8_extend_plan_fits_the_served_catch_chunk():
     """The card's int8 catch-up waves at gemma3-1b's global shape (4 slots,
     4 query heads over 1 kv head, hd 256, 128 pages of 16, bf16 queries)
     and ``chip_smoke.py``'s 16-token chunk: the extend read plans a
-    tensor-core launch within a block's shared memory (its q and float32
-    accumulator take 8 KB a token there; ROADMAP B)."""
+    tensor-core launch within a block's shared memory (a block holds one
+    tile of at most 64 query rows, so any chunk width fits)."""
     plan = pa.paged_plan(4, 1, 4, 16, 128, 16, 256, torch.int8,
                          torch.bfloat16, 132, suffix=True)
     assert plan.mma and plan.smem <= checks.SMEM_LIMIT

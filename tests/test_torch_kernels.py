@@ -182,8 +182,9 @@ def test_shared_memory_fits_a_block(G, hd, bs):
             plan = pa.paged_plan(4, 2, G, 1, n_blk, bs, hd, page, q, 132)
             assert plan.smem <= checks.SMEM_LIMIT
             assert plan.smem == pa.smem_bytes(
-                G, 1, hd, bs, plan.chunk, plan.stages,
-                torch.empty((), dtype=page).element_size(), suffix=False,
+                G, hd, bs, plan.chunk, plan.stages,
+                torch.empty((), dtype=page).element_size(),
+                torch.empty((), dtype=q).element_size(), suffix=False,
                 mma=plan.mma)
 
 
@@ -209,18 +210,24 @@ def test_paged_plan_covers_each_table_entry_once(B, K, G, S, n_blk, bs, hd,
                                                  suffix, page, q):
     """Splits of ``pages`` entries cover the table exactly once, none of
     them empty by construction; chunks no longer than a split, one stage
-    only when a chunk is the whole split; at least two blocks an SM of a
-    132-SM card where the table and the merge's cap on splits allow;
-    tensor cores only for bf16 queries over bf16 / int8 pages."""
+    only when a chunk is the whole split; row tiles of at most
+    ``ROW_TILE`` rows; at least two blocks an SM of a 132-SM card where
+    the table, the merge's cap on splits and a split's floor of a tile's
+    rows in keys allow; tensor cores only for bf16 queries over bf16 /
+    int8 pages."""
     plan = pa.paged_plan(B, K, G, S, n_blk, bs, hd, page, q, 132, suffix)
     cover = [j // plan.pages for j in range(n_blk)]
     assert sorted(set(cover)) == list(range(plan.splits))
     assert (plan.splits - 1) * plan.pages < n_blk <= plan.splits * plan.pages
     assert 1 <= plan.chunk <= plan.pages
     assert plan.stages == min(pa.MAX_STAGES, -(-plan.pages // plan.chunk))
-    assert plan.blocks == B * K * plan.splits
+    assert plan.rows == min(G * S, pa.ROW_TILE)
+    tiles = -(-G * S // plan.rows)
+    assert plan.blocks == B * K * tiles * plan.splits
+    assert plan.pages * bs >= plan.rows or plan.pages == n_blk
     assert plan.blocks >= 2 * 132 or plan.splits == n_blk \
-        or plan.splits >= min(hd, pa.MAX_SPLITS) or B * K >= 2 * 132
+        or plan.splits >= min(hd, pa.MAX_SPLITS) \
+        or B * K * tiles >= 2 * 132 or plan.pages == -(-plan.rows // bs)
     assert plan.splits <= min(hd, pa.MAX_SPLITS)
     assert plan.mma == (q == torch.bfloat16 and page != torch.float32
                         and hd % 16 == 0)
@@ -237,8 +244,9 @@ def test_paged_plan_sizes_fit(B, K, G, S, n_blk, bs, hd, suffix, page, q):
     partial (m, l, acc[hd]) per (row, kv head, split, query row)."""
     plan = pa.paged_plan(B, K, G, S, n_blk, bs, hd, page, q, 132, suffix)
     elt = torch.empty((), dtype=page).element_size()
-    assert plan.smem == pa.smem_bytes(G * S, S, hd, bs, plan.chunk,
-                                      plan.stages, elt, suffix=suffix,
+    q_elt = torch.empty((), dtype=q).element_size()
+    assert plan.smem == pa.smem_bytes(plan.rows, hd, bs, plan.chunk,
+                                      plan.stages, elt, q_elt, suffix=suffix,
                                       mma=plan.mma) <= checks.SMEM_LIMIT
     stage = 2 * plan.chunk * bs * hd * elt
     assert stage <= max(pa.STAGE_BYTES, 2 * bs * hd * elt)
@@ -249,7 +257,8 @@ def test_paged_plan_sizes_fit(B, K, G, S, n_blk, bs, hd, suffix, page, q):
 def _random_plan(rng, n_blk):
     """A plan of random split length (the model needs splits and pages)."""
     pages = int(rng.integers(1, n_blk + 1))
-    return pa.PagedPlan(-(-n_blk // pages), pages, 1, 1, False, 0, 0, 0)
+    return pa.PagedPlan(-(-n_blk // pages), pages, 1, 1, False, 0, 0, 0,
+                        pa.ROW_TILE)
 
 
 @pytest.mark.parametrize("seed", range(6))
@@ -295,6 +304,62 @@ def test_extend_split_merge_equals_plain_version(seed, quant):
     got = pea.split_reference(*t, plan, **kw)
     torch.testing.assert_close(got, ref.paged_extend_attention_ref(*t, **kw),
                                rtol=1e-5, atol=1e-5)
+
+
+# B, K, G, n_blk, bs, hd of the int8 catch-up waves the engine serves:
+# gemma3-1b's global layers (4 slots, max_len 2048) and phi3-medium-14b
+# at max_len 512 and 2048; and the widest S each may be sent (up to
+# max_len; gemma3-1b's ring layers cap it at its 512-token window)
+SERVED_EXTEND = {"gemma3-1b": ((4, 1, 4, 128, 16, 256), 512),
+                 "phi3-512": ((4, 10, 4, 32, 16, 128), 512),
+                 "phi3-2048": ((4, 10, 4, 128, 16, 128), 2048)}
+
+
+@pytest.mark.parametrize("shape", SERVED_EXTEND, ids=list(SERVED_EXTEND))
+@pytest.mark.parametrize("page", [torch.int8, torch.bfloat16],
+                         ids=["int8", "bf16"])
+def test_extend_plan_fits_every_served_width(shape, page):
+    """Every extend width from 1 to the shape's limit plans a block within
+    ``checks.SMEM_LIMIT`` (the wrapper's refusal never fires), on the
+    tensor cores, with tiles of at most ``ROW_TILE`` rows and splits of at
+    least a tile's rows in keys.  The first version's plan held all G x S
+    rows and the float suffix, and refused gemma3-1b from S = 22 and phi3
+    from S = 41."""
+    (B, K, G, n_blk, bs, hd), top = SERVED_EXTEND[shape]
+    for S in range(1, top + 1):
+        plan = pa.paged_plan(B, K, G, S, n_blk, bs, hd, page,
+                             torch.bfloat16, 132, suffix=True)
+        checks.shared_memory(pea.NAME, plan.smem)
+        assert plan.mma and plan.rows == min(G * S, pa.ROW_TILE)
+        assert plan.pages * bs >= plan.rows or plan.pages == n_blk
+        assert plan.splits <= min(hd, pa.MAX_SPLITS)
+
+
+@pytest.mark.parametrize("S,G,rows", [(5, 4, 8), (7, 2, 3), (6, 1, 1),
+                                      (4, 4, 64), (9, 4, 6)])
+@pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])
+def test_extend_row_tiled_split_merge_equals_plain_version(S, G, rows,
+                                                           quant):
+    """The extend read's arithmetic over row tiles (a tile reads the
+    suffix only up to its last token) and random splits equals the plain
+    version at float32, tiles that end inside a token's G rows and one
+    row a tile included; a merge without the last split (which holds the
+    suffix) does not."""
+    rng = np.random.default_rng(S * 10 + G)
+    B, kv, hd, nB, bs, n_blk = 3, 2, 32, 14, 8, 4
+    args, scales = _extend_case(S + G, B, S, G * kv, kv, hd, nB, bs, n_blk,
+                                quant=quant, q_std=3.0)
+    t = [torch.from_numpy(a) for a in args]
+    kw = dict(scale=1.0, softcap=20.0)
+    if scales:
+        kw.update(k_scale=torch.from_numpy(scales[0]),
+                  v_scale=torch.from_numpy(scales[1]))
+    plan = _random_plan(rng, n_blk)._replace(rows=rows)
+    want = ref.paged_extend_attention_ref(*t, **kw)
+    got = pea.split_reference(*t, plan, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    broken = pea.split_reference(*t, plan, drop=plan.splits - 1, **kw)
+    assert float((broken - want).abs().max()) > 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -417,10 +482,11 @@ def test_extend_kernel_wrapper_refuses_cpu_tensors():
     (4, 4, 128, 16, True),          # phi3 on the serving path: ~43 KB
     (8, 8, 256, 16, True),          # needs the opt-in above 48 KB
     (1, 1, 64, 16, True),
-    (16, 16, 256, 16, False)])      # R = 256 rows of 256: over 227 KB
+    (16, 16, 256, 16, True)])       # R = 256 rows of 256: 4 tiles of 64
 def test_extend_shared_memory(G, S, hd, bs, fits):
     """The plan of float32 pages and queries (the largest block) fits
-    exactly where the first version's block did."""
+    wherever the first version's block did, and where its 256 rows of
+    hd 256 did not: a block holds one tile of rows."""
     plan = pea.paged_plan(4, 2, G, S, 32, bs, hd, torch.float32,
                           torch.float32, 132, suffix=True)
     smem = plan.smem

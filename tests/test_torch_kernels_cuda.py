@@ -39,6 +39,7 @@ far outside.
 import pytest
 import torch
 
+from repro_torch.kernels import checks
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
@@ -378,15 +379,45 @@ def test_extend_wrapper_rejects_bad_arguments(device):
         call(q, shifted, vp, kn, vn, bt, pos, scale=1.0)
 
 
-def test_extend_wrapper_refuses_shapes_that_do_not_fit(device):
-    """G = 16, S = 16, hd = 256: 256 query rows need more shared memory
-    than a block may use; the wrapper says so and launches nothing."""
+def test_extend_kernel_takes_rows_past_the_first_versions_limit(device):
+    """G = 16, S = 16, hd = 256 (256 query rows, which the first
+    version's block could not hold): four row tiles, within tolerance."""
     args, _ = _extend_case(device, torch.float32, B=1, S=16, H=32, K=2,
-                           hd=256, nB=8, bs=16, n_blk=2)
-    before = pea.launches
-    with pytest.raises(ValueError, match="does not fit"):
-        pea.paged_extend_attention(*args, scale=1.0)
-    assert pea.launches == before
+                           hd=256, nB=8, bs=16, n_blk=2, pos=[7])
+    plan = pea.paged_plan(1, 2, 16, 16, 2, 16, 256, torch.float32,
+                          torch.float32, _sms(device), suffix=True)
+    assert plan.rows == 64 and plan.smem <= checks.SMEM_LIMIT
+    out = pea.paged_extend_attention(*args, scale=1.0)
+    torch.testing.assert_close(out, _extend_plain(args, scale=1.0),
+                               **TOL[torch.float32])
+
+
+# (name, B, S, H, K, hd, n_blk): the widths an int8 catch-up wave may have
+# at gemma3-1b's global layers (the first version refused S >= 22) and at
+# phi3's (S >= 41), and a row count one past a 64-row tile (G = 1)
+EXTEND_WIDTHS = [("gemma", 4, S, 4, 1, 256, 128) for S in (16, 21, 22, 64,
+                                                         512)] \
+    + [("phi3", 4, S, 40, 10, 128, 32) for S in (41, 64)] \
+    + [("tile+1", 2, 65, 4, 4, 128, 16), ("tile+4", 2, 17, 8, 2, 64, 16)]
+
+
+@pytest.mark.parametrize("name,B,S,H,K,hd,n_blk", EXTEND_WIDTHS,
+                         ids=[f"{w[0]}-S{w[2]}" for w in EXTEND_WIDTHS])
+@pytest.mark.parametrize("dtype,q_dtype", [
+    (torch.int8, torch.bfloat16), (torch.int8, torch.float32)],
+    ids=["int8-bf16q", "int8"])
+def test_extend_kernel_served_widths(device, name, B, S, H, K, hd, n_blk,
+                                     dtype, q_dtype):
+    """Each width against the plain version (the tiles' merge and the
+    streamed suffix included), and two calls bitwise equal."""
+    args, scales = _extend_case(device, dtype, q_dtype, B=B, S=S, H=H, K=K,
+                                hd=hd, nB=B * n_blk + 8, n_blk=n_blk,
+                                seed=S + H)
+    kw = dict(scale=hd ** -0.5, softcap=50.0, **scales)
+    out = pea.paged_extend_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _extend_plain(args, **kw),
+                               **TOL[q_dtype])
+    assert torch.equal(out, pea.paged_extend_attention(*args, **kw))
 
 
 @pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
@@ -728,9 +759,10 @@ FLASH = [                                   # B, S, T, H, K, hd, window
     (2, 300, 200, 8, 2, 128, 0),            # T < S
     (1, 130, 190, 4, 4, 64, 16),            # T > S
     (3, 40, 40, 4, 2, 32, 0),               # a head_dim below the tile
+    (4, 1024, 1024, 32, 32, 112, 0),        # zamba2-7b's prefill, MHA
 ]
 FLASH_IDS = ["path-global", "path-local", "phi3-gqa", "ragged300",
-             "t200-s300", "t190-s130", "hd32"]
+             "t200-s300", "t190-s130", "hd32", "zamba2-hd112"]
 
 
 def _flash_case(device, B, S, T, H, K, hd, dtype, seed=0):
