@@ -96,7 +96,29 @@ non-zero without printing a result:
               equal (their logits and the written bytes that differ are
               reported); times one extend and one decode wave of each
               read at bf16.
-8. serve_spec — the third main path: the same model and traffic served
+8. serve_dense — the dense twin (``ServeConfig(paged=False)``): the same
+              model, weights and traffic as ``serve`` on ``max_len``
+              strips per slot (no pool, no prefix cache): every request
+              finishes, no kernel launches (as in JAX), and the tokens
+              meet the int8 gate against ``serve``'s.
+9. serve_shared — the eighth main path: the same model at
+              ``ServeConfig``'s defaults (the radix prefix cache on),
+              ``use_pallas_paged=True``, max_len 512, on a bf16 and on an
+              int8 pool; 8 household users on one 205-token system prompt
+              (12 pages and 13 tokens), 5 shared persona tokens, 8-200
+              own tokens, 32 new each; user 0 alone to its first token,
+              then users 1-7.  7 hits and 1 miss, hits past the page
+              boundary with a copy-on-write fork, ``paged_attention`` ==
+              40 x decode waves (and ``paged_extend_attention`` == 40 x
+              extend waves on int8 pages), no page leaked, the hit rows'
+              tokens held by the int8 gate to a cold engine's (on int8
+              pages: first tokens equal, and they drift from the cold
+              rows no faster than int8 pages alone move the cold rows
+              off the bf16 pool's); decode waves and the decode read on
+              shared and on private pages timed; the bf16 leg writes its
+              cache to a store, a fresh engine reads it back and
+              re-serves user 1 as a hit with the live re-serve's tokens.
+10. serve_spec — the third main path: the same model and traffic served
               speculatively on an int8 pool (``spec_decode``,
               ``spec_gamma=4``, ``quant_draft``) with an explicit draft:
               the verify model's first 8 layers (copied) under an
@@ -109,7 +131,7 @@ non-zero without printing a result:
               through ``quant_matmul``.  Times one draft step with int8
               and with bf16 weights, and one int8 draft admission
               prefill of 4 rows x bucket 512 (56 launches at M = 2048).
-9. serve_ssm — the fourth main path: mamba2-370m at full width and
+11. serve_ssm — the fourth main path: mamba2-370m at full width and
               depth (bf16, ~0.74 GB) behind the engine's pool-free path
               (no page pool: ``eng.paged`` False) with
               ``use_pallas_paged=True``, prefill buckets up to 1024, 8
@@ -117,12 +139,12 @@ non-zero without printing a result:
               every layer of every admission prefill (calls counted
               around ``_admit_group``) scans through ``ssd_scan``, and no
               paged or quant kernel launches.  Profiles one decode wave.
-10. model_ssm — one 4-row bucket-1024 ``ssm.prefill`` with ragged
+12. model_ssm — one 4-row bucket-1024 ``ssm.prefill`` with ragged
               ``true_len`` through the kernel and through the plain
               chunked path at float32: logits and final states within
               the stated share of their max, greedy tokens equal; one
               bf16 prefill of each timed.
-11. train    — the fifth main path: gemma3-1b at full width and depth
+13. train    — the fifth main path: gemma3-1b at full width and depth
               (26 layers, float32 weights from a seeded generator, ~1.0e9
               parameters) trained 3 steps through ``launch.train``'s
               flags, state and step: 4 x 4096 bigram tokens a step in 2
@@ -130,7 +152,7 @@ non-zero without printing a result:
               moments; ms and tokens/s per step, peak memory, one step's
               device idle share; losses finite; no kernel launches (the
               plain attention runs under autograd).
-12. model_train — on the trained weights, ``loss_fn(use_flash=True)``
+14. model_train — on the trained weights, ``loss_fn(use_flash=True)``
               against ``loss_fn(use_flash=False)`` on 2 x 4096 tokens:
               at float32 the CE within 1e-5 relative and the logits
               within 1e-4 x max |logit|; at bf16 every layer's
@@ -138,7 +160,7 @@ non-zero without printing a result:
               identical inputs within 2**-6 x max |o|; ``flash_attention``
               launches == 26 x forwards through it; one bf16 loss
               forward each way timed.
-13. serve_gemma — the sixth main path: gemma3-1b at full width and
+15. serve_gemma — the sixth main path: gemma3-1b at full width and
               depth (26 layers: 4 super-blocks of 5 local + 1 global and
               2 remainder local layers, bf16 weights from a seeded
               generator, ~2 GB) through ``launch.serve.build_engine`` on
@@ -150,16 +172,16 @@ non-zero without printing a result:
               layer of every decode wave reads through
               ``paged_attention`` (4 x decode waves), nothing through the
               extend kernel.  Times and profiles one decode wave.
-14. serve_gemma_int8 — the same model and traffic on an int8 pool (the
+16. serve_gemma_int8 — the same model and traffic on an int8 pool (the
               rings stay bf16): ``paged_attention`` == 4 x decode waves,
               ``paged_extend_attention`` == 4 x extend waves.
-15. serve_gemma_wide — the gemma3-1b weights on an int8 pool with
+17. serve_gemma_wide — the gemma3-1b weights on an int8 pool with
               catch-up chunk 64, 4 greedy requests of 600-1000 prompt
               tokens x 8 new: every extend call at S = 64 through
               ``paged_extend_attention`` (4 x extend waves), held against
               the same engine reading through the gather by the int8
               gate.
-16. serve_hybrid — the seventh main path: zamba2-7b at full width and
+18. serve_hybrid — the seventh main path: zamba2-7b at full width and
               depth (81 layers: 13 super-blocks of 5 mamba blocks and
               the shared attention block, 3 remainder mamba blocks;
               bf16, ~11.2 GB) through ``launch.serve.build_engine``
@@ -170,16 +192,16 @@ non-zero without printing a result:
               ``ssd_scan`` and runs the 13 shared-block applications
               through ``flash_attention``; no paged or quant kernel
               launches.  Profiles one decode wave.
-17. model_hybrid — one 4-row bucket-1024 hybrid prefill with ragged
+19. model_hybrid — one 4-row bucket-1024 hybrid prefill with ragged
               ``true_len`` through the kernels and through the plain
               path at float32: logits, mamba states and ring K/V within
               the stated share of their max, greedy tokens equal; one
               bf16 prefill of each timed.
-18. reference_gemma — the gemma3-1b smoke config at float32 (window
+20. reference_gemma — the gemma3-1b smoke config at float32 (window
               16), prompts of 20-150 tokens: the engine on the card and on
               the CPU emit the same greedy tokens on a float pool and
               meet the int8 gate on an int8 pool, both kernels launched.
-19. reference — the phi3 smoke config at float32: the engine on the card
+21. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -195,6 +217,13 @@ non-zero without printing a result:
               gemma3-1b smoke config (8 layers) at float32: the card's
               ``loss_fn(use_flash=True)`` within 1e-5 of the CPU's, two
               train steps' losses and gradient norms within 1e-4.
+22. reference_shared — the phi3 smoke config at float32 over
+              ``tests/test_engine_matrix.py``'s traffic (copied): the dense
+              twin, the prefix-cache engine with the hand-written reads
+              and the same speculating on the card, and the prefix-cache
+              engine on the CPU, emit exactly the same greedy tokens; the
+              prefix-cache engine on an int8 pool on the card meets the
+              JAX matrix's int8 gate against them.
 
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
@@ -378,6 +407,17 @@ GEMMA_WIDE_TRAFFIC = (4, 600, 1000, 8)        # requests, prompts, new
 HYBRID_ARCH = "zamba2-7b"
 HYBRID_SERVE = dict(SSM_SERVE)
 HYBRID_TRAFFIC = (8, 16, 1000, 32)            # requests, prompts, new
+# the eighth path: phi3-medium-14b at ServeConfig's defaults (the radix
+# prefix cache on) with the hand-written reads, 4 slots, max_len 512.
+# Household traffic: 8 users share one system prompt of 205 tokens (12
+# pages of 16 and 13 tokens: it ends mid-page), then the same 5 persona
+# tokens, then their own 8-200 tokens (seed 0), 32 new greedy tokens
+# each.  User 0 comes alone and is stepped to its first token, so its
+# chain is published in flight; users 1-7 come together after it.
+SHARED_SERVE = dict(max_len=512, use_pallas_paged=True)
+SHARED_SYS, SHARED_PERSONA, SHARED_TAIL = 205, 5, (8, 200)
+SHARED_USERS, SHARED_NEW = 8, 32
+SHARED_STORE = ROOT / "build" / "serve_shared_store.npz"
 
 
 def emit(phase: str, **fields) -> None:
@@ -1726,7 +1766,9 @@ def serve_phase(torch, kernels, serve, scale="full", dev="cuda"):
     module (with its ``launches`` counter)."""
     clock = serve.default_clock
     t0 = clock()
-    cfg, eng = serve.build_engine(ARCH, scale, SERVE, dev)
+    cfg, eng = serve.build_engine(ARCH, scale, dict(SERVE,
+                                                    prefix_cache=False),
+                                  dev)
     init_s = clock() - t0
     L = cfg.num_layers
     fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
@@ -1750,6 +1792,285 @@ def serve_int8_phase(torch, kernels, serve, eng0, cfg):
         "paged_extend_attention": L * eng.extend_waves, "quant_matmul": 0,
         "ssd_scan": 0},
         needs=("paged_attention", "paged_extend_attention"))
+
+
+def serve_dense_phase(torch, kernels, serve, params, cfg, serve_tokens,
+                      dev="cuda"):
+    """The dense twin: the first path's model, weights and traffic with
+    ``paged=False`` (``max_len`` strips per slot and layer, no pool): every
+    request finishes, no kernel launches (``use_pallas_paged`` reads no
+    page, as in JAX), and the tokens meet the int8 gate against the
+    ``serve`` phase's (``serve_tokens``; strips and pages are read by
+    other code, a near-tie may flip at bf16)."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    eng = EdgeServingEngine(cfg, params, ServeConfig(
+        paged=False, use_pallas_paged=True, **SERVE), device=dev)
+    if eng.paged or eng.pool is not None or eng.prefix_cache is not None:
+        raise AssertionError("serve_dense: the dense twin has a page pool")
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {}, needs=())
+    tokens = {r.uid: list(r.generated) for r in eng.completed}
+    first, lcp, total = _int8_gate(tokens, serve_tokens)
+    fields.update(
+        kv_pool="none (dense strips)",
+        strip_gb=sum(t.numel() * t.element_size() for t in (
+            eng.cache["layers"]["k"], eng.cache["layers"]["v"])) / 1e9,
+        serve_first_tokens_equal=f"{first}/{len(serve_tokens)}",
+        serve_lcp_share=lcp / total, serve_tokens_equal=tokens == serve_tokens)
+    if first != len(serve_tokens) or lcp < INT8_LCP_SHARE * total:
+        raise AssertionError(f"serve_dense: first tokens {first}/"
+                             f"{len(serve_tokens)}, LCP {lcp}/{total}")
+    return fields
+
+
+def _shared_requests(cfg, request_cls) -> list:
+    """The eighth path's household traffic (``SHARED_*``), fresh requests
+    from seed 0: one system prompt, one persona, each user's own tail."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    V = cfg.vocab_size
+    sys_prompt = rng.integers(0, V, SHARED_SYS, dtype=np.int32)
+    persona = rng.integers(0, V, SHARED_PERSONA, dtype=np.int32)
+    reqs = []
+    for uid in range(SHARED_USERS):
+        n = int(rng.integers(SHARED_TAIL[0], SHARED_TAIL[1] + 1))
+        tail = rng.integers(0, V, n, dtype=np.int32)
+        reqs.append(request_cls(uid=uid, max_new_tokens=SHARED_NEW,
+                                prompt=np.concatenate([sys_prompt, persona,
+                                                       tail])))
+    return reqs
+
+
+def _shared_drive(torch, kernels, serve, eng, reqs) -> dict:
+    """User 0 alone until its first token (its chain publishes in flight),
+    then users 1-7 together, until the engine drains; the kernel counts
+    zeroed just before and read just after.  Each step ends with the
+    wave's tokens on the host, so host stamps bound the work."""
+    clock = serve.default_clock
+    t_sub, ttft = {}, {}
+    waves = (eng.decode_waves, eng.extend_waves, eng.steps)
+
+    def submit(rs):
+        for r in rs:
+            eng.submit(r)
+            t_sub[r.uid] = clock()
+
+    def step():
+        eng.drain_step()
+        now = clock()
+        for r in reqs:
+            if r.uid not in ttft and r.generated:
+                ttft[r.uid] = (now - t_sub[r.uid]) * 1e3
+    _zero(kernels)
+    t0 = clock()
+    submit(reqs[:1])
+    while not reqs[0].generated:
+        step()
+    submit(reqs[1:])
+    while eng.queue or eng.active.any():
+        step()
+    elapsed = clock() - t0
+    launches = _counts(kernels)
+    decode, extend, steps = (a - b for a, b in zip(
+        (eng.decode_waves, eng.extend_waves, eng.steps), waves))
+    if len(eng.completed) < len(reqs) or any(
+            len(r.generated) != r.max_new_tokens for r in reqs):
+        raise AssertionError("serve_shared: requests unfinished")
+    hits = sorted(ttft[u] for u in ttft if u != reqs[0].uid)
+    return {"launches": launches, "decode_waves": decode,
+            "extend_waves": extend, "steps": steps, "elapsed_s": elapsed,
+            "tokens": sum(len(r.generated) for r in reqs),
+            "tok_per_s": sum(len(r.generated) for r in reqs) / elapsed,
+            "ms_per_step": elapsed * 1e3 / steps,
+            "ttft_user0_ms": ttft[reqs[0].uid],
+            "ttft_users1_7_p50_ms": hits[len(hits) // 2]}
+
+
+def _shared_wave_ms(torch, M, eng, cfg, dev) -> dict:
+    """Shared pages against private ones at position 400 (26 pages a
+    row), 4 rows: the decode read alone (``paged_attention`` on layer 0's
+    pool, device ms of calls back to back) and one kernel decode wave's
+    device-busy ms (profiled), with tables whose first 13 pages are the
+    same in every row (a shared system prompt) and with 4 x 26 distinct
+    pages.  Contents are whatever the pool holds: only times are read."""
+    from repro_torch.kernels import ops
+    B, n = 4, 26
+    shared = torch.full((B, eng.n_blk), -1, dtype=torch.int32)
+    private = shared.clone()
+    for b in range(B):
+        private[b, :n] = torch.arange(b * n, (b + 1) * n)
+        shared[b, :13] = torch.arange(13)
+        shared[b, 13:n] = torch.arange(13 + b * 13, 26 + b * 13)
+    pos = torch.full((B,), 400, dtype=torch.int32, device=dev)
+    tok = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    pool = eng.cache["layers"]
+    q = torch.randn((B, cfg.num_heads, cfg.head_dim),
+                    generator=torch.Generator().manual_seed(3)).to(
+                        device=dev, dtype=pool["k"].dtype)
+    out = {}
+    for name, bt in (("shared", shared), ("private", private)):
+        bt = bt.to(dev)
+        out[f"paged_attention_{name}_pages_ms"] = cuda_ms(
+            torch, lambda i: ops.paged_attention(
+                q, pool["k"][0], pool["v"][0], bt, pos + 1,
+                scale=cfg.head_dim ** -0.5))
+        prof = _device_profile(torch, lambda: M.decode_step_paged(
+            cfg, eng.params, eng.cache, tok, pos, bt, True))
+        out[f"decode_wave_{name}_pages_busy_ms"] = prof.get(
+            "device_busy_ms", "not measured")
+    return out
+
+
+def serve_shared_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
+    """Drive the eighth main path, on a bf16 and on an int8 pool: the
+    household traffic through ``ServeConfig``'s defaults (the radix
+    prefix cache on) with the hand-written reads.  Each leg: 7 hits and 1
+    miss, hits past the page boundary (token-granular, a copy-on-write
+    fork of the system prompt's partial page), ``paged_attention`` on
+    every layer of every decode wave and, on int8 pages,
+    ``paged_extend_attention`` on every layer of every (catch-up) extend
+    wave, no page leaked, and the hit rows' tokens held by the int8 gate
+    to the same requests served cold (``prefix_cache=False``, same
+    weights and order) — on the int8 leg, the first tokens and an LCP no
+    shorter than the int8 cold run's against the bf16 cold run's (see
+    the comment at the check).  The bf16 leg then serves user 1 again (a hit on
+    its own chain), writes the cache to a store (``close()``), builds a
+    fresh engine from it and serves user 1 once more: one hit, the live
+    re-serve's tokens exactly.  Returns the phase fields; ``launches`` sum
+    the two legs' prefix-cache runs."""
+    import os
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    L = cfg.num_layers
+    fields = {"arch": cfg.name, "depth": L, "users": SHARED_USERS,
+              "system_prompt_tokens": SHARED_SYS,
+              "persona_tokens": SHARED_PERSONA,
+              "own_tokens": list(SHARED_TAIL), "new_tokens": SHARED_NEW,
+              "launches": dict.fromkeys(kernels, 0)}
+    cold_tok = {}
+    for leg, quant in (("bf16", None), ("int8", "int8")):
+        persist = leg == "bf16"
+        store = str(SHARED_STORE) if persist else None
+        if persist and SHARED_STORE.exists():
+            SHARED_STORE.unlink()
+        kw = dict(SHARED_SERVE, quant_kv=quant)
+        eng = EdgeServingEngine(cfg, params, ServeConfig(
+            **kw, prefix_persist_path=store), device=dev)
+        if not (eng.sharable and eng.paged):
+            raise AssertionError(f"serve_shared {leg}: the cache is off")
+        cuda = eng.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reqs = _shared_requests(cfg, Request)
+        run = _shared_drive(torch, kernels, serve, eng, reqs)
+        run["peak_mem_gb"] = (torch.cuda.max_memory_allocated() / 1e9
+                              if cuda else None)
+        st = eng.stats()
+        expect = dict.fromkeys(kernels, 0)
+        expect.update(paged_attention=L * run["decode_waves"],
+                      paged_extend_attention=(L * run["extend_waves"]
+                                              if quant else 0))
+        run.update({k: st[f"prefix_{k}"] for k in (
+            "hits", "misses", "hit_tokens", "hit_tokens_block",
+            "hit_blocks", "cached_blocks")})
+        run.update(cow_forks=st["cow_forks"],
+                   published_frontiers=st["published_frontiers"],
+                   prefill_tokens_saved=st["prefix_hit_tokens"],
+                   prompt_tokens=sum(len(r.prompt) for r in reqs))
+        if (run["launches"] != expect or run["decode_waves"] == 0
+                or (quant and run["extend_waves"] == 0)):
+            raise AssertionError(f"serve_shared {leg}: launches "
+                                 f"{run['launches']}, expected {expect}")
+        if (run["hits"], run["misses"]) != (SHARED_USERS - 1, 1) or \
+                run["hit_tokens"] <= run["hit_tokens_block"] or \
+                run["cow_forks"] < 1:
+            raise AssertionError(f"serve_shared {leg}: {st}")
+        _check_pool(eng, f"serve_shared {leg}")
+        for name, n in run["launches"].items():
+            fields["launches"][name] += n
+
+        cold_eng = EdgeServingEngine(cfg, params, ServeConfig(
+            **kw, prefix_cache=False), device=dev)
+        cold_reqs = _shared_requests(cfg, Request)
+        cold = _shared_drive(torch, kernels, serve, cold_eng, cold_reqs)
+        _check_pool(cold_eng, f"serve_shared {leg} cold")
+        del cold_eng
+        hot_tok = {r.uid: list(r.generated) for r in reqs[1:]}
+        cold_tok[leg] = {r.uid: list(r.generated) for r in cold_reqs[1:]}
+        first, lcp, total = _int8_gate(hot_tok, cold_tok[leg])
+        run.update(cold={k: cold[k] for k in (
+            "tok_per_s", "ms_per_step", "ttft_user0_ms",
+            "ttft_users1_7_p50_ms", "steps", "decode_waves",
+            "extend_waves")},
+            hit_first_tokens_equal_cold=f"{first}/{total // SHARED_NEW}",
+            hit_lcp_share_cold=lcp / total,
+            hit_tokens_equal_cold=hot_tok == cold_tok[leg])
+        # the bf16 leg: the int8 gate.  The int8 leg: every first token
+        # (the hit prefill's own output) equal, and the hit rows may
+        # drift from the cold rows no faster than int8 pages alone move
+        # the cold rows off the bf16 pool's (the LCP of the cold runs of
+        # the two legs): a hit reads its context as int8 from its first
+        # token on, the cold prefill reads exact K/V, and at this size
+        # random weights leave near-tied logits that either perturbation
+        # flips (PERF.md, section 6)
+        floor = INT8_LCP_SHARE * total
+        if quant:
+            ctl = _int8_gate(cold_tok[leg], cold_tok["bf16"])[1]
+            run["control_lcp_share_int8_cold_vs_bf16_cold"] = ctl / total
+            floor = ctl
+        if first != total // SHARED_NEW or lcp < floor:
+            raise AssertionError(f"serve_shared {leg}: hit rows against "
+                                 f"cold: first {first}, LCP {lcp}/{total}"
+                                 f" (at least {floor})")
+
+        if persist:
+            again = Request(uid=101, prompt=reqs[1].prompt.copy(),
+                            max_new_tokens=SHARED_NEW)
+            h0 = eng.prefix_cache.hits
+            eng.submit(again)
+            eng.run_until_drained()
+            reserve_hits = eng.prefix_cache.hits - h0
+            saved = eng.close()
+            run.update(_shared_wave_ms(torch, M, eng, cfg, dev))
+            del eng
+            _release(torch)
+            warm = EdgeServingEngine(cfg, params, ServeConfig(
+                **kw, prefix_persist_path=store), device=dev)
+            replay = Request(uid=201, prompt=reqs[1].prompt.copy(),
+                             max_new_tokens=SHARED_NEW)
+            clock = serve.default_clock
+            t0 = clock()
+            warm.submit(replay)
+            ttft = None
+            while warm.queue or warm.active.any():
+                warm.drain_step()
+                if ttft is None and replay.generated:
+                    ttft = (clock() - t0) * 1e3
+            _check_pool(warm, "serve_shared restart")
+            run["restart"] = {
+                "store_bytes": os.path.getsize(store),
+                "saved_chains": saved["persist_saved_chains"],
+                "saved_blocks": saved["persist_saved_blocks"],
+                "loaded_chains": warm.persist_loaded_chains,
+                "loaded_blocks": warm.persist_loaded_blocks,
+                "rejected": warm.persist_rejected,
+                "hits": warm.prefix_cache.hits,
+                "live_reserve_hits": reserve_hits,
+                "ttft_ms": ttft,
+                "tokens_equal_live": replay.generated == again.generated,
+                "tokens_equal_first_serve": (replay.generated
+                                             == reqs[1].generated)}
+            if (warm.persist_rejected or warm.prefix_cache.hits != 1
+                    or reserve_hits != 1
+                    or replay.generated != again.generated):
+                raise AssertionError(f"serve_shared restart: "
+                                     f"{run['restart']}")
+            del warm
+            SHARED_STORE.unlink()
+        else:
+            del eng
+        _release(torch)
+        fields[leg] = run
+    return fields
 
 
 def _drive(torch, kernels, serve, eng, cfg, expected, needs,
@@ -1783,10 +2104,7 @@ def _drive(torch, kernels, serve, eng, cfg, expected, needs,
             f"decode and {eng.extend_waves} extend waves x "
             f"{cfg.num_layers} layers (expected {expect}, none 0 of "
             f"{needs})")
-    if eng.paged:
-        eng.pool.assert_consistent()
-        if eng.pool.num_free != eng.pool.num_blocks:
-            raise AssertionError(f"serve: {eng.pool.num_used} pages leaked")
+    _check_pool(eng, "serve")
     ttft = raw["ttft_ms"]
     return {
         "arch": cfg.name, "depth": cfg.num_layers, "depth_cut": False,
@@ -1806,6 +2124,18 @@ def _drive(torch, kernels, serve, eng, cfg, expected, needs,
         "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                         if dev.type == "cuda" else None),
     }
+
+
+def _check_pool(eng, phase: str) -> None:
+    """After a drain every page is free or held by the radix cache (with
+    the cache off: every page is free)."""
+    if not eng.paged:
+        return
+    eng.pool.assert_consistent()
+    cached = eng.prefix_cache.num_blocks if eng.prefix_cache else 0
+    if eng.pool.num_free + cached != eng.pool.num_blocks:
+        raise AssertionError(f"{phase}: {eng.pool.num_used - cached} pages "
+                             f"leaked ({cached} held by the prefix cache)")
 
 
 def _pool(eng) -> dict:
@@ -2147,7 +2477,8 @@ def _serve_pool_free(torch, kernels, serve, M, arch, serve_kw, traffic,
     phase fields)."""
     clock = serve.default_clock
     t0 = clock()
-    cfg, eng = serve.build_engine(arch, scale, serve_kw, dev)
+    cfg, eng = serve.build_engine(arch, scale,
+                                  dict(serve_kw, prefix_cache=False), dev)
     init_s = clock() - t0
     if eng.paged or eng.pool is not None:
         raise AssertionError(f"serve {arch}: the pool-free engine has a "
@@ -2537,7 +2868,8 @@ def serve_gemma_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
     (engine, cfg, phase fields)."""
     clock = serve.default_clock
     t0 = clock()
-    cfg, eng = serve.build_engine(GEMMA_ARCH, scale, GEMMA_SERVE, dev)
+    cfg, eng = serve.build_engine(GEMMA_ARCH, scale,
+                                  dict(GEMMA_SERVE, prefix_cache=False), dev)
     init_s = clock() - t0
     fields = _gemma_drive(torch, kernels, serve, M, eng, cfg, False, dev)
     fields["init_s"] = init_s
@@ -2840,6 +3172,91 @@ def reference_phase(torch, M, serve_mod, get_smoke_config, qm, dev="cuda"):
     return res
 
 
+def _matrix_traffic(cfg, request_cls) -> list:
+    """``tests/test_engine_matrix.py``'s mixed trace (copied): two
+    shared-prefix families (one ending mid-page), a tiny prompt, a
+    bucket-aligned one and one that catches up past the largest
+    bucket."""
+    import numpy as np
+    rng = np.random.default_rng(42)
+    vocab = cfg.vocab_size
+    sys_a = rng.integers(0, vocab, 21, dtype=np.int32)
+    sys_b = rng.integers(0, vocab, 16, dtype=np.int32)
+    prompts = [
+        np.concatenate([sys_a, rng.integers(0, vocab, 4, dtype=np.int32)]),
+        np.concatenate([sys_a, rng.integers(0, vocab, 7, dtype=np.int32)]),
+        np.concatenate([sys_b, rng.integers(0, vocab, 3, dtype=np.int32)]),
+        np.concatenate([sys_b, rng.integers(0, vocab, 9, dtype=np.int32)]),
+        rng.integers(0, vocab, 5, dtype=np.int32),
+        rng.integers(0, vocab, 32, dtype=np.int32),
+        rng.integers(0, vocab, 47, dtype=np.int32),
+    ]
+    return [request_cls(uid=uid, prompt=p, max_new_tokens=6,
+                        priority=uid % 3, deadline=float(uid))
+            for uid, p in enumerate(prompts)]
+
+
+def reference_shared(torch, M, get_smoke_config, kernels, dev="cuda"):
+    """The phi3 smoke config at float32 over the engine matrix's traffic:
+    the dense twin on the card, the paged engine with the prefix cache
+    and the hand-written reads on the card, the same speculating
+    (self-draft), and the same on the CPU (plain versions) emit exactly
+    the same greedy tokens; the prefix engine on an int8 pool on the card
+    meets the JAX matrix's int8 gate against the dense twin; the prefix
+    engines hit, the card's decode read launches, and no page leaks."""
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    cfg = get_smoke_config(ARCH).replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    base = dict(max_slots=3, max_len=96, prefill_buckets=(8, 16, 32), seed=3)
+    legs = {"dense_card": (dev, dict(paged=False, use_pallas_paged=True)),
+            "prefix_card": (dev, dict(use_pallas_paged=True)),
+            "prefix_spec_card": (dev, dict(use_pallas_paged=True,
+                                           spec_decode=True,
+                                           draft_arch="self")),
+            "prefix_cpu": ("cpu", dict(use_pallas_paged=True)),
+            "prefix_int8_card": (dev, dict(use_pallas_paged=True,
+                                           quant_kv="int8"))}
+    res, tokens = {"arch": f"{ARCH} smoke, float32", "requests": 7}, {}
+    for leg, (leg_dev, kw) in legs.items():
+        eng = EdgeServingEngine(cfg, _to(params, leg_dev),
+                                ServeConfig(**base, **kw), device=leg_dev)
+        _zero(kernels)
+        for r in _matrix_traffic(cfg, Request):
+            eng.submit(r)
+        eng.run_until_drained()
+        launches = _counts(kernels)
+        tokens[leg] = {r.uid: list(r.generated) for r in eng.completed}
+        st = eng.stats()
+        _check_pool(eng, f"reference_shared {leg}")
+        res[leg] = {"prefix_hits": st.get("prefix_hits"),
+                    "cow_forks": st["cow_forks"],
+                    "spec_rounds": st.get("spec_rounds"),
+                    "paged_attention_launches": launches["paged_attention"]}
+        if (len(tokens[leg]) != 7
+                or (eng.paged and st["prefix_hits"] < 1)
+                or (kw.get("spec_decode") and st["spec_rounds"] < 1)
+                or (leg == "prefix_card"
+                    and launches["paged_attention"] == 0)
+                or (not eng.paged and any(launches.values()))):
+            raise AssertionError(f"reference_shared {leg}: {st}, "
+                                 f"launches {launches}")
+    ref = tokens.pop("dense_card")
+    first, lcp, total = _int8_gate(tokens.pop("prefix_int8_card"), ref)
+    res["prefix_int8_card"].update(first_tokens_equal=f"{first}/7",
+                                   lcp_share=lcp / total)
+    # tests/test_engine_matrix.py's gate for an int8 engine against the
+    # float dense vanilla one: every first token but one, LCP >= 60%
+    if first < 6 or lcp < INT8_LCP_SHARE * total:
+        raise AssertionError(f"reference_shared int8: first {first}/7, "
+                             f"LCP {lcp}/{total}")
+    for leg, got in tokens.items():
+        if got != ref:
+            raise AssertionError(f"reference_shared: {leg} tokens {got} != "
+                                 f"the dense twin's {ref}")
+    res["tokens_equal"] = True
+    return res
+
+
 def _to(tree, dev):
     """A copy of ``tree`` on ``dev`` whose leaves are new tensor objects
     (``detach``), so flags set on them leave ``tree`` as it was."""
@@ -2900,6 +3317,7 @@ def main() -> int:
     t0 = clock()
     eng, cfg, fields = serve_phase(torch, kernels, serve)
     launches = dict(fields["launches"])
+    serve_tokens = {r.uid: list(r.generated) for r in eng.completed}
     emit("serve", seconds=clock() - t0, **fields)
 
     t0 = clock()
@@ -2920,6 +3338,18 @@ def main() -> int:
     params = eng8.params
     del eng8
     _release(torch)
+
+    t0 = clock()
+    fields = serve_dense_phase(torch, kernels, serve, params, cfg,
+                               serve_tokens)
+    _release(torch)
+    emit("serve_dense", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_shared_phase(torch, kernels, serve, M, params, cfg)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_shared", seconds=clock() - t0, **fields)
 
     t0 = clock()
     fields = serve_spec_phase(torch, kernels, serve, M, params, cfg)
@@ -2996,13 +3426,18 @@ def main() -> int:
     fields.update(reference_train(torch, M, get_smoke_config))
     emit("reference", seconds=clock() - t0, **fields)
 
+    t0 = clock()
+    emit("reference_shared", **reference_shared(
+        torch, M, get_smoke_config, kernels), seconds=clock() - t0)
+
     emit("done", seconds=clock() - t_start)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     for name, row in rows.items():
         # main-path launches: the serve phases (the gemma int8 drive at
-        # catch chunk 64 included) and model_train, each counted from 0
+        # catch chunk 64 and both serve_shared legs included) and
+        # model_train, each counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))

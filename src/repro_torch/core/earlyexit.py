@@ -7,6 +7,7 @@ from typing import Sequence
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.unported import not_ported
 
 
 def init_exit_heads(cfg: ModelConfig, exit_layers: Sequence[int],
@@ -18,3 +19,12 @@ def init_exit_heads(cfg: ModelConfig, exit_layers: Sequence[int],
     heads = [{"ln": norm_init(cfg.d_model, device=device)}
              for _ in exit_layers]
     return {"exits": heads, "exit_layers": tuple(exit_layers)}
+
+
+# the rest of the module (A.10)
+ExitReport = not_ported("repro.core.earlyexit.ExitReport", "A.10 (core)")
+exit_loss = not_ported("repro.core.earlyexit.exit_loss", "A.10 (core)")
+forward_with_exits = not_ported("repro.core.earlyexit.forward_with_exits",
+                                "A.10 (core)")
+serve_early_exit = not_ported("repro.core.earlyexit.serve_early_exit",
+                              "A.10 (core)")

@@ -12,6 +12,10 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+from repro_torch.unported import not_ported
+
+HUB_ITEM = "A.10 (core)"
+
 
 def quantile_higher(values, q: float) -> float:
     """Ceil-based sample quantile: ``sorted(values)[ceil(q*(n-1))]`` —
@@ -96,3 +100,10 @@ def plan_wave(policy: str, entries, budget: Optional[int] = None,
         if demoted:
             metrics.counter("sched.demotions").inc(demoted)
     return widths
+
+
+# the hub's discrete-event scheduler (A.10)
+AITask = not_ported("repro.core.scheduler.AITask", HUB_ITEM)
+EdgeScheduler = not_ported("repro.core.scheduler.EdgeScheduler", HUB_ITEM)
+Estimate = not_ported("repro.core.scheduler.Estimate", HUB_ITEM)
+TaskCost = not_ported("repro.core.scheduler.TaskCost", HUB_ITEM)

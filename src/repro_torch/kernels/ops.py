@@ -66,6 +66,10 @@ def quant_matmul(x, wq, scale, out_dtype=torch.bfloat16):
     raise ValueError(f"quant_matmul: no kernel for device {x.device}")
 
 
+# per-output-channel int8 weights for ``quant_matmul`` (as in JAX's ops)
+quantize_weights = _qm.quantize_weights
+
+
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
                     softcap: float = 0.0, k_scale=None, v_scale=None):
     """Paged single-token decode read; see ``ref.paged_attention_ref``

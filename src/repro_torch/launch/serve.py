@@ -5,9 +5,15 @@ port of ``repro.launch.serve``; the asyncio frontend is a later slice).
     python -m repro_torch.launch.serve --arch phi3-medium-14b --scale full
     python -m repro_torch.launch.serve --arch mamba2-370m --scale full
     python -m repro_torch.launch.serve --arch zamba2-7b --scale full
+    python -m repro_torch.launch.serve --arch phi3-medium-14b --persist PATH
 
 submits ``--requests`` random prompts, steps the engine until it drains
-and prints one JSON line (the JAX CLI's drain-mode keys).  The default
+and prints one JSON line (the JAX CLI's drain-mode keys).  The engine
+runs at ``ServeConfig``'s defaults, as the JAX CLI's does: the radix
+prefix cache is on wherever the arch can share pages.  ``--persist
+PATH`` reads a prefix store from PATH at startup and writes the warm
+chains back when the drain ends (``engine.close()``), adding the JAX
+CLI's ``persist_*`` keys to the line.  The default
 arch is gemma3-1b, as in the JAX CLI.  Weights are random, from a seeded
 ``torch.Generator`` on the device, or restored from ``--params`` (a
 checkpoint of ``training.checkpoint.save``, as ``launch.train
@@ -36,6 +42,13 @@ from repro_torch.models import model as M
 from repro_torch.serving import (EdgeServingEngine, Request, ServeConfig,
                                  default_clock)
 from repro_torch.training import checkpoint as ckpt
+from repro_torch.unported import not_ported
+
+# the always-on asyncio frontend and its stream handles (A.8)
+AsyncServingFrontend = not_ported("repro.launch.serve.AsyncServingFrontend",
+                                  "A.8 (async frontend)")
+StreamHandle = not_ported("repro.launch.serve.StreamHandle",
+                          "A.8 (async frontend)")
 
 
 def build_engine(arch: str, scale: str, scfg_kw: dict, device=None,
@@ -43,7 +56,9 @@ def build_engine(arch: str, scale: str, scfg_kw: dict, device=None,
     """(cfg, engine) for ``arch`` at ``scale`` ("smoke" | "full") with
     random weights from ``seed`` on ``device`` (default ``cuda``), or the
     checkpoint at ``params_path`` restored onto them: each leaf on the
-    engine's device in the dtype of the weight it replaces."""
+    engine's device in the dtype of the weight it replaces.  The
+    ``ServeConfig`` takes ``scfg_kw`` over its defaults, with
+    ``use_pallas_paged`` defaulting to True on a CUDA device."""
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if scale == "smoke" else get_config(arch)
     if dev.type == "cuda":
@@ -53,8 +68,8 @@ def build_engine(arch: str, scale: str, scfg_kw: dict, device=None,
     if params_path:
         restored = ckpt.restore(params_path, params)
         params = _cast_like(restored, params)
-    scfg = ServeConfig(prefix_cache=False,
-                       use_pallas_paged=dev.type == "cuda", **scfg_kw)
+    scfg = ServeConfig(**{"use_pallas_paged": dev.type == "cuda",
+                          **scfg_kw})
     return cfg, EdgeServingEngine(cfg, params, scfg, device=dev)
 
 
@@ -134,6 +149,12 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "interleaved with decode (no blocking prefill)")
     ap.add_argument("--min-prompt", type=int, default=4)
     ap.add_argument("--max-prompt", type=int, default=24)
+    ap.add_argument("--persist", metavar="PATH", default=None,
+                    help="prefix-store path: rehydrate the radix prefix "
+                         "cache from PATH at startup and save the hot "
+                         "chains back when the drain ends; a corrupt or "
+                         "mismatched store is rejected (cold start).  "
+                         "Only engages on prefix-sharable archs")
     ap.add_argument("--params", default=None,
                     help="checkpoint to serve (training.checkpoint.save "
                          "format), restored onto the seeded weights")
@@ -147,7 +168,8 @@ def main(argv=None) -> None:
         temperature=args.temperature, top_k=args.top_k,
         policy=args.policy, spec_decode=args.spec,
         draft_arch=args.draft if args.spec else None,
-        spec_gamma=args.gamma, chunked_prefill=args.chunked), args.device,
+        spec_gamma=args.gamma, chunked_prefill=args.chunked,
+        prefix_persist_path=args.persist), args.device,
         params_path=args.params)
     reqs = make_requests(cfg, args.requests, args.min_prompt,
                          args.max_prompt, args.max_new, args.policy)
@@ -162,6 +184,8 @@ def main(argv=None) -> None:
                                       int(0.99 * len(ttft)))], 1),
         "policy": args.policy,
     }
+    if args.persist:
+        out.update(eng.close())     # save the warm chains back
     st = eng.stats()
     if args.spec:
         out.update({
@@ -172,6 +196,14 @@ def main(argv=None) -> None:
     if args.chunked:
         out.update({"mixed_waves": st["mixed_waves"],
                     "wave_admitted": st["wave_admitted"]})
+    if args.persist:
+        out.update({
+            "persist_loaded_chains": st.get("persist_loaded_chains", 0),
+            "persist_loaded_blocks": st.get("persist_loaded_blocks", 0),
+            "persist_rejected": st.get("persist_rejected", ""),
+            "prefix_hits": st.get("prefix_hits", 0),
+            "prefix_hit_tokens": st.get("prefix_hit_tokens", 0),
+        })
     print(json.dumps(out))
     for r in eng.completed[:3]:
         print(f"  req {r.uid}: {list(map(int, r.generated[:10]))}...")

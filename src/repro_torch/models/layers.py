@@ -25,8 +25,8 @@ Conventions
   ``attention_extend``) covers global strips and local ring windows and
   is updated IN PLACE like the pool.
 * Not ported yet, raising ``NotImplementedError``: cross-attention
-  decode, the long-sequence (blockwise) prefill branch and the
-  prefix-hit prefill.
+  decode, the long-sequence (blockwise) prefill branch and the encdec
+  family's ``gelu_mlp`` / ``sinusoidal_positions``.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.unported import not_ported
 
 NEG_INF = -2.0e38
 
@@ -733,19 +734,66 @@ def attention_prefill_paged(cfg: ModelConfig, params, x, positions, pages,
                             write_tables, ctx_tables=None, ctx_len=None, *,
                             use_flash: bool = False):
     """Prefill attention for a GLOBAL layer that writes K/V straight into
-    the paged pool (in place).
+    the paged pool (in place) and, on a prefix-cache hit, attends the
+    shared prefix's pages instead of recomputing them.
 
-    x: (B, S, d); positions: (B, S) absolute positions; write_tables:
-    (B, n_wblk) physical pages covering the span from logical block 0.
-    The compute is ``attention_fwd``, so paged admission is the same
-    math as a plain prefill.  The prefix-cache hit path (``ctx_tables``)
-    is not ported yet.  Returns (out (B, S, d), pages).
+    x: (B, S, d) suffix activations; positions: (B, S) ABSOLUTE
+    positions (``ctx_len + arange(S)`` on a hit).
+
+    Cold rows (``ctx_tables=None``): ``write_tables`` (B, n_wblk) holds
+    the physical pages covering the span from logical block 0, and the
+    compute is ``attention_fwd``, so paged admission is the same math as
+    a plain prefill.
+
+    Hit rows: the match is token-granular, so the suffix may start
+    mid-page (the engine has already forked that page private).
+    ``ctx_tables`` and ``write_tables`` are then both the row's full
+    block table: the context is the gathered view of it masked to
+    positions ``< ctx_len`` per row (dequantized from an int8 pool), the
+    suffix attends itself causally, and its K/V is scattered token by
+    token at ``ctx_len + i`` through the same table.  On an int8 pool
+    the suffix attends its own int8 round trip and writes those ints.
+    As in JAX, the hit prefill reads through the gather, not a kernel.
+    Returns (out (B, S, d), pages).
     """
-    if ctx_tables is not None:
-        raise _not_ported("prefix-cache hit prefill", "A.5 (prefix cache)")
-    o, k, v = attention_fwd(cfg, params, x, positions, is_global=True,
-                            use_flash=use_flash)
-    return o, scatter_kv_pages(pages, k, v, write_tables)
+    if ctx_tables is None:
+        o, k, v = attention_fwd(cfg, params, x, positions, is_global=True,
+                                use_flash=use_flash)
+        return o, scatter_kv_pages(pages, k, v, write_tables)
+
+    B, S, d = x.shape
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    G = H // K
+    scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+    ctx_len = torch.as_tensor(ctx_len, dtype=torch.int32, device=x.device)
+    q, k, v = _project_seq(cfg, params, x, positions, is_global=True)
+    quant = kv_pages_quantized(pages)
+    if quant:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        k = dequantize_kv(kq, ks, k.dtype)
+        v = dequantize_kv(vq, vs, v.dtype)
+    ck, cv = gather_kv_pages(pages, ctx_tables)       # gather = a copy
+    Tc = ck.shape[1]
+    ctx_ok = (torch.arange(Tc, dtype=torch.int32, device=x.device)[None, :]
+              < ctx_len[:, None])
+    mask = torch.cat(
+        [torch.broadcast_to(ctx_ok[:, None, :], (B, S, Tc)),
+         torch.broadcast_to(causal_mask(S, S, device=x.device), (B, S, S))],
+        dim=-1)
+    k_all = torch.cat([ck.to(x.dtype), k], dim=1)
+    v_all = torch.cat([cv.to(x.dtype), v], dim=1)
+    qg = q.reshape(B, S, K, G, hd)
+    out = attention_weights_and_out(qg, k_all, v_all, mask[:, None, None],
+                                    scale=scale,
+                                    softcap=cfg.attn_logit_softcap)
+    o = weight_einsum("bshq,hqd->bsd", out.reshape(B, S, H, hd),
+                      params["wo"])
+    if quant:
+        _scatter_tokens_quant(pages, kq, ks, vq, vs, write_tables, ctx_len)
+    else:
+        scatter_kv_tokens(pages, k, v, write_tables, ctx_len)
+    return o, pages
 
 
 def attention_decode_paged(cfg: ModelConfig, params, x, cache, pos,
@@ -1033,3 +1081,11 @@ def init_unembed(cfg: ModelConfig, gen, dtype=torch.float32, device=None):
         return {}
     return {"w": _dense_init(gen, (cfg.d_model, cfg.vocab_size),
                              dtype=dtype, device=device)}
+
+
+# the encdec family's pieces (A.9.3)
+gelu_mlp = not_ported("repro.models.layers.gelu_mlp", "A.9.3 (encdec family)")
+init_gelu_mlp = not_ported("repro.models.layers.init_gelu_mlp",
+                           "A.9.3 (encdec family)")
+sinusoidal_positions = not_ported("repro.models.layers.sinusoidal_positions",
+                                  "A.9.3 (encdec family)")

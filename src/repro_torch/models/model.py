@@ -23,7 +23,9 @@ attention block), and every other family raises
                       toks, pos, block_tables)    -> (logits, cache)
     extend_paged(cfg, params, cache, toks[B,S],
                  pos, block_tables)               -> (logits[B,S,V], cache)
+    extend(cfg, params, cache, toks[B,S], pos)    -> (logits[B,S,V], cache)
     extendable / spec_decodable / prefix_sharable -> bool
+    make_batch(cfg, shape, generator, device)     -> random batch
 
 The JAX entry points return new caches; these update the cache's
 tensors in place and return the same cache (``prefill`` makes a new
@@ -38,7 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
-from repro_torch.devices import DeviceLike
+from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.models import hybrid, ssm, transformer
 
 _FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
@@ -222,7 +224,12 @@ def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
     written directly into the page pool through ``write_tables``; the
     ssm and hybrid families (no pages) write each row's states and rings
     at ``slots`` and run their scan through ``kernels.ops.ssd_scan`` with
-    ``use_kernel`` (the ssm family ignores ``use_flash``).  Returns
+    ``use_kernel`` (the ssm family ignores ``use_flash``).  With
+    ``ctx_tables`` / ``ctx_len`` the rows are radix-cache-hit suffixes
+    that read the shared prefix's pages (only where
+    ``prefix_sharable(cfg)``; ``ctx_len`` is token-granular and both
+    tables are then the row's full block table); ``write_tables=None``
+    is the dense engine's admission into ``max_len`` strips.  Returns
     (last-true-token logits, cache)."""
     if cfg.family == "ssm":
         return ssm.prefill_paged(
@@ -239,6 +246,42 @@ def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
         cfg, params, batch["tokens"], max_len, cache, slots=slots,
         write_tables=write_tables, ctx_tables=ctx_tables, ctx_len=ctx_len,
         true_len=true_len, use_flash=use_flash)
+
+
+def extend(cfg: ModelConfig, params, cache, tokens, pos, valid_len=None):
+    """Dense twin of ``extend_paged``: the same multi-token scoring
+    against the dense strips and rings of ``init_cache`` (updated in
+    place), which keeps the ``ServeConfig.paged=False`` engine wave for
+    wave the paged one.  The recurrent families (ssm, hybrid) are not
+    ``extendable`` and raise, as in JAX."""
+    if not extendable(cfg):
+        raise NotImplementedError(
+            f"{cfg.family} has no multi-token extend: its recurrent state "
+            "cannot be advanced S tokens and rolled back (gate callers on "
+            "model.extendable)")
+    return family_module(cfg).extend(cfg, params, cache, tokens, pos,
+                                     valid_len)
+
+
+def make_batch(cfg: ModelConfig, shape: InputShape, generator=None,
+               device: DeviceLike = None) -> dict:
+    """A random batch of ``batch_shapes(cfg, shape)`` on ``device``
+    (default ``cuda``): token ids uniform over the vocabulary, floating
+    inputs ``0.1 * randn``, drawn in order from ``generator`` (default:
+    seed 0 on the device).  The numbers are not the JAX package's."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+    for name, spec in batch_shapes(cfg, shape).items():
+        if spec.dtype.is_floating_point:
+            out[name] = 0.1 * torch.randn(spec.shape, generator=generator,
+                                          dtype=spec.dtype, device=dev)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=generator, dtype=spec.dtype,
+                                      device=dev)
+    return out
 
 
 def extendable(cfg: ModelConfig) -> bool:

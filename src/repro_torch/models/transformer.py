@@ -367,6 +367,20 @@ def init_paged_cache(cfg: ModelConfig, batch: int, max_len: int,
         quant=kv_dtype == "int8", device=dev), device=dev)
 
 
+def trunk_decode_paged(cfg: ModelConfig, trunk: Params, cache: Params, x,
+                       pos, block_tables, use_pallas: bool = False):
+    """``trunk_decode`` against ``init_paged_cache``: global layers read
+    and write their pages through ``block_tables``, local layers their
+    rings.  Returns (x, cache), the cache updated in place."""
+    for lp, c, is_global in walk(cfg, trunk, cache):
+        if is_global:
+            x, _ = block_decode_paged(cfg, lp, x, c, pos, block_tables,
+                                      use_pallas)
+        else:
+            x, _ = block_decode(cfg, lp, x, c, pos, is_global=False)
+    return x, cache
+
+
 def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
                       tokens, pos, block_tables, use_pallas: bool = False):
     """One decode token per row against the paged cache (updated in
@@ -375,12 +389,8 @@ def decode_step_paged(cfg: ModelConfig, params: Params, cache: Params,
     tokens: (B, 1) int32; pos: (B,) int32 write positions.  Returns
     (logits (B, 1, V), cache)."""
     x = L.embed(cfg, params["embed"], tokens)
-    for lp, c, is_global in walk(cfg, params["trunk"], cache):
-        if is_global:
-            x, _ = block_decode_paged(cfg, lp, x, c, pos, block_tables,
-                                      use_pallas)
-        else:
-            x, _ = block_decode(cfg, lp, x, c, pos, is_global=False)
+    x, cache = trunk_decode_paged(cfg, params["trunk"], cache, x, pos,
+                                  block_tables, use_pallas)
     return _logits(cfg, params, x), cache
 
 
@@ -407,6 +417,23 @@ def extend_paged(cfg: ModelConfig, params: Params, cache: Params, tokens,
         else:
             x, _ = block_extend(cfg, lp, x, c, pos, is_global=False,
                                 valid_len=valid_len)
+    return _logits(cfg, params, x), cache
+
+
+def extend(cfg: ModelConfig, params: Params, cache: Params, tokens, pos,
+           valid_len=None):
+    """Dense twin of ``extend_paged``: score S tokens against the dense
+    strips and rings of ``init_cache`` (updated in place), every layer
+    through ``block_extend`` with the same row semantics — the context
+    read strictly below ``pos``, the S tokens a causal suffix, writes
+    of rows ``i < valid_len`` only.  Returns (logits (B, S, V), cache)."""
+    x = L.embed(cfg, params["embed"], tokens)
+    pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                             device=x.device),
+                             (x.shape[0],))
+    for lp, c, is_global in walk(cfg, params["trunk"], cache):
+        x, _ = block_extend(cfg, lp, x, c, pos, is_global=is_global,
+                            valid_len=valid_len)
     return _logits(cfg, params, x), cache
 
 
@@ -523,32 +550,42 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens, max_len,
     in place: global-layer K/V into the shared page pool through
     ``write_tables`` (m, n_wblk), local-layer rings into their rows at
     ``slots`` (m,).  ``true_len`` (m,) marks the right-padded bucket:
-    logits come from each row's true last token.  The prefix-cache hit
-    path (``ctx_tables``), VLM prefix embeddings and the dense
-    ``write_tables=None`` engine are later slices.  Returns
+    logits come from each row's true last token.
+
+    ``ctx_tables`` / ``ctx_len`` carry a radix prefix-cache hit: the rows
+    are then the unmatched suffix only, at positions ``ctx_len +
+    arange(S)``, and the global layers also read the shared prefix's
+    pages (``layers.attention_prefill_paged``); only a fully paged trunk
+    (``pattern_period <= 1``) takes context.  With ``write_tables=None``
+    this is the dense engine's admission: the same prefill math, its
+    global K/V filled into ``max_len`` strips scattered at ``slots``.
+    VLM prefix embeddings belong to the vlm slice.  Returns
     (last-true-token logits (m, 1, V), cache)."""
-    if ctx_tables is not None:
-        raise L._not_ported("prefix-cache hit prefill", "A.5 (prefix cache)")
-    if write_tables is None:
-        raise L._not_ported("dense-strip admission (paged=False)",
-                            "A.4 (dense twin)")
     if prefix_embeds is not None:
         raise L._not_ported("prefix embeddings", "A.9.2 (vlm family)")
+    if ctx_tables is not None and cfg.pattern_period > 1:
+        raise ValueError("prefix-cache context requires a fully-paged "
+                         "trunk (pattern_period <= 1)")
     x = L.embed(cfg, params["embed"], tokens)
     B, S, _ = x.shape
     n = broadcast_true_len(true_len, B, x.device)
-    positions = torch.broadcast_to(
-        torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
+    off = (torch.zeros((B,), dtype=torch.int32, device=x.device)
+           if ctx_len is None
+           else torch.as_tensor(ctx_len, dtype=torch.int32, device=x.device))
+    positions = off[:, None] + torch.arange(S, dtype=torch.int32,
+                                            device=x.device)[None, :]
     W = min(cfg.local_window, max_len)
     for lp, c, is_global in walk(cfg, params["trunk"], cache):
-        if is_global:
+        if is_global and write_tables is not None:
             x, _ = block_prefill_paged(cfg, lp, x, positions, c,
-                                       write_tables, use_flash=use_flash)
+                                       write_tables, ctx_tables, ctx_len,
+                                       use_flash=use_flash)
             continue
-        x, (k, v) = block_prefill(cfg, lp, x, positions, is_global=False,
+        x, (k, v) = block_prefill(cfg, lp, x, positions, is_global=is_global,
                                   use_flash=use_flash)
-        rows = L.init_kv_cache(cfg, B, W, dtype=k.dtype, device=x.device)
-        _fill_local(rows, k, v, n)
+        rows = L.init_kv_cache(cfg, B, max_len if is_global else W,
+                               dtype=k.dtype, device=x.device)
+        (_fill_global if is_global else _fill_local)(rows, k, v, n)
         scatter_cache_rows(c, rows, slots, 0)
     x = x[:, -1:] if n is None else gather_last(x, n)
     return _logits(cfg, params, x), cache

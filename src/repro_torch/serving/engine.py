@@ -8,13 +8,17 @@ JAX engine's, and on the same weights the greedy tokens are the same:
 
 * ADMIT — ``core.scheduler.admission_rank`` orders the queue (fifo /
   priority / edf); admission is capacity-aware (a request is taken only
-  when the pool can cover its first span plus one decode write).
-  Prompts are right-padded to the smallest prefill bucket and prefilled
-  in one batch per bucket with ``true_len``, writing K/V straight into
-  the pages (``model.prefill_paged``); prompts past the largest bucket
-  catch up teacher-forced through extend waves.  With
+  when the pool, counting prefix-cache pages evictable now, can cover
+  its first span plus one decode write).  A fresh request is looked up
+  in the radix prefix cache first: a hit pins the shared chain and only
+  the unmatched suffix is prefilled.  Prompts are right-padded to the
+  smallest prefill bucket and prefilled in one batch per (bucket,
+  context width) with ``true_len``, writing K/V straight into the pages
+  (``model.prefill_paged``); prompts past the largest bucket catch up
+  teacher-forced through extend waves.  With
   ``ServeConfig.chunked_prefill`` admission is bookkeeping only and the
-  whole prompt enters as wave spans (``_admit_wave``).
+  prompt (or the suffix after a hit) enters as wave spans
+  (``_admit_wave``).
 * PLAN — each active slot gets ``(mode, width)``: ``spec`` (a
   draft-backed verify of up to ``spec_gamma`` tokens), ``catch`` (up to
   ``max(spec_gamma, catch_chunk)`` prompt tokens) or ``plain`` (one
@@ -29,16 +33,18 @@ JAX engine's, and on the same weights the greedy tokens are the same:
   the hand-written ``paged_extend_attention`` kernel.  The eager calls
   update the page pool in place (the JAX engine donates its cache to a
   jitted call instead).
-* RETIRE — committed tokens land in ``Request.generated``; EOS, budget,
-  the ``max_len`` wall or cancellation free the slot and its pages.
+* RETIRE — committed tokens land in ``Request.generated``; a finished
+  slot's pages go to the radix cache (``_finish``), live slots publish
+  their frontier pages for in-flight sharing, and EOS, budget, the
+  ``max_len`` wall or cancellation free the slot.
 
 Speculative decoding (``spec_decode``, ``serving.spec_decode``): on a
 ``model.spec_decodable`` config every wave is an extend wave.  The draft
 (an explicit ``draft=(cfg, params)``, the early-exit self-draft, or a
 registry smoke config drawn from a ``torch.Generator`` seeded with
 ``ServeConfig.seed``) proposes up to ``spec_gamma - 1`` tokens per slot
-from its own dense cache; one ``extend_paged`` call verifies them; greedy
-or rejection-sampling acceptance commits ``n_accepted + 1`` tokens and
+from its own dense cache; one extend call verifies them; greedy or
+rejection-sampling acceptance commits ``n_accepted + 1`` tokens and
 ``_truncate_slot`` returns the rejected tail's pages.  Greedy output is
 the vanilla engine's token for token.  ``quant_draft`` quantizes the
 draft's projection weights to int8 (``layers.quantize_matmul_params``),
@@ -49,12 +55,44 @@ Paged KV: every slot holds an ordered list of pool pages
 (``kv_pool.KVBlockPool``), mirrored into the ``(max_slots, max_len //
 kv_block_size)`` int32 block tables (-1 = unallocated) that every wave
 sends to the device.  Before a wave each slot's table covers its write
-span (``_ensure_blocks``); on pool exhaustion the slot is preempted back
-to the queue with its pages detached (preempt-or-queue), and resumes
-with no re-prefill.  When nothing can run and detached requests hold
-every page, the worst-ranked one is reclaimed (its context is replayed
-as a prompt), so ``step()`` loops never wedge.  Zero pages leak:
-``drain_step`` re-checks ``pool.assert_consistent()`` after every step.
+span (``_ensure_blocks``, evicting LRU prefix-cache chains under
+pressure); on pool exhaustion the slot is preempted back to the queue
+with its pages detached (preempt-or-queue), and resumes with no
+re-prefill.  When nothing can run and detached requests hold every
+page, the worst-ranked one is reclaimed (its context is replayed as a
+prompt), so ``step()`` loops never wedge.  No page leaks:
+``drain_step`` re-checks ``pool.assert_consistent()`` after every step,
+and at drain every page is free or held by the radix cache.
+
+Shared pages (the radix prefix cache, ``serving.prefix_cache``, on a
+``model.prefix_sharable`` config with ``ServeConfig.prefix_cache``):
+
+* matching is token-granular; a hit that ends mid-page has that page
+  forked private at admission (``KVBlockPool.fork`` plus a device page
+  copy), and the suffix prefill reads the context below ``ctx_len``
+  while it writes from ``ctx_len`` on through the row's full table;
+* a slot's table may hold pages with refcount > 1; they are read-only:
+  every page a wave writes is fresh or was forked, and ``_cow_guard``
+  forks any write target with a second owner before the wave runs;
+* after every wave each live slot publishes its full pages below
+  ``floor(pos / block_size) * block_size`` (``_publish_frontiers``), so
+  a later request can hit a chain that is still decoding; rollback
+  (``_truncate_slot``) frees only pages above ``pos``;
+* a finished or cancelled chain is indexed with its partial tail page
+  (``_retire_chain``), duplicates of indexed pages are freed, and
+  chains whose pages only the cache holds are evicted LRU under
+  pressure;
+* with ``ServeConfig.prefix_persist_path``, ``close()`` writes the
+  cache's refcount-free chains (and chains evicted under pressure,
+  spilled to the host first) to a store, and a new engine with the same
+  path reads them back into its pool; a corrupt or mismatched store
+  (config, weights, page layout) is rejected with its reason in
+  ``persist_rejected`` and the engine starts cold.
+
+Tokens after a hit — page-aligned, mid-page, in flight or read back from
+a store — equal a cold run's.  Configs whose decode state is not all in
+pages (gemma's local rings, the ssm and hybrid recurrences) never
+share: the cache stays off.
 
 Sampling is per request (``Request.temperature`` / ``top_k`` over the
 ``ServeConfig`` defaults): the decode wave samples on the device from
@@ -62,41 +100,45 @@ the engine's ``torch.Generator`` (Gumbel-max), first tokens and
 catch-up tokens on the host from the engine's numpy generator, as in
 the JAX engine.  Greedy tokens match the JAX engine; sampled tokens
 match it in distribution only (the generators differ).
+``reset_rng()`` re-seeds both.
 
-Pool-free path: a family whose paged cache has no pool leaf (ssm: O(1)
-recurrent state per row; hybrid: that and the shared attention block's
-rings of ``min(max_len, local_window)`` entries per row) runs with
-``self.paged = False``, as in JAX: no
-``KVBlockPool`` and no block tables; the cache is ``model.init_cache``
-with one row per slot (batch axes from ``cache_batch_axes``); admission
-prefills write each row's state at its slot (``prefill_paged`` without
-tables); every wave is a ``model.decode_step`` wave, and prompts past
-the largest bucket catch up one teacher-forced token a wave; preemption
-copies the slot's rows out (``extract_slot``) and resumption copies them
-back (``insert_slot``).  ``quant_kv="int8"`` is disarmed there (no pages
-to quantize) and ``spec_decode`` is quietly ignored (the recurrence
-cannot roll back).  One choice is the port's own: on a pool-free config
-``use_pallas_paged=True`` sends the admission prefill's scan through the
-hand-written ``ssd_scan`` kernel (``prefill_paged(use_kernel=True)``)
-and, on the hybrid, the shared block's causal prefill attention through
-the hand-written ``flash_attention`` kernel (``use_flash=True``).  The
-JAX engine sets neither ``use_kernel`` nor ``use_flash``, and the flag
-is its only "serve through the hand kernels" switch; with it off the
-port runs the plain chunked scan and the plain masked softmax, which is
-what the JAX engine runs.
+Without pages (``self.paged = False``) the cache is ``model.init_cache``
+with one row per slot (batch axes from ``cache_batch_axes``): no
+``KVBlockPool``, no block tables, no prefix cache; admission prefills
+write each row's state at its slot (``prefill_paged`` without tables);
+waves are ``model.decode_step`` / ``model.extend``; preemption copies
+the slot's rows out (``extract_slot``) and resumption copies them back
+(``insert_slot``); ``quant_kv="int8"`` is disarmed (no pages to
+quantize).  Two kinds of config run so:
 
-Not ported yet — each raises ``NotImplementedError`` when its
-``ServeConfig`` field is set: the radix prefix cache and its
-persistence, tracing, and the dense ``paged=False`` twin (an explicit
-``paged=False`` on a family that needs pages raises at construction).
-``prefix_cache`` defaults to True as in the JAX config, so callers pass
-``prefix_cache=False``.  Without the prefix cache no page is ever
-shared, so the JAX engine's copy-on-write backstop (``_cow_guard``) has
-nothing to do and is left out.
+* the dense twin, ``ServeConfig(paged=False)`` on a family with pages:
+  ``max_len`` strips per slot and layer (rings for gemma's local
+  layers), speculation rolling back by position masks, and
+  ``use_pallas_paged`` launching nothing, as in JAX;
+* a family whose paged cache has no pool leaf (ssm: O(1) recurrent
+  state per row; hybrid: that and the shared attention block's rings
+  of ``min(max_len, local_window)`` entries per row), whatever
+  ``paged`` says.  Prompts past the largest bucket catch up one token a
+  decode wave, and ``spec_decode`` is quietly ignored (the recurrence
+  cannot roll back).  One choice is the port's own: there
+  ``use_pallas_paged=True`` sends the admission prefill's scan through
+  the hand-written ``ssd_scan`` kernel (``prefill_paged(use_kernel=
+  True)``) and, on the hybrid, the shared block's causal prefill
+  attention through the hand-written ``flash_attention`` kernel
+  (``use_flash=True``).  The JAX engine sets neither, and the flag is
+  its only "serve through the hand kernels" switch; with it off the
+  port runs the plain chunked scan and the plain masked softmax, which
+  is what the JAX engine runs.
+
+Not ported yet: tracing (``ServeConfig.trace`` / ``trace_clock`` raise
+``NotImplementedError`` naming ROADMAP A.8, and so does
+``dump_chrome_trace``).
 """
 from __future__ import annotations
 
+import hashlib
 import itertools
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -109,6 +151,10 @@ from repro_torch.devices import DeviceLike, resolve_device, tensor_device
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVBlockPool, PoolExhausted, \
     blocks_for_tokens, page_bytes
+from repro_torch.serving.prefix_cache import (PERSIST_VERSION,
+                                              PrefixStoreError,
+                                              RadixPrefixCache, dump_chains,
+                                              load_store, save_store)
 from repro_torch.serving.spec_decode import (SpecDecoder, accept_greedy,
                                              accept_proposals,
                                              make_self_draft,
@@ -197,6 +243,25 @@ def extract_slot(cache, slot: int, axes):
         cache, axes)
 
 
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values as a host array of ``prefix_cache.host_dtype``
+    (a bfloat16 tensor as its int16 bits)."""
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _from_host(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """The inverse of ``_to_host``, on ``like``'s device and dtype."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if like.dtype == torch.bfloat16:
+        t = t.view(torch.bfloat16)
+    return t.to(device=like.device, dtype=like.dtype)
+
+
 @dataclass
 class Request:
     uid: int
@@ -217,9 +282,6 @@ class Request:
 
 # field -> (the value that means "off", ROADMAP item that ports it)
 _NOT_PORTED = {
-    "prefix_cache": (False, "A.5 (prefix cache)"),
-    "prefix_persist_path": (None, "A.5 (prefix-store persistence)"),
-    "min_match_tokens": (1, "A.5 (prefix cache)"),
     "trace": (False, "A.8 (tracer)"),
     "trace_clock": (None, "A.8 (tracer)"),
 }
@@ -278,10 +340,9 @@ class EdgeServingEngine:
     decoding, on the same device; it overrides
     ``ServeConfig.draft_arch``.
 
-    ``paged`` is False for a family whose cache has no page-pool leaf
-    (the pool-free path of the module docstring); an explicit
-    ``ServeConfig(paged=False)`` on a family that needs pages raises
-    ``NotImplementedError`` (the dense twin, ROADMAP A.4)."""
+    ``paged`` is False for the dense twin (``ServeConfig(paged=False)``)
+    and for a family whose cache has no page-pool leaf (the module
+    docstring's pages-free configs)."""
 
     def __init__(self, cfg: ModelConfig, params, scfg: ServeConfig,
                  device: DeviceLike = None, draft=None):
@@ -310,14 +371,13 @@ class EdgeServingEngine:
             while T % bs:
                 bs //= 2
         # one probe on the meta device: a family whose paged cache has
-        # no page-pool leaf (ssm) runs pool-free outright
+        # no page-pool leaf (ssm, hybrid) has no pages to serve from
         axes = paged_cache_axes(cfg, T, 1, 1, kv_dtype=scfg.quant_kv)
-        self.paged = any(a < 0 for a in _leaves(axes))
-        if self.paged and not scfg.paged:
-            raise NotImplementedError(
-                f"ServeConfig.paged=False for {cfg.name}: the dense twin "
-                "of a paged family is not ported to repro_torch yet "
-                "(ROADMAP A.4 (dense paged=False twin)); leave it at True")
+        has_pool = any(a < 0 for a in _leaves(axes))
+        self.paged = bool(scfg.paged and has_pool)
+        # the port's hand-kernel prefill of the pool-free families (the
+        # module docstring); the dense twin's prefill launches nothing
+        self._kernel_prefill = bool(scfg.use_pallas_paged and not has_pool)
         if self.paged:
             self.n_blk = T // bs
             if scfg.kv_pool_blocks:
@@ -327,7 +387,7 @@ class EdgeServingEngine:
                 n_pool = B * self.n_blk
         self.block_size = bs              # effective page size
         # int8 pages with per-row float32 scales: the pool's capacity
-        # lever; a pool-free family has no pages to quantize
+        # lever; without pages there is nothing to quantize
         self.quant = bool(self.paged and scfg.quant_kv == "int8")
         if self.paged:
             self.axes = axes
@@ -341,6 +401,28 @@ class EdgeServingEngine:
             self.pool = None
             self.cache = M.init_cache(cfg, B, T, device=dev)
             self.axes = cache_batch_axes(cfg, T)
+        # radix prefix cache: only where the whole decode state lives in
+        # pages (model.prefix_sharable), else a hit could not rebuild
+        # ring or recurrent state
+        self.sharable = bool(self.paged and scfg.prefix_cache
+                             and M.prefix_sharable(cfg))
+        self.prefix_cache = (RadixPrefixCache(
+            self.pool, bs, min_match_tokens=scfg.min_match_tokens)
+            if self.sharable else None)
+        # persistence: chains evicted under pressure are spilled to the
+        # host before the pool takes their pages back and join the
+        # close()-time store; a store left at the same path rehydrates
+        self._spilled: list = []
+        self.persist_loaded_chains = 0
+        self.persist_loaded_blocks = 0
+        self.persist_rejected = ""
+        if self.sharable and scfg.prefix_persist_path:
+            self.prefix_cache.on_evict = self._spill_chain
+            self._load_prefix_store(scfg.prefix_persist_path)
+        # in-flight sharing: tokens (page-aligned) each slot has already
+        # published to the radix tree
+        self.slot_published = [0] * B
+        self.published_frontiers = 0
         # static extend-wave width: the catch-up chunk; a local ring
         # extends with pre-write semantics only while the chunk fits the
         # window, as in JAX
@@ -374,6 +456,7 @@ class EdgeServingEngine:
         self.peak_pool_used = 0
         self.exhaust_preempts = 0
         self.reclaims = 0
+        self.cow_forks = 0
         # speculative decoding: rounds = (slot, wave) drafting
         # participations; emitted includes each round's correction/bonus
         self.spec_steps = 0
@@ -428,6 +511,14 @@ class EdgeServingEngine:
     # ------------------------------------------------------------------
     # admission
     # ------------------------------------------------------------------
+    def reset_rng(self) -> None:
+        """Re-seed the sampling state (the device generator and the host
+        rng) to ``ServeConfig.seed``: after a warm-up pass, a sampled run
+        draws what a fresh engine's would."""
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            self.scfg.seed)
+        self._rng = np.random.default_rng(self.scfg.seed)
+
     def submit(self, req: Request) -> None:
         if req.extras:
             raise NotImplementedError(
@@ -487,6 +578,46 @@ class EdgeServingEngine:
         top_k = self.scfg.top_k if req.top_k is None else req.top_k
         return sample_from_logits(logits, temp, top_k, self._rng)
 
+    # -- prefix-cache keys ---------------------------------------------
+    def _key_tokens(self, req: Request) -> np.ndarray:
+        """The token sequence whose positions map 1:1 onto the slot's
+        pages: the prompt, then the tokens generated and not yet folded
+        into it (the caller takes the KV-valid prefix).  Chains live in
+        the cache's namespace 0: a request's K/V depends on its tokens
+        alone, since ``submit`` refuses extras (A.9), whose digest would
+        namespace them in JAX."""
+        parts = [np.asarray(req.prompt, np.int64)]
+        folded = getattr(req, "_folded_generated", 0)
+        if len(req.generated) > folded:
+            parts.append(np.asarray(req.generated[folded:], np.int64))
+        return np.concatenate(parts)
+
+    def _lookup(self, req: Request) -> None:
+        """Radix lookup for a fresh request: pin (incref) the longest
+        usable shared chain — token-granular, possibly ending mid-page,
+        possibly still being decoded by another slot — and keep it on the
+        request for the admission pass.  Capped one token short of the
+        prompt: the suffix prefill must produce the admission logits."""
+        self._release_ctx(req)          # drop any stale acquisition
+        if not self.sharable or req.saved_state is not None:
+            return
+        key = np.asarray(req.prompt, np.int64)
+        req._ctx_blocks, req._ctx_len = self.prefix_cache.match(
+            key, max_tokens=len(key) - 1)
+
+    def _release_ctx(self, req: Request) -> None:
+        """Drop a pinned but unused chain (the request waits for the next
+        admission round, which looks it up again) and roll the hit
+        accounting back so retries do not inflate the stats."""
+        blocks = getattr(req, "_ctx_blocks", None)
+        if blocks:
+            n = req._ctx_len
+            self.pool.free(blocks)
+            self.prefix_cache.unrecord_hit(
+                len(blocks), n, (n // self.block_size) * self.block_size)
+        req._ctx_blocks, req._ctx_len = [], 0
+
+    # -- paged-pool bookkeeping ----------------------------------------
     def _first_span(self, suffix_len: int) -> int:
         """Tokens a request's FIRST admission step covers: the bucketed
         prefill normally; under chunked_prefill the first wave span."""
@@ -497,7 +628,9 @@ class EdgeServingEngine:
     def _blocks_needed(self, req: Request) -> int:
         """New pool blocks this request needs to be admitted NOW: the
         first span's pages + one covering the next write (resumed
-        requests already hold pages for [0, pos)); 0 without a pool."""
+        requests already hold pages for [0, pos), prefix-cache hits the
+        shared chain's whole pages; a partial last page of a hit counts
+        as needed, since admission forks it); 0 without a pool."""
         if not self.paged:
             return 0
         bs = self.block_size
@@ -505,7 +638,27 @@ class EdgeServingEngine:
             held = len(req.saved_state.get("blocks", ()))
             return max(0, blocks_for_tokens(
                 int(req.saved_state["pos"]) + 1, bs) - held)
-        return blocks_for_tokens(self._first_span(len(req.prompt)) + 1, bs)
+        L = getattr(req, "_ctx_len", 0)
+        n1 = self._first_span(len(req.prompt) - L)
+        return blocks_for_tokens(L + n1 + 1, bs) - L // bs
+
+    def _reserve(self, n: int) -> bool:
+        """Make ``n`` pool pages allocatable, evicting LRU prefix-cache
+        chains if the free list alone is short."""
+        if not self.paged:
+            return True
+        short = n - self.pool.num_free
+        if short > 0 and self.prefix_cache is not None:
+            self.prefix_cache.evict(short)
+        return self.pool.num_free >= n
+
+    def _avail_blocks(self) -> int:
+        """Pages admission may count on: free now + evictable now."""
+        if not self.paged:
+            return 0
+        extra = (self.prefix_cache.evictable_blocks()
+                 if self.prefix_cache is not None else 0)
+        return self.pool.num_free + extra
 
     def _set_table(self, slot: int, blocks: list[int]) -> None:
         self.slot_blocks[slot] = blocks
@@ -527,6 +680,7 @@ class EdgeServingEngine:
         if self.paged:
             blocks = list(st.get("blocks", ()))
             if need:  # feasibility pre-checked by the admission scan
+                self._reserve(need)
                 blocks += self.pool.alloc(need)
             self._set_table(slot, blocks)
         insert_slot(self.cache, st["cache"], slot, self.axes)
@@ -536,76 +690,131 @@ class EdgeServingEngine:
         self.tokens[slot, 0] = st["last_tok"]
         self.pending[slot] = st["pending"]
         self._place(req, slot)
+        # publication resumes where the preempted slot left it
+        self.slot_published[slot] = int(st.get("published", 0))
 
     def _admit_wave(self, req: Request, slot: int) -> None:
-        """Chunked-prefill admission: NO prefill call — the prompt
-        becomes the slot's pending span, consumed through the same
-        extend/decode waves every other slot rides; the first wave's
-        ``_ensure_blocks`` allocates its pages."""
+        """Chunked-prefill admission: NO prefill call — the prompt (or
+        the unmatched suffix after a radix hit) becomes the slot's
+        pending span, consumed through the same extend/decode waves
+        every other slot rides.  Shared context pages attach as the
+        prefill path would; the first wave's ``_ensure_blocks`` /
+        ``_cow_guard`` allocate fresh pages and fork a partially matched
+        tail page."""
+        L = getattr(req, "_ctx_len", 0)
         if self.paged:
-            self._set_table(slot, [])
-        prompt = np.asarray(req.prompt, np.int32)
+            self._set_table(slot, list(getattr(req, "_ctx_blocks", None)
+                                       or []))
+        req._ctx_blocks, req._ctx_len = [], 0
+        suffix = np.asarray(req.prompt, np.int32)[L:]
         if self.spec is not None:
             # the draft prefills the full prompt (it never chunks), so
             # the slot is draft-complete once its prompt is consumed
             self.spec.admit_group([req], [slot])
-        self.pos[slot] = 0
-        self.tokens[slot, 0] = int(prompt[0])
-        self.pending[slot] = prompt[1:]
+        self.pos[slot] = L
+        self.tokens[slot, 0] = int(suffix[0])
+        self.pending[slot] = suffix[1:]
         self._place(req, slot)
+        # the matched prefix is already indexed: publication resumes
+        # from its page boundary
+        self.slot_published[slot] = L // self.block_size * self.block_size
         self.wave_admitted += 1
+
+    @staticmethod
+    def _pow2(n: int) -> int:
+        return 1 << (n - 1).bit_length() if n > 1 else n
 
     def _admit_batch(self) -> None:
         """Admit queued requests into free slots in rank order, batching
-        prefill per bucket — one call per bucket group.  Capacity-aware:
-        a request is taken only if the pool can cover its first span +
-        first decode write; requests that don't fit now wait."""
+        prefill per (bucket, context width) group — one call per group.
+        Capacity-aware: a request is taken only if the pool, counting
+        pages evictable now, can cover its suffix pages + first decode
+        write; a fresh request is looked up in the prefix cache first (a
+        hit pins the chain and shrinks both the pages needed and the
+        prefill).  Requests that don't fit now wait."""
         if not self.queue:
             return
         free = [s for s in range(self.scfg.max_slots) if not self.active[s]]
         if not free:
             return
         self.queue.sort(key=self._rank)
-        avail = self.pool.num_free if self.paged else 0
+        avail = self._avail_blocks()
         taken, kept = [], []
         for req in self.queue:
             if not free:
                 kept.append(req)
                 continue
+            self._lookup(req)
             need = self._blocks_needed(req)
-            if self.paged and need > avail:
+            # pinning a hit chain takes its pages out of the evictable
+            # count — only pages this lookup pinned (cache + us = 2)
+            pinned = sum(1 for b in (getattr(req, "_ctx_blocks", None)
+                                     or ())
+                         if self.pool.refcount(b) == 2)
+            if self.paged and need + pinned > avail:
+                self._release_ctx(req)
                 kept.append(req)
                 continue
-            avail -= need
+            avail -= need + pinned
             taken.append((req, free.pop(0)))
         self.queue = kept
 
-        fresh: dict[int, list] = {}   # bucket -> [(req, slot)]
+        fresh: dict[tuple, list] = {}   # (bucket, n_ctx) -> [(req, slot)]
         for req, slot in taken:
             if req.saved_state is not None:
                 self._admit_resumed(req, slot)
             elif self.chunked:
                 self._admit_wave(req, slot)
             else:
-                n1 = self._first_span(len(req.prompt))
-                fresh.setdefault(self._bucket(n1), []).append((req, slot))
-        for bucket, group in fresh.items():
-            self._admit_group(bucket, group)
+                L = getattr(req, "_ctx_len", 0)
+                n1 = self._first_span(len(req.prompt) - L)
+                # hit rows read and write through one full table over
+                # [0, L + n1), pow2-bucketed so mixed depths share a call
+                n_ctx = (self._pow2(blocks_for_tokens(L + n1,
+                                                      self.block_size))
+                         if L else 0)
+                fresh.setdefault((self._bucket(n1), n_ctx), []).append(
+                    (req, slot))
+        for (bucket, n_ctx), group in fresh.items():
+            self._admit_group(bucket, n_ctx, group)
 
-    def _admit_group(self, bucket: int, group) -> None:
-        """One fused admission call: batched bucketed prefill that writes
-        prompt K/V straight into the slots' pages (or, pool-free, each
-        row's state into its slot's cache rows)."""
+    def _admit_group(self, bucket: int, n_ctx: int, group) -> None:
+        """One fused admission call: batched (suffix-)prefill that writes
+        prompt K/V straight into the slots' pages (without pages, each
+        row's state into its slot's cache rows).  ``n_ctx`` > 0 means
+        every row is a prefix-cache hit admitted at its chain's end,
+        which may be mid-page: that page is forked here so the suffix
+        write never lands in a page the cache or a reader still holds."""
         bs = self.block_size
         if self.paged:
+            # a row whose pages cannot be covered even after eviction (a
+            # chain pinned mid-scan ate the budget) goes back to the queue
             admitted = []
             for req, slot in group:
+                need = self._blocks_needed(req)
+                L = getattr(req, "_ctx_len", 0)
                 try:
-                    blocks = self.pool.alloc(self._blocks_needed(req))
+                    self._reserve(need)
+                    fresh_n = need
+                    if L % bs:
+                        # trade the shared partial page for a private
+                        # copy; ``need`` counts it, and fork either draws
+                        # that page or (the cache let go of its ref)
+                        # hands the page back unshared
+                        fresh_n = need - 1
+                        old = req._ctx_blocks[-1]
+                        new = self.pool.fork(old)
+                        if new != old:
+                            self._copy_page(old, new)
+                            req._ctx_blocks[-1] = new
+                            self.cow_forks += 1
+                    blocks = self.pool.alloc(fresh_n)
                 except PoolExhausted:
+                    self._release_ctx(req)
                     self.queue.append(req)
                     continue
-                self._set_table(slot, blocks)
+                ctx = getattr(req, "_ctx_blocks", None) or []
+                self._set_table(slot, list(ctx) + blocks)
                 admitted.append((req, slot))
             group = admitted
             if not group:
@@ -613,28 +822,39 @@ class EdgeServingEngine:
         m = len(group)
         prompts = np.zeros((m, bucket), np.int32)
         true_len = np.zeros((m,), np.int32)
-        n_wblk = blocks_for_tokens(bucket, bs) if self.paged else 0
+        ctx_len = np.zeros((m,), np.int32)
+        # hit rows: one full table per row from logical block 0; cold
+        # rows: the write span's table
+        n_wblk = n_ctx or (blocks_for_tokens(bucket, bs) if self.paged
+                           else 0)
         tables = np.full((m, n_wblk), -1, np.int32)
+        suffixes = []
         for i, (req, slot) in enumerate(group):
-            prompt = np.asarray(req.prompt, np.int32)
-            n1 = min(len(prompt), bucket)
+            L = getattr(req, "_ctx_len", 0)
+            suffix = np.asarray(req.prompt, np.int32)[L:]
+            suffixes.append(suffix)
+            n1 = min(len(suffix), bucket)
             # pad value is irrelevant (true_len masks it) — repeat last tok
-            prompts[i] = prompt[n1 - 1]
-            prompts[i, :n1] = prompt[:n1]
+            prompts[i] = suffix[n1 - 1]
+            prompts[i, :n1] = suffix[:n1]
             true_len[i] = n1
+            ctx_len[i] = L
             if self.paged:
                 blk = self.slot_blocks[slot][:n_wblk]
                 tables[i, :len(blk)] = blk
         dev = self.device
         if self.paged:
             kw = dict(write_tables=torch.from_numpy(tables).to(dev))
+            if n_ctx:
+                kw.update(ctx_tables=kw["write_tables"],
+                          ctx_len=torch.from_numpy(ctx_len).to(dev))
         else:
-            # the port's choice: the hand-kernel switch also runs the
-            # pool-free families' prefill scan through ssd_scan and the
-            # hybrid's shared-block prefill attention through
-            # flash_attention (the ssm family has no attention)
-            kw = dict(use_kernel=self.scfg.use_pallas_paged,
-                      use_flash=self.scfg.use_pallas_paged)
+            # the port's choice on the pool-free families: the hand-kernel
+            # switch also runs their prefill scan through ssd_scan and
+            # the hybrid's shared-block prefill attention through
+            # flash_attention (the dense twin passes neither)
+            kw = dict(use_kernel=self._kernel_prefill,
+                      use_flash=self._kernel_prefill)
         logits, self.cache = M.prefill_paged(
             self.cfg, self.params, {"tokens": torch.from_numpy(prompts).to(dev)},
             self.scfg.max_len, self.cache,
@@ -648,8 +868,9 @@ class EdgeServingEngine:
                                   [s for _, s in group])
         logits_host = logits[:, -1].float().cpu().numpy()      # (m, V)
         for i, (req, slot) in enumerate(group):
-            n1 = int(true_len[i])
-            remainder = np.asarray(req.prompt, np.int32)[n1:]
+            L, n1 = int(ctx_len[i]), int(true_len[i])
+            req._ctx_blocks, req._ctx_len = [], 0
+            remainder = suffixes[i][n1:]
             tok = None
             if not remainder.size:
                 tok = self._sample_first(req, logits_host[i])
@@ -657,14 +878,16 @@ class EdgeServingEngine:
                 hit_eos = (self.scfg.eos_id >= 0
                            and tok == self.scfg.eos_id)
                 if len(req.generated) >= req.max_new_tokens or hit_eos:
-                    # the admission token already completed the request
+                    # the admission token already completed the request;
+                    # its pages hold a valid chain: index it
                     if self.paged:
-                        self.pool.free(self.slot_blocks[slot])
+                        self._retire_chain(req, self.slot_blocks[slot],
+                                           L + n1)
                         self._set_table(slot, [])
                     req.done = True
                     self.completed.append(req)
                     continue
-            self.pos[slot] = n1
+            self.pos[slot] = L + n1
             if remainder.size:
                 # long prompt: catch up through extend waves
                 self.pending[slot] = remainder[1:]
@@ -673,6 +896,9 @@ class EdgeServingEngine:
                 self.pending[slot] = None
                 self.tokens[slot, 0] = tok
             self._place(req, slot)
+            # the matched prefix is already indexed: publication resumes
+            # from its page boundary
+            self.slot_published[slot] = L // bs * bs
 
     # ------------------------------------------------------------------
     # waves
@@ -715,22 +941,28 @@ class EdgeServingEngine:
 
     def _extend_fn(self, tokens, pos, valid, block_tables,
                    need_logits: bool = False):
-        """Multi-token wave: score ``K`` tokens per slot in one call.
-        Ships only the (B, K) argmax ids to the host unless some active
-        slot samples at temperature > 0."""
-        logits, self.cache = M.extend_paged(
-            self.cfg, self.params, self.cache, tokens, pos, block_tables,
-            valid, self.scfg.use_pallas_paged)
+        """Multi-token wave: score ``K`` tokens per slot in one call
+        (``model.extend`` without pages).  Ships only the (B, K) argmax
+        ids to the host unless some active slot samples at temperature
+        > 0."""
+        if block_tables is None:
+            logits, self.cache = M.extend(self.cfg, self.params, self.cache,
+                                          tokens, pos, valid)
+        else:
+            logits, self.cache = M.extend_paged(
+                self.cfg, self.params, self.cache, tokens, pos,
+                block_tables, valid, self.scfg.use_pallas_paged)
         logits = logits.float()
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
         return greedy, (logits if need_logits else None)
 
     def _ensure_blocks(self, spans: Optional[dict] = None) -> None:
         """Guarantee every active slot's table covers its write span
-        ``[pos, pos + span)``.  Crossing block boundaries appends pages;
-        if the pool is exhausted the slot is preempted back to the queue
-        (pages detached) — preempt-or-queue.  Best-ranked slots get
-        first pick of the remaining pages."""
+        ``[pos, pos + span)``.  Crossing block boundaries appends pages
+        (evicting LRU prefix-cache chains first under pressure); if the
+        pool is exhausted the slot is preempted back to the queue (pages
+        detached) — preempt-or-queue.  Best-ranked slots get first pick
+        of the remaining pages."""
         bs = self.block_size
         spans = spans or {}
         needy = []
@@ -745,6 +977,7 @@ class EdgeServingEngine:
         for s, target in needy:
             n = target - len(self.slot_blocks[s])
             try:
+                self._reserve(n)
                 blk = self.pool.alloc(n)
             except PoolExhausted:
                 req = self.preempt(s)
@@ -754,6 +987,44 @@ class EdgeServingEngine:
             j0 = len(self.slot_blocks[s])
             self.slot_blocks[s].extend(blk)
             self.block_tables[s, j0:j0 + n] = blk
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Device page copy ``src`` -> ``dst`` in every pool leaf, in
+        place (a copy-on-write fork)."""
+        for leaf, ax in zip(_leaves(self.cache), _leaves(self.axes)):
+            if ax < 0:
+                leaf[:, dst].copy_(leaf[:, src])
+
+    def _cow_guard(self, spans: Optional[dict] = None) -> None:
+        """Copy-on-write backstop: no wave may write a page with more
+        than one owner.  A slot whose write span ``[pos, pos + span)``
+        lands in a shared page trades its reference for a fresh page
+        (``KVBlockPool.fork``) holding a copy of the bytes; on pool
+        exhaustion the slot preempts, like ``_ensure_blocks``."""
+        bs = self.block_size
+        spans = spans or {}
+        for s in range(self.scfg.max_slots):
+            if not self.active[s]:
+                continue
+            j0 = int(self.pos[s]) // bs
+            j1 = min((int(self.pos[s]) + spans.get(s, 1) - 1) // bs,
+                     len(self.slot_blocks[s]) - 1)
+            for j in range(j0, j1 + 1):
+                old = self.slot_blocks[s][j]
+                if self.pool.refcount(old) <= 1:
+                    continue
+                try:
+                    self._reserve(1)
+                    new = self.pool.fork(old)
+                except PoolExhausted:
+                    req = self.preempt(s)
+                    self.exhaust_preempts += 1
+                    self.queue.append(req)
+                    break
+                self._copy_page(old, new)
+                self.slot_blocks[s][j] = new
+                self.block_tables[s, j] = new
+                self.cow_forks += 1
 
     def _has_pending(self) -> bool:
         return any(self.active[s] and self.pending[s] is not None
@@ -819,6 +1090,7 @@ class EdgeServingEngine:
         teacher-force one pending token)."""
         if self.paged:
             self._ensure_blocks()
+            self._cow_guard()
         self._record_plan({
             s: (("catch", 1) if (self.pending[s] is not None
                                  and self.pending[s].size) else
@@ -864,6 +1136,7 @@ class EdgeServingEngine:
             if (len(req.generated) >= req.max_new_tokens or hit_eos
                     or out_of_room):
                 self._finish(slot, req)
+        self._publish_frontiers()
         self.steps += 1
         self.decode_waves += 1
         return n_active
@@ -921,14 +1194,19 @@ class EdgeServingEngine:
             else:
                 plan[s] = ("plain", 1)
         plan = self._apply_budget(plan)
-        self._ensure_blocks({s: v for s, (_, v) in plan.items()})
-        plan = {s: p for s, p in plan.items() if self.active[s]}
+        if self.paged:
+            spans = {s: v for s, (_, v) in plan.items()}
+            self._ensure_blocks(spans)
+            self._cow_guard(spans)
+            plan = {s: p for s, p in plan.items() if self.active[s]}
         self._record_plan(plan)
         n_active = int(self.active.sum())
         if n_active == 0:
             return 0
         self.peak_active = max(self.peak_active, n_active)
-        self.peak_pool_used = max(self.peak_pool_used, self.pool.num_used)
+        if self.paged:
+            self.peak_pool_used = max(self.peak_pool_used,
+                                      self.pool.num_used)
 
         spec_slots = [s for s, (m, _) in plan.items() if m == "spec"]
         proposals, dists = {}, {}
@@ -955,8 +1233,9 @@ class EdgeServingEngine:
 
         # all-greedy waves bring only the (B, K) argmax ids to the host
         need_logits = bool((self.temps[self.active] > 0).any())
-        fed_t, pos_t, valid_t, tables = self._device_tensors(
-            fed, self.pos, valid, self.block_tables)
+        fed_t, pos_t, valid_t = self._device_tensors(fed, self.pos, valid)
+        tables = (self._device_tensors(self.block_tables)[0] if self.paged
+                  else None)
         greedy, logits = self._extend_fn(fed_t, pos_t, valid_t, tables,
                                          need_logits=need_logits)
         greedy = greedy.cpu().numpy()                        # (B, K)
@@ -1027,9 +1306,55 @@ class EdgeServingEngine:
                 self._truncate_slot(s)   # rejected-tail pages back
         if any_spec:
             self.spec_steps += 1
+        self._publish_frontiers()
         self.steps += 1
         self.extend_waves += 1
         return n_active
+
+    def _publish_frontiers(self) -> None:
+        """In-flight sharing: after every committed wave, publish each
+        live slot's full pages below its frontier (``pos`` rounded down
+        to a page) into the radix tree.  The cache takes its own
+        reference (duplicates of the slot's earlier publications come
+        back and are released), so a later request can hit a chain that
+        is still decoding: readers pin pages strictly below the
+        frontier, the writer only writes at or above ``pos``, and
+        rollback frees only pages above ``pos``."""
+        if self.prefix_cache is None:
+            return
+        bs = self.block_size
+        for s in range(self.scfg.max_slots):
+            if not self.active[s] or self.slot_req[s] is None:
+                continue
+            frontier = (int(self.pos[s]) // bs) * bs
+            if frontier <= self.slot_published[s]:
+                continue
+            req = self.slot_req[s]
+            key = self._key_tokens(req)
+            n_blk = frontier // bs
+            if len(key) < frontier or len(self.slot_blocks[s]) < n_blk:
+                continue                      # reclaim-rebuilt slot mid-fold
+            blocks = self.slot_blocks[s][:n_blk]
+            self.pool.share(blocks)
+            dups = self.prefix_cache.insert(key[:frontier], blocks)
+            self.pool.free(dups)
+            self.slot_published[s] = frontier
+            self.published_frontiers += 1
+
+    def _retire_chain(self, req: Request, blocks: list[int],
+                      n_valid: int) -> None:
+        """Return a finished request's pages: index the chain (its first
+        ``n_valid`` positions hold valid K/V, a partial tail page
+        included) in the radix cache, which adopts the engine's
+        references, and free duplicates of an indexed prefix and pages
+        past the valid span.  Without the cache everything is freed."""
+        if not self.sharable or not blocks:
+            self.pool.free(blocks)
+            return
+        key = self._key_tokens(req)[:n_valid]
+        nb = blocks_for_tokens(n_valid, self.block_size)
+        leftovers = self.prefix_cache.insert(key, blocks[:nb])
+        self.pool.free(list(leftovers) + list(blocks[nb:]))
 
     def _finish(self, slot: int, req: Request) -> None:
         req.done = True
@@ -1037,13 +1362,144 @@ class EdgeServingEngine:
         self._release_slot(slot)
 
     def _release_slot(self, slot: int) -> None:
-        """Free a slot and its pages (no prefix cache keeps them)."""
+        """Free a slot.  Its pages hold valid K/V for [0, pos) —
+        everything prefill, catch-up and decode waves wrote (the last
+        sampled token was never fed back) — and retire as a chain into
+        the radix cache (``_retire_chain``; freed without it)."""
+        req = self.slot_req[slot]
         self.active[slot] = False
         self.slot_req[slot] = None
         self.pending[slot] = None
+        self.slot_published[slot] = 0
         if self.paged:
-            self.pool.free(self.slot_blocks[slot])
+            self._retire_chain(req, self.slot_blocks[slot],
+                               int(self.pos[slot]))
             self._set_table(slot, [])
+
+    # ------------------------------------------------------------------
+    # prefix-store persistence (warm TTFT across engine restarts)
+    # ------------------------------------------------------------------
+    def _pool_leaves(self) -> list:
+        return [lv for lv, ax in zip(_leaves(self.cache), _leaves(self.axes))
+                if ax < 0]
+
+    def _persist_meta(self) -> dict:
+        """Prefix-store header: page geometry, a config digest and a
+        params fingerprint (every leaf's shape, its torch dtype as
+        ``str(dtype)`` gives it, and its first 64 values).  ``load_store`` refuses a store whose
+        header differs: page bytes are only valid for the exact config,
+        weights and page layout that produced them — and for this
+        framework, whose dtype names the fingerprint hashes."""
+        cfg_digest = hashlib.sha1(repr(self.cfg).encode()).hexdigest()
+        fp = hashlib.sha1()
+        for lv in _leaves(self.params):
+            fp.update(str((tuple(lv.shape), str(lv.dtype))).encode())
+            fp.update(_to_host(lv.reshape(-1)[:64]).tobytes())
+        sig = [[[lv.shape[0], *lv.shape[2:]], _dtype_name(lv)]
+               for lv in self._pool_leaves()]
+        return {"version": PERSIST_VERSION, "config": cfg_digest,
+                "params": fp.hexdigest(), "block_size": self.block_size,
+                # pins the pool layout legibly in a rejection reason
+                "quant_kv": self.scfg.quant_kv if self.quant else None,
+                "leaves": sig}
+
+    def _chain_pages_host(self, blocks) -> list[np.ndarray]:
+        """One chain's page bytes on the host: one ``(stack,
+        n_chain_blocks, block_size, kv...)`` array per pool leaf."""
+        ids = torch.as_tensor(list(blocks), dtype=torch.long,
+                              device=self.device)
+        return [_to_host(lv[:, ids]) for lv in self._pool_leaves()]
+
+    def _spill_chain(self, ns: int, key, n_leaf: int, blocks) -> None:
+        """``RadixPrefixCache.on_evict`` hook (persist mode only): take
+        an evicted chain's pages to the host before the pool reclaims
+        them, so chains evicted under pressure reach the close()-time
+        store; capped at one pool's worth of pages."""
+        held = sum(blocks_for_tokens(len(k), self.block_size)
+                   for _, k, _ in self._spilled)
+        if held + len(blocks) > self.pool.num_blocks:
+            return
+        self._spilled.append((ns, np.asarray(key, np.int64),
+                              self._chain_pages_host(blocks)))
+
+    def close(self) -> dict:
+        """Write the radix cache's refcount-free chains (plus the
+        spilled ones) to ``ServeConfig.prefix_persist_path`` so the next
+        engine with this path starts warm.  A no-op without a path or
+        without the cache; returns a save summary."""
+        path = self.scfg.prefix_persist_path
+        if not path or not self.sharable:
+            return {"persist_saved_chains": 0, "persist_saved_blocks": 0}
+        cand = [(ns, key, ("blocks", blocks))
+                for ns, key, blocks in
+                dump_chains(self.prefix_cache,
+                            max_blocks=self.pool.num_blocks)]
+        cand += [(ns, key, ("pages", pages))
+                 for ns, key, pages in self._spilled]
+        # a chain that is a prefix of another stored chain (or an exact
+        # twin, of which the first, hottest, stays) is covered by it:
+        # the same tokens give the same K/V bytes.  Dedup before the
+        # device pages are gathered.
+        chains = []
+        for i, (ns, key, payload) in enumerate(cand):
+            covered = False
+            for j, (n2, k2, _) in enumerate(cand):
+                if j == i or n2 != ns or len(key) > len(k2):
+                    continue
+                if len(key) == len(k2) and j > i:
+                    continue                   # equal twins: first wins
+                if np.array_equal(key, k2[:len(key)]):
+                    covered = True
+                    break
+            if not covered:
+                kind, data = payload
+                pages = (self._chain_pages_host(data) if kind == "blocks"
+                         else data)
+                chains.append((ns, key, pages))
+        info = save_store(path, self._persist_meta(), chains)
+        return {"persist_saved_chains": info["chains"],
+                "persist_saved_blocks": info["blocks"]}
+
+    def _load_prefix_store(self, path: str) -> None:
+        """Rehydrate a persisted store at construction: allocate pool
+        pages, write the stored bytes into them IN PLACE (one
+        ``index_copy_`` per pool leaf; the pool tensors are never
+        rebound) and index the chains.  A mismatched or corrupt store is
+        rejected (reason in ``persist_rejected``) and the engine starts
+        cold."""
+        if not os.path.exists(path):
+            return
+        try:
+            chains = load_store(path, self._persist_meta())
+        except PrefixStoreError as e:
+            self.persist_rejected = str(e)
+            return
+        pool_leaves = self._pool_leaves()
+        # page id -> per-leaf page bytes; the LAST write wins: a page
+        # freed mid-load (a dup, or a replaced partial tail) can be
+        # re-allocated by a later chain, which then owns it
+        pending: dict[int, list[np.ndarray]] = {}
+        for ns, key, pages in chains:        # hot-first store order
+            nb = blocks_for_tokens(len(key), self.block_size)
+            if not self.pool.can_alloc(nb):
+                continue
+            ids = self.pool.alloc(nb)
+            dups = self.prefix_cache.insert(key, ids, namespace=ns)
+            nd = len(dups)       # dups are always a PREFIX of ids
+            for k in range(nd, nb):
+                pending[ids[k]] = [pg[:, k] for pg in pages]
+            self.pool.free(dups)
+            self.persist_loaded_chains += 1
+            self.persist_loaded_blocks += nb - nd
+        pending = {bid: v for bid, v in pending.items()
+                   if self.pool.refcount(bid) > 0}
+        if pending:
+            order = list(pending)
+            idx = torch.as_tensor(order, dtype=torch.long,
+                                  device=self.device)
+            for j, leaf in enumerate(pool_leaves):
+                chunk = np.stack([pending[b][j] for b in order], axis=1)
+                leaf.index_copy_(1, idx, _from_host(chunk, leaf))
 
     # ------------------------------------------------------------------
     # telemetry
@@ -1051,7 +1507,8 @@ class EdgeServingEngine:
     def _register_metrics(self) -> dict:
         """Register the serving counters/gauges into the registry and
         return the ``stats()`` map ``{legacy_key: metric_name}`` — the
-        JAX engine's keys for the same (paged, no prefix cache) config."""
+        JAX engine's keys for the same config (the prefix cache's under
+        ``prefix_cache.*`` with the legacy ``prefix_*`` keys)."""
         m, legacy = self.metrics, {}
 
         def view(key: Optional[str], name: str, fn) -> None:
@@ -1066,8 +1523,7 @@ class EdgeServingEngine:
         view("exhaust_preempts", "engine.exhaust_preempts",
              lambda: self.exhaust_preempts)
         view("reclaims", "engine.reclaims", lambda: self.reclaims)
-        # pages are never shared without the prefix cache: nothing forks
-        view("cow_forks", "engine.cow_forks", lambda: 0)
+        view("cow_forks", "engine.cow_forks", lambda: self.cow_forks)
         view("mixed_waves", "engine.mixed_waves", lambda: self.mixed_waves)
         view("wave_admitted", "engine.wave_admitted",
              lambda: self.wave_admitted)
@@ -1108,6 +1564,20 @@ class EdgeServingEngine:
             for j in range(max(self.scfg.spec_gamma - 1, 0)):
                 m.counter(f"spec.depth{j}.proposed")
                 m.counter(f"spec.depth{j}.accepted")
+        if self.prefix_cache is not None:
+            for k in self.prefix_cache.attach_metrics(m):
+                legacy[f"prefix_{k}"] = f"prefix_cache.{k}"
+            view("published_frontiers", "engine.published_frontiers",
+                 lambda: self.published_frontiers)
+            if self.scfg.prefix_persist_path:
+                view("persist_loaded_chains", "persist.loaded_chains",
+                     lambda: self.persist_loaded_chains)
+                view("persist_loaded_blocks", "persist.loaded_blocks",
+                     lambda: self.persist_loaded_blocks)
+                view("persist_spilled_chains", "persist.spilled_chains",
+                     lambda: len(self._spilled))
+                view("persist_rejected", "persist.rejected",
+                     lambda: self.persist_rejected)
         # wave kinds (registry only): decode waves launch the paged
         # decode read once per layer
         view(None, "engine.decode_waves", lambda: self.decode_waves)
@@ -1115,24 +1585,37 @@ class EdgeServingEngine:
         return legacy
 
     def stats(self) -> dict:
-        """Pool observability — a view over the metrics registry.  Every
-        call re-checks the pool accounting invariant (with a pool)."""
+        """Pool and prefix-cache observability — a view over the metrics
+        registry.  Every call re-checks the pool accounting invariant
+        (with a pool)."""
         if self.paged:
             self.pool.assert_consistent()
         return {key: self.metrics.get(name)
                 for key, name in self._legacy_stats.items()}
 
     # ------------------------------------------------------------------
+    def dump_chrome_trace(self, path: str) -> dict:
+        """The tracer's Perfetto dump: not ported yet (A.8)."""
+        raise NotImplementedError(
+            "EdgeServingEngine.dump_chrome_trace: the tracer is not "
+            "ported to repro_torch yet (ROADMAP A.8 (tracer))")
+
     def cancel(self, uid: int) -> bool:
         """Abort a request — queued, preempted-and-detached, mid-catch-up
         or decoding.  Returns True when it was found (marked
-        ``cancelled`` + ``done``, moved to ``self.cancelled``).  Its
-        pages go back to the pool; a live slot is freed between waves,
-        so no token already delivered is rolled back."""
+        ``cancelled`` + ``done``, moved to ``self.cancelled``).  A live
+        slot's pages below ``pos`` hold a valid chain and retire into the
+        radix cache like a finished one (published pages keep their
+        cache reference, so in-flight readers are untouched); a queued
+        request drops its pinned chain and detached pages.  A slot is
+        freed between waves, so no token already delivered is rolled
+        back."""
         for i, req in enumerate(self.queue):
             if req.uid != uid:
                 continue
             self.queue.pop(i)
+            if self.sharable:
+                self._release_ctx(req)       # drop a pinned hit chain
             st = req.saved_state
             if st is not None:
                 req.saved_state = None
@@ -1162,8 +1645,9 @@ class EdgeServingEngine:
         the rows and the block table and resumes decode where it stopped,
         with no re-prefill and no page copies.  A uniform paged trunk
         has no per-slot rows (empty placeholders), a pattern trunk's
-        rows are its local rings; the pool-free ssm cache is all rows.  A speculative engine also saves a copy of the
-        slot's draft row and frontier."""
+        rows are its local rings; a cache without pages is all rows.  A
+        speculative engine also saves a copy of the slot's draft row and
+        frontier."""
         req = self.slot_req[slot]
         if req is None:
             return None
@@ -1177,10 +1661,12 @@ class EdgeServingEngine:
             req.saved_state["draft"] = self.spec.extract(slot)
         if self.paged:
             req.saved_state["blocks"] = self.slot_blocks[slot]
+            req.saved_state["published"] = self.slot_published[slot]
             self._set_table(slot, [])
         self.active[slot] = False
         self.slot_req[slot] = None
         self.pending[slot] = None
+        self.slot_published[slot] = 0
         return req
 
     def _drop_saved(self, req: Request) -> None:

@@ -216,6 +216,13 @@ class SpecDecoder:
         self.axes = cache_batch_axes(draft_cfg, max_len)
         self.draft_pos = np.zeros((max_slots,), np.int32)
 
+    @property
+    def prefix(self) -> int:
+        """Positions before the prompt in the draft's cache: the image
+        tokens of a vlm draft, which the port does not serve yet (A.9.2),
+        so 0."""
+        return 0
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 

@@ -19,6 +19,8 @@ from typing import Callable, Optional
 
 import time as _time
 
+from repro_torch.unported import not_ported
+
 #: The ONE monotonic clock the serving stack times against.  Injectable
 #: at the Tracer level so traced runs can be replay-deterministic.
 default_clock: Callable[[], float] = _time.perf_counter
@@ -153,3 +155,11 @@ class MetricsRegistry:
         ``{buckets, counts, sum, count}`` dicts."""
         return {name: self._metrics[name].read()
                 for name in sorted(self._metrics)}
+
+
+# the tracer and its trace tools (A.8)
+Tracer = not_ported("repro.serving.telemetry.Tracer", "A.8 (tracer)")
+validate_chrome_trace = not_ported(
+    "repro.serving.telemetry.validate_chrome_trace", "A.8 (tracer)")
+summarize_trace = not_ported("repro.serving.telemetry.summarize_trace",
+                             "A.8 (tracer)")

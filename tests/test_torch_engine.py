@@ -202,6 +202,21 @@ def test_sampling_is_seeded_and_in_vocab(models):
                for v in runs[0].values() for t in v)
 
 
+def test_reset_rng_replays_a_fresh_engines_sampling(models):
+    """``reset_rng()`` re-seeds the device generator and the host rng:
+    after a warm-up drain, a sampled run draws a fresh engine's tokens."""
+    _, _, cfg, params = models
+    kw = dict(BASE, policy="fifo", temperature=0.9, top_k=7)
+    fresh = _drain(EdgeServingEngine(cfg, params, ServeConfig(**kw),
+                                     device="cpu"),
+                   _traffic(Request, cfg.vocab_size))
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
+    _drain(eng, _traffic(Request, cfg.vocab_size)[:3])
+    eng.completed.clear()
+    eng.reset_rng()
+    assert _drain(eng, _traffic(Request, cfg.vocab_size)) == fresh
+
+
 def test_default_device_engine_raises_without_cuda(models):
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device is valid")
@@ -218,23 +233,48 @@ def test_params_on_another_device_raise(models):
 
 
 _ON = {"paged": False, "prefix_cache": True, "prefix_persist_path": "x.npz",
-       "min_match_tokens": 4, "spec_decode": True, "draft_arch": "self",
-       "quant_draft": True, "trace": True,
-       "trace_clock": lambda: 0.0}
+       "min_match_tokens": 20, "trace": True, "trace_clock": lambda: 0.0}
+# the fields this test has covered since the engine was first ported:
+# the tracer's still raise, the others are ported and must work
+_FIELDS = ("min_match_tokens", "paged", "prefix_cache",
+           "prefix_persist_path", "trace", "trace_clock")
 
 
-@pytest.mark.parametrize("field", sorted({*_NOT_PORTED, "paged"}))
-def test_unported_serve_config_fields_raise(field, models):
-    """Unported fields raise in ``ServeConfig``; ``paged=False`` is
-    ported for families without pages (the ssm family), so on this
-    paged family the engine raises at construction instead."""
-    kw = {"prefix_cache": False, field: _ON[field]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if field == "paged":
-            _, _, cfg, params = models
-            EdgeServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
-        else:
-            ServeConfig(**kw)
+@pytest.mark.parametrize("field", _FIELDS)
+def test_unported_serve_config_fields_raise(field, models, tmp_path):
+    """A field still in ``_NOT_PORTED`` (the tracer, A.8) raises in
+    ``ServeConfig``; a field ported since works on the paged phi3
+    engine: ``paged=False`` serves the dense twin, ``prefix_cache`` arms
+    the radix cache (a hit on the matrix traffic), ``min_match_tokens``
+    turns a match shorter than it into a miss, and
+    ``prefix_persist_path`` writes a store on ``close()`` that a new
+    engine reads back."""
+    if field in _NOT_PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServeConfig(**{"prefix_cache": False, field: _ON[field]})
+        return
+    _, _, cfg, params = models
+    value = (str(tmp_path / "store.npz") if field == "prefix_persist_path"
+             else _ON[field])
+    kw = dict(BASE, policy="fifo", **{"prefix_cache": True, field: value})
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**kw), device="cpu")
+    assert len(_drain(eng, _traffic(Request, cfg.vocab_size))) == 7
+    st = eng.stats()
+    if field == "paged":
+        assert not eng.paged and eng.prefix_cache is None
+        return
+    assert eng.sharable
+    if field == "min_match_tokens":
+        # the traffic's one hit is 16 tokens long: below the floor of 20
+        assert st["prefix_short_matches"] == 1 and st["prefix_hits"] == 0
+        return
+    assert st["prefix_hits"] >= 1
+    if field == "prefix_persist_path":
+        assert eng.close()["persist_saved_chains"] >= 1
+        again = EdgeServingEngine(cfg, params, ServeConfig(**kw),
+                                  device="cpu")
+        assert again.persist_rejected == ""
+        assert again.persist_loaded_chains >= 1
 
 
 def test_serve_config_keeps_every_jax_field_and_default():

@@ -1,13 +1,21 @@
 """Boundaries of the port: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, and the port times only through its
-telemetry clock."""
+neither JAX nor the JAX package, the port times only through its
+telemetry clock, and every public name of a ``repro`` module that has a
+port counterpart is there too — working, or raising
+``NotImplementedError`` that names its ROADMAP item."""
 import ast
+import importlib
+import importlib.util
+import inspect
 import json
 import os
 import pathlib
+import pkgutil
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -100,3 +108,78 @@ def test_kernel_sources_live_in_csrc():
     assert "src/repro/kernels/flash_attention.py" in text
     assert "`_kernel`" in text and "`flash_attention`" in text
     assert "3.35 TB/s" in text and "989" in text
+
+
+# ---------------------------------------------------------------------------
+# public names: the JAX package's, found in the port
+# ---------------------------------------------------------------------------
+
+# names the port keeps in another module (one wrapper module a kernel)
+MOVED = {
+    ("repro.kernels.flash_attention", "paged_attention"):
+        "repro_torch.kernels.paged_attention",
+    ("repro.kernels.flash_attention", "paged_extend_attention"):
+        "repro_torch.kernels.paged_extend_attention",
+}
+
+
+def _twins():
+    """Modules of ``repro`` whose ``repro_torch`` counterpart exists."""
+    import repro
+    out = []
+    for info in pkgutil.walk_packages(repro.__path__, "repro."):
+        port = "repro_torch" + info.name[len("repro"):]
+        if importlib.util.find_spec(port) is not None:
+            out.append(info.name)
+    return out
+
+
+def _public_names(module) -> list:
+    """Public functions and classes of the JAX package that ``module``
+    binds itself (def, class, assignment) or, for a package, re-exports;
+    names it merely imports for its own use are not its API."""
+    is_pkg = hasattr(module, "__path__")
+    names = set()
+    for node in ast.parse(inspect.getsource(module)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.ImportFrom) and is_pkg:
+            names |= {a.asname or a.name for a in node.names}
+    out = []
+    for name in sorted(names):
+        obj = getattr(module, name, None)
+        if (not name.startswith("_") and callable(obj)
+                and not inspect.ismodule(obj)
+                and (getattr(obj, "__module__", "") or "").startswith(
+                    "repro.")):
+            out.append(name)
+    return out
+
+
+@pytest.mark.parametrize("jax_name", _twins())
+def test_public_names_are_ported_or_name_their_item(jax_name):
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    jax_mod = importlib.import_module(jax_name)
+    port_name = "repro_torch" + jax_name[len("repro"):]
+    port_mod = importlib.import_module(port_name)
+    missing = []
+    for name in _public_names(jax_mod):
+        home = MOVED.get((jax_name, name))
+        obj = getattr(importlib.import_module(home) if home else port_mod,
+                      name, None)
+        if obj is None:
+            missing.append(name)
+            continue
+        item = getattr(obj, "roadmap_item", None)
+        if item is not None:
+            assert item.split()[0] in roadmap, (name, item)
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                obj()
+            continue
+        theirs = getattr(jax_mod, name)
+        if inspect.isclass(theirs):
+            missing += [f"{name}.{a}" for a in vars(theirs)
+                        if not a.startswith("_") and not hasattr(obj, a)]
+    assert missing == [], f"{port_name} lacks {missing}"

@@ -330,9 +330,19 @@ def test_attention_prefill_paged(cfgs):
     _close(o, o_j, rtol=1e-5, atol=1e-4)
     for key in ("k", "v"):
         _close(mine[key], pg_j[key], rtol=1e-5, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="prefix"):
-        L.attention_prefill_paged(cfg, _t(p), _t(x), _t(pos), mine, _t(wt),
-                                  ctx_tables=_t(wt))
+    # the radix-hit branch (ported since): the context of each row's
+    # full table below ctx_len (mid-page for row 0), the suffix at
+    # ctx_len + i, written through the same table
+    ctx = np.array([3, 4], np.int32)
+    full = np.array([[5, 2, 6], [1, 7, 0]], np.int32)
+    hpos = ctx[:, None] + np.arange(7, dtype=np.int32)[None, :]
+    o_j, pg_j = JL.attention_prefill_paged(jcfg, _j(p), _j(x), _j(hpos),
+                                           pg_j, _j(full), _j(full), _j(ctx))
+    o, _ = L.attention_prefill_paged(cfg, _t(p), _t(x), _t(hpos), mine,
+                                     _t(full), _t(full), _t(ctx))
+    _close(o, o_j, rtol=1e-5, atol=1e-4)
+    for key in ("k", "v"):
+        _close(mine[key], pg_j[key], rtol=1e-5, atol=1e-4)
 
 
 @pytest.mark.parametrize("cfgs", [PHI, GEMMA], ids=["phi3", "gemma3"])

@@ -247,19 +247,19 @@ def test_init_params_matches_jax_layout(models):
 def test_unported_configs_raise(arch):
     """Unported families raise at ``init_params``; gemma's local:global
     pattern trains, evaluates and serves through the paged engine, and
-    raises at the admission of the dense twin (``write_tables=None``,
-    A.4)."""
+    (ported since, A.4) admits into the dense twin's strips and rings
+    (``write_tables=None``)."""
     cfg = get_smoke_config(arch)
+    if cfg.family == "dense":
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        logits, _ = M.prefill_paged(
+            cfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+            32, M.init_cache(cfg, 1, 32, "cpu"),
+            slots=torch.zeros((1,), dtype=torch.int32))
+        assert logits.shape == (1, 1, cfg.vocab_size)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if cfg.family == "dense":
-            params = M.init_params(cfg, torch.Generator().manual_seed(0),
-                                   "cpu")
-            M.prefill_paged(cfg, params,
-                            {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                            32, M.init_cache(cfg, 1, 32, "cpu"),
-                            slots=torch.zeros((1,), dtype=torch.int32))
-        else:
-            M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
 
 
 def test_capability_flags_match_jax():
@@ -375,7 +375,7 @@ def test_dense_cache_of_a_local_ring_config_raises():
     """A ring config's dense cache is ported (the speculative draft's):
     rings of W = min(window, max_len) beside the global strips, as JAX
     lays them out.  The dense twin engine built on it (``paged=False``)
-    still raises (ROADMAP A.4)."""
+    no longer raises (ported since, A.4): it serves without a pool."""
     cfg = get_smoke_config("gemma3-1b")
     jc = JM.init_cache(jax_smoke_config("gemma3-1b"), 2, 32)
     c = M.init_cache(cfg, 2, 32, "cpu")
@@ -385,9 +385,11 @@ def test_dense_cache_of_a_local_ring_config_raises():
     assert c["super"]["local"]["k"].shape[-3] == min(cfg.local_window, 32)
     from repro_torch.serving import EdgeServingEngine, ServeConfig
     params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EdgeServingEngine(cfg, params, ServeConfig(prefix_cache=False,
-                                                   paged=False), device="cpu")
+    eng = EdgeServingEngine(cfg, params, ServeConfig(prefix_cache=False,
+                                                     paged=False),
+                            device="cpu")
+    assert not eng.paged and eng.pool is None
+    assert eng.cache["super"]["global"]["k"].shape[-3] == 256
 
 
 def test_scatter_cache_rows_matches_jax(models, dense_prefilled):
@@ -405,3 +407,22 @@ def test_scatter_cache_rows_matches_jax(models, dense_prefilled):
     assert ret is full
     _dense_close(full, theirs)
     assert (full["layers"]["slots"][:, 1] == -1).all()
+
+
+def test_make_batch_follows_batch_shapes():
+    """``make_batch`` (the JAX ``model.make_batch``): a batch of
+    ``batch_shapes`` from an explicit generator, ids inside the
+    vocabulary, the same numbers from the same seed."""
+    from repro_torch.configs.base import InputShape
+    cfg = get_smoke_config("phi3-medium-14b")
+    shape = InputShape("t", 16, 3, "train")
+    a = M.make_batch(cfg, shape, torch.Generator().manual_seed(4), "cpu")
+    b = M.make_batch(cfg, shape, torch.Generator().manual_seed(4), "cpu")
+    spec = M.batch_shapes(cfg, shape)
+    assert set(a) == set(spec) == {"tokens", "targets"}
+    for name, t in a.items():
+        assert tuple(t.shape) == spec[name].shape == (3, 16)
+        assert t.dtype == spec[name].dtype == torch.int32
+        assert 0 <= int(t.min()) and int(t.max()) < cfg.vocab_size
+        assert torch.equal(t, b[name])
+    assert not torch.equal(a["tokens"], a["targets"])
