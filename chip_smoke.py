@@ -131,7 +131,19 @@ non-zero without printing a result:
               through ``quant_matmul``.  Times one draft step with int8
               and with bf16 weights, and one int8 draft admission
               prefill of 4 rows x bucket 512 (56 launches at M = 2048).
-11. serve_ssm — the fourth main path: mamba2-370m at full width and
+11. serve_traced — phi3 again on ``serve``'s weights, ServeConfig and
+              traffic with ``trace=True`` (the span tracer): tokens and
+              ``paged_attention`` launches equal ``serve``'s, the Chrome
+              trace validates, every request's TTFT decomposes exactly
+              (queue wait + prefill + first wave); per span (dispatch,
+              sync, retire, admit, plan, prefill_dispatch, prefill_sync,
+              publish) calls, mean and total ms and ms per step, and per
+              wave kind the step's dispatch / sync / retire split (the
+              host/device split of a step: ``sync`` waits for the device
+              after the host has issued the wave).  Then the same drive
+              untraced: the trace's overhead in ms per step, beside the
+              tracer's own host cost per span and event.
+12. serve_ssm — the fourth main path: mamba2-370m at full width and
               depth (bf16, ~0.74 GB) behind the engine's pool-free path
               (no page pool: ``eng.paged`` False) with
               ``use_pallas_paged=True``, prefill buckets up to 1024, 8
@@ -139,12 +151,12 @@ non-zero without printing a result:
               every layer of every admission prefill (calls counted
               around ``_admit_group``) scans through ``ssd_scan``, and no
               paged or quant kernel launches.  Profiles one decode wave.
-12. model_ssm — one 4-row bucket-1024 ``ssm.prefill`` with ragged
+13. model_ssm — one 4-row bucket-1024 ``ssm.prefill`` with ragged
               ``true_len`` through the kernel and through the plain
               chunked path at float32: logits and final states within
               the stated share of their max, greedy tokens equal; one
               bf16 prefill of each timed.
-13. train    — the fifth main path: gemma3-1b at full width and depth
+14. train    — the fifth main path: gemma3-1b at full width and depth
               (26 layers, float32 weights from a seeded generator, ~1.0e9
               parameters) trained 3 steps through ``launch.train``'s
               flags, state and step: 4 x 4096 bigram tokens a step in 2
@@ -152,7 +164,7 @@ non-zero without printing a result:
               moments; ms and tokens/s per step, peak memory, one step's
               device idle share; losses finite; no kernel launches (the
               plain attention runs under autograd).
-14. model_train — on the trained weights, ``loss_fn(use_flash=True)``
+15. model_train — on the trained weights, ``loss_fn(use_flash=True)``
               against ``loss_fn(use_flash=False)`` on 2 x 4096 tokens:
               at float32 the CE within 1e-5 relative and the logits
               within 1e-4 x max |logit|; at bf16 every layer's
@@ -160,7 +172,7 @@ non-zero without printing a result:
               identical inputs within 2**-6 x max |o|; ``flash_attention``
               launches == 26 x forwards through it; one bf16 loss
               forward each way timed.
-15. serve_gemma — the sixth main path: gemma3-1b at full width and
+16. serve_gemma — the sixth main path: gemma3-1b at full width and
               depth (26 layers: 4 super-blocks of 5 local + 1 global and
               2 remainder local layers, bf16 weights from a seeded
               generator, ~2 GB) through ``launch.serve.build_engine`` on
@@ -172,16 +184,31 @@ non-zero without printing a result:
               layer of every decode wave reads through
               ``paged_attention`` (4 x decode waves), nothing through the
               extend kernel.  Times and profiles one decode wave.
-16. serve_gemma_int8 — the same model and traffic on an int8 pool (the
+17. serve_gemma_int8 — the same model and traffic on an int8 pool (the
               rings stay bf16): ``paged_attention`` == 4 x decode waves,
               ``paged_extend_attention`` == 4 x extend waves.
-17. serve_gemma_wide — the gemma3-1b weights on an int8 pool with
+18. serve_gemma_wide — the gemma3-1b weights on an int8 pool with
               catch-up chunk 64, 4 greedy requests of 600-1000 prompt
               tokens x 8 new: every extend call at S = 64 through
               ``paged_extend_attention`` (4 x extend waves), held against
               the same engine reading through the gather by the int8
               gate.
-18. serve_hybrid — the seventh main path: zamba2-7b at full width and
+19. serve_async — the serve CLI's default path: gemma3-1b on
+              ``serve_gemma``'s weights and ServeConfig, traced, through
+              ``launch.serve.AsyncServingFrontend`` (steps on the loop's
+              executor thread).  Leg 1: all 8 requests submitted before
+              the first step, tokens equal ``serve_gemma``'s.  Leg 2: a
+              fresh engine, arrivals 20 ms apart, request 1 cancelled
+              after its first streamed token: every stream equals its
+              request's tokens, the cancelled one is marked so, no page
+              leaks, the trace holds ``cancel_applied``; ``slo_stats()``
+              and the span phases.  Each leg: ``paged_attention`` == 4 x
+              decode waves.  Then ``launch.serve.main`` at its defaults
+              (``--mode async``, smoke scale, on the card) with
+              ``--trace``: its JSON line, a valid trace, launches == the
+              smoke model's global layers x the trace's decode waves.
+              Every await has a time limit.
+20. serve_hybrid — the seventh main path: zamba2-7b at full width and
               depth (81 layers: 13 super-blocks of 5 mamba blocks and
               the shared attention block, 3 remainder mamba blocks;
               bf16, ~11.2 GB) through ``launch.serve.build_engine``
@@ -192,16 +219,16 @@ non-zero without printing a result:
               ``ssd_scan`` and runs the 13 shared-block applications
               through ``flash_attention``; no paged or quant kernel
               launches.  Profiles one decode wave.
-19. model_hybrid — one 4-row bucket-1024 hybrid prefill with ragged
+21. model_hybrid — one 4-row bucket-1024 hybrid prefill with ragged
               ``true_len`` through the kernels and through the plain
               path at float32: logits, mamba states and ring K/V within
               the stated share of their max, greedy tokens equal; one
               bf16 prefill of each timed.
-20. reference_gemma — the gemma3-1b smoke config at float32 (window
+22. reference_gemma — the gemma3-1b smoke config at float32 (window
               16), prompts of 20-150 tokens: the engine on the card and on
               the CPU emit the same greedy tokens on a float pool and
               meet the int8 gate on an int8 pool, both kernels launched.
-21. reference — the phi3 smoke config at float32: the engine on the card
+23. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -217,7 +244,7 @@ non-zero without printing a result:
               gemma3-1b smoke config (8 layers) at float32: the card's
               ``loss_fn(use_flash=True)`` within 1e-5 of the CPU's, two
               train steps' losses and gradient norms within 1e-4.
-22. reference_shared — the phi3 smoke config at float32 over
+24. reference_shared — the phi3 smoke config at float32 over
               ``tests/test_engine_matrix.py``'s traffic (copied): the dense
               twin, the prefix-cache engine with the hand-written reads
               and the same speculating on the card, and the prefix-cache
@@ -3257,6 +3284,353 @@ def reference_shared(torch, M, get_smoke_config, kernels, dev="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# the always-on path: the span tracer and the asyncio frontend
+# ---------------------------------------------------------------------------
+
+TRACE_SPANS = ("dispatch", "sync", "retire", "admit", "plan",
+               "prefill_dispatch", "prefill_sync", "publish")
+ASYNC_GAP_S = 0.02              # leg 2's arrivals, 20 ms apart
+ASYNC_CANCEL_UID = 1            # cancelled after its first streamed token
+ASYNC_LIMIT_S = 300.0           # every await of the frontend phase
+CLI_TRACE = ROOT / "build" / "serve_async_cli_trace.json"
+
+
+def _trace_checks(phase: str, tracer, n_req: int) -> list:
+    """The tracer's Chrome events must validate, and every request's row
+    must decompose its TTFT exactly; returns the rows."""
+    from repro_torch.serving.telemetry import validate_chrome_trace
+    problems = validate_chrome_trace(tracer.chrome_events())
+    if problems:
+        raise AssertionError(f"{phase}: trace problems {problems[:5]}")
+    rows = tracer.request_summaries()
+    if len(rows) != n_req:
+        raise AssertionError(f"{phase}: {len(rows)} request rows")
+    for r in rows:
+        parts = (r["queue_wait_us"], r["prefill_us"], r["first_wave_us"])
+        if None in parts or sum(parts) != r["ttft_us"]:
+            raise AssertionError(f"{phase}: TTFT decomposition of request "
+                                 f"{r['uid']} is not exact: {r}")
+    return rows
+
+
+def _trace_phases(tracer, steps: int) -> dict:
+    """``summarize_trace``'s phases: per span, calls, mean and total ms,
+    and ms per engine step."""
+    from repro_torch.serving.telemetry import summarize_trace
+    summary = summarize_trace({"traceEvents": tracer.chrome_events()})
+    by = {r["name"]: r for r in summary["phases"]}
+    return {name: {"calls": by[name]["calls"],
+                   "mean_ms": by[name]["mean_us"] / 1e3,
+                   "total_ms": by[name]["total_us"] / 1e3,
+                   "ms_per_step": by[name]["total_us"] / 1e3 / steps}
+            for name in TRACE_SPANS + ("step", "draft") if name in by}
+
+
+def _step_split(tracer) -> dict:
+    """Per wave kind (the ``dispatch`` span's mode): steps, and the mean
+    ms of the step and of its dispatch, sync and retire spans, with the
+    sync share of the step.  A step's child spans end before it, so the
+    engine track's events since the last ``step`` are its children."""
+    kinds, children = {}, []
+    for ev in tracer.events:
+        if ev["ph"] != "X" or ev["tid"] != 0:
+            continue
+        if ev["name"] != "step":
+            children.append(ev)
+            continue
+        mode = next((c["args"]["mode"] for c in children
+                     if c["name"] == "dispatch"), None)
+        if mode is not None:
+            agg = kinds.setdefault(mode, {"steps": 0, "step": 0.0,
+                                          "dispatch": 0.0, "sync": 0.0,
+                                          "retire": 0.0})
+            agg["steps"] += 1
+            agg["step"] += ev["dur"]
+            for c in children:
+                if c["name"] in agg:
+                    agg[c["name"]] += c["dur"]
+        children = []
+    out = {}
+    for mode, agg in kinds.items():
+        n = agg["steps"]
+        out[mode] = {"steps": n,
+                     **{f"{k}_mean_ms": agg[k] / n / 1e3
+                        for k in ("step", "dispatch", "sync", "retire")},
+                     "sync_share": agg["sync"] / agg["step"]}
+    return out
+
+
+def _tracer_cost_us(n: int = 20000) -> dict:
+    """Host microseconds of one traced span and of one lifecycle event
+    (``req_event``) on a fresh tracer at the default clock, each the
+    mean of ``n`` calls."""
+    from repro_torch.serving.telemetry import Tracer, default_clock
+    tr = Tracer()
+    t0 = default_clock()
+    for _ in range(n):
+        with tr.span("x", step=0):
+            pass
+    t1 = default_clock()
+    for i in range(n):
+        tr.req_event(i % 8, "tokens", tid=10, n=1)
+    t2 = default_clock()
+    return {"span_us": (t1 - t0) * 1e6 / n, "event_us": (t2 - t1) * 1e6 / n}
+
+
+def serve_traced_phase(torch, kernels, serve, params, cfg, serve_fields,
+                       serve_tokens, dev="cuda"):
+    """``serve``'s model, weights, ``ServeConfig`` and traffic with
+    ``trace=True``: the same schedule, and the fences only wait for work
+    the host copy waits for, so tokens and ``paged_attention`` launches
+    equal ``serve``'s; the trace validates and every TTFT decomposes
+    exactly.  Then the same drive untraced on a fresh engine: the
+    trace's overhead is the traced ms per step less the untraced; host
+    times move between drives by more than it (PERF.md §5), so beside
+    it stands the tracer's own host cost (a span's and an event's
+    microseconds, times the trace's spans and events a step)."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    L = cfg.num_layers
+
+    def drive(trace):
+        eng = EdgeServingEngine(cfg, params, ServeConfig(
+            prefix_cache=False, use_pallas_paged=True, trace=trace,
+            **SERVE), device=dev)
+        fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+            "paged_attention": L * eng.decode_waves,
+            "paged_extend_attention": 0, "quant_matmul": 0, "ssd_scan": 0},
+            needs=("paged_attention",))
+        tokens = {r.uid: list(r.generated) for r in eng.completed}
+        if tokens != serve_tokens:
+            raise AssertionError(f"serve_traced (trace={trace}): tokens "
+                                 "differ from serve's")
+        if fields["launches"] != serve_fields["launches"] \
+                or eng.decode_waves != serve_fields["decode_waves"]:
+            raise AssertionError(
+                f"serve_traced (trace={trace}): launches "
+                f"{fields['launches']} over {eng.decode_waves} decode "
+                f"waves, serve's {serve_fields['launches']}")
+        return eng, fields
+
+    eng, fields = drive(True)
+    rows = _trace_checks("serve_traced", eng.tracer, N_REQ)
+    _, plain = drive(False)
+    cost = _tracer_cost_us()
+    n_x = sum(1 for e in eng.tracer.events if e["ph"] == "X")
+    n_ev = len(eng.tracer.events) - n_x
+    fields.update(
+        tokens_equal_serve=True,
+        trace_events=len(eng.tracer.chrome_events()),
+        spans=_trace_phases(eng.tracer, eng.steps),
+        step_split=_step_split(eng.tracer),
+        ttft_decomposition_ms={r["uid"]: [r["queue_wait_us"] / 1e3,
+                                          r["prefill_us"] / 1e3,
+                                          r["first_wave_us"] / 1e3]
+                               for r in rows},
+        ms_per_step_traced=fields["ms_per_step"],
+        ms_per_step_untraced=plain["ms_per_step"],
+        ms_per_step_serve=serve_fields["ms_per_step"],
+        trace_overhead_ms_per_step=fields["ms_per_step"]
+        - plain["ms_per_step"],
+        tracer_host_cost=dict(
+            cost, spans_per_step=n_x / eng.steps,
+            events_per_step=n_ev / eng.steps,
+            ms_per_step=(n_x * cost["span_us"] + n_ev * cost["event_us"])
+            / eng.steps / 1e3),
+        launches={n: fields["launches"][n] + plain["launches"][n]
+                  for n in fields["launches"]})
+    return fields
+
+
+async def _await(fe, aw, what: str):
+    """``aw`` within ASYNC_LIMIT_S; on a timeout, the frontend task's
+    own error if it ended on one."""
+    import asyncio
+    try:
+        return await asyncio.wait_for(aw, ASYNC_LIMIT_S)
+    except asyncio.TimeoutError:
+        task = fe._task
+        if task is not None and task.done() and task.exception():
+            raise AssertionError(f"serve_async: {what}: the step loop "
+                                 f"failed") from task.exception()
+        raise AssertionError(f"serve_async: {what}: no answer in "
+                             f"{ASYNC_LIMIT_S} s")
+
+
+async def _async_leg(serve, eng, reqs, gap_s: float, cancel_uid=None):
+    """Serve ``reqs`` through an ``AsyncServingFrontend``: all submitted
+    before the loop's first step (``gap_s`` 0) or ``gap_s`` apart;
+    ``cancel_uid`` is cancelled after its first streamed token.  Returns
+    (frontend, streams by uid, finished requests by uid, cancel's
+    answer)."""
+    import asyncio
+    fe = serve.AsyncServingFrontend(eng)
+    await fe.start()
+    first = asyncio.Event()
+
+    def on_token(req, tok):
+        first.set()
+    handles, streams = {}, {}
+
+    async def collect(h):
+        streams[h.uid] = [t async for t in h]
+    collectors = []
+    for i, req in enumerate(reqs):
+        if i and gap_s:
+            await asyncio.sleep(gap_s)
+        h = fe.submit(req, on_token=on_token if req.uid == cancel_uid
+                      else None)
+        handles[req.uid] = h
+        collectors.append(asyncio.ensure_future(collect(h)))
+    cancelled = None
+    if cancel_uid is not None:
+        await _await(fe, first.wait(), "first token of the cancelled one")
+        cancelled = await _await(fe, fe.cancel(cancel_uid), "cancel")
+    done = {}
+    for uid, h in handles.items():
+        done[uid] = await _await(fe, h.done, f"request {uid}")
+    await _await(fe, asyncio.gather(*collectors), "streams")
+    await _await(fe, fe.shutdown(), "shutdown")
+    if fe._task.exception() is not None:
+        raise AssertionError("serve_async: the step loop failed") \
+            from fe._task.exception()
+    return fe, streams, done, cancelled
+
+
+def serve_async_phase(torch, kernels, serve, eng0, cfg, gemma_tokens,
+                      dev="cuda", cli_argv=()):
+    """The CLI's default path: gemma3-1b at full width on ``serve_gemma``'s
+    weights and ServeConfig (bf16 pool, kernel reads, no prefix cache),
+    traced, through ``AsyncServingFrontend``.  Leg 1: every request
+    submitted before the loop's first step, the drain's schedule, so the
+    tokens equal ``serve_gemma``'s.  Leg 2: a fresh engine, the requests
+    20 ms apart, one cancelled after its first streamed token: every
+    stream equals its ``req.generated``, the cancelled request is marked
+    so, no page leaks, and the trace holds ``cancel_applied``.  Each leg:
+    ``paged_attention`` == global layers x decode waves.  Then
+    ``launch.serve.main`` at its defaults (``--mode async``, smoke scale,
+    the card) with ``--trace`` (``cli_argv`` is added to its argv)."""
+    import asyncio
+    import contextlib
+    import io
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    n_global = cfg.pattern_blocks()[0]
+    n_req, _, _, max_new = GEMMA_TRAFFIC
+
+    def leg(gap_s, cancel_uid):
+        eng = EdgeServingEngine(cfg, eng0.params, ServeConfig(
+            prefix_cache=False, use_pallas_paged=True, trace=True,
+            **GEMMA_SERVE), device=dev)
+        reqs = serve.make_requests(cfg, *GEMMA_TRAFFIC,
+                                   eng.scfg.policy)
+        _sync(torch)
+        _zero(kernels)
+        t0 = serve.default_clock()
+        fe, streams, done, cancelled = asyncio.run(
+            _async_leg(serve, eng, reqs, gap_s, cancel_uid))
+        elapsed = serve.default_clock() - t0
+        launches = _counts(kernels)
+        expect = dict.fromkeys(kernels, 0)
+        expect["paged_attention"] = n_global * eng.decode_waves
+        if launches != expect or eng.decode_waves == 0:
+            raise AssertionError(f"serve_async: launches {launches} over "
+                                 f"{eng.decode_waves} decode waves")
+        if sorted(done) != list(range(n_req)) or any(
+                streams[u] != [int(t) for t in done[u].generated]
+                for u in done):
+            raise AssertionError("serve_async: a stream differs from its "
+                                 "request's tokens")
+        for u, r in done.items():
+            if u == cancel_uid:
+                if not (cancelled and r.cancelled and r.done
+                        and 0 < len(r.generated) < max_new):
+                    raise AssertionError(
+                        f"serve_async: cancel of {u}: answer {cancelled}, "
+                        f"cancelled {r.cancelled}, {len(r.generated)} "
+                        "tokens")
+            elif r.cancelled or len(r.generated) != max_new:
+                raise AssertionError(f"serve_async: request {u}")
+        _check_pool(eng, "serve_async")
+        # the cancelled request streamed a first token: its row is whole
+        rows = _trace_checks("serve_async", eng.tracer, n_req)
+        tokens = sum(len(r.generated) for r in done.values())
+        return eng, fe, done, {
+            "launches": launches, "steps": eng.steps,
+            "decode_waves": eng.decode_waves,
+            "extend_waves": eng.extend_waves, "elapsed_s": elapsed,
+            "tokens": tokens, "tok_per_s": tokens / elapsed,
+            "ms_per_step": elapsed * 1e3 / eng.steps,
+            "slo_stats": fe.slo_stats(),
+            # the frontend's own time a step: wall time outside the
+            # engine's step spans (loop, executor hop, delivery), and
+            # arrival gaps when the engine is idle
+            "outside_step_ms_per_step": (elapsed * 1e3 - sum(
+                e["dur"] for e in eng.tracer.events
+                if e["ph"] == "X" and e["name"] == "step") / 1e3)
+            / eng.steps,
+            "spans": _trace_phases(eng.tracer, eng.steps),
+            "step_split": _step_split(eng.tracer),
+            "requests_traced": len(rows)}
+
+    eng1, _, done1, leg1 = leg(0.0, None)
+    tokens1 = {u: list(r.generated) for u, r in done1.items()}
+    if tokens1 != gemma_tokens:
+        raise AssertionError("serve_async: leg 1's tokens differ from "
+                             "serve_gemma's")
+    del eng1
+    eng2, fe2, done2, leg2 = leg(ASYNC_GAP_S, ASYNC_CANCEL_UID)
+    applied = [e for e in eng2.tracer.chrome_events()
+               if e.get("name") == "cancel_applied"]
+    if len(applied) != 1 or applied[0]["args"]["uid"] != ASYNC_CANCEL_UID:
+        raise AssertionError(f"serve_async: cancel_applied {applied}")
+    leg2.update(cancelled_uid=ASYNC_CANCEL_UID,
+                cancelled_tokens=len(done2[ASYNC_CANCEL_UID].generated),
+                cancel_latency_ms=fe2.cancel_ms)
+    del eng2, fe2
+
+    # the CLI at its defaults, on the card, traced
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.telemetry import validate_chrome_trace
+    out = io.StringIO()
+    _zero(kernels)
+    t0 = serve.default_clock()
+    with contextlib.redirect_stdout(out):
+        serve.main(["--trace", str(CLI_TRACE), *cli_argv])
+    cli_s = serve.default_clock() - t0
+    launches = _counts(kernels)
+    line = json.loads(out.getvalue().splitlines()[0])
+    trace = json.loads(CLI_TRACE.read_text())
+    CLI_TRACE.unlink()
+    events = trace["traceEvents"]
+    args = serve.parse_args([])
+    waves = sum(1 for e in events if e.get("name") == "dispatch"
+                and e["args"]["mode"] == "decode")
+    n_global_smoke = get_smoke_config(args.arch).pattern_blocks()[0]
+    expect = dict.fromkeys(kernels, 0)
+    expect["paged_attention"] = n_global_smoke * waves
+    problems = validate_chrome_trace(events)
+    if (args.mode != "async" or problems or waves == 0
+            or line["requests"] != args.requests
+            or line["tokens"] != args.requests * args.max_new
+            or line["trace"]["events"] != len(events)
+            or launches != expect):
+        raise AssertionError(f"serve_async: the CLI printed {line}; trace "
+                             f"problems {problems[:3]}, launches "
+                             f"{launches} for {waves} decode waves")
+    launches_all = {n: leg1["launches"][n] + leg2["launches"][n]
+                    + launches[n] for n in launches}
+    return {"arch": cfg.name, "depth": cfg.num_layers,
+            "d_model": cfg.d_model, "traffic": list(GEMMA_TRAFFIC),
+            "leg1_all_before_first_step": leg1,
+            "leg1_tokens_equal_serve_gemma": True,
+            "leg2_arrivals_20ms_apart": leg2,
+            "cli": {"argv": ["--trace", "PATH"], "mode": args.mode,
+                    "arch": args.arch, "scale": args.scale,
+                    "line": line, "seconds": cli_s,
+                    "decode_waves": waves, "launches": launches},
+            "launches": launches_all}
+
+
 def _to(tree, dev):
     """A copy of ``tree`` on ``dev`` whose leaves are new tensor objects
     (``detach``), so flags set on them leave ``tree`` as it was."""
@@ -3317,6 +3691,7 @@ def main() -> int:
     t0 = clock()
     eng, cfg, fields = serve_phase(torch, kernels, serve)
     launches = dict(fields["launches"])
+    serve_fields = fields
     serve_tokens = {r.uid: list(r.generated) for r in eng.completed}
     emit("serve", seconds=clock() - t0, **fields)
 
@@ -3355,9 +3730,18 @@ def main() -> int:
     fields = serve_spec_phase(torch, kernels, serve, M, params, cfg)
     for name, n in fields["launches"].items():
         launches[name] += n
-    del params
     _release(torch)
     emit("serve_spec", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_traced_phase(torch, kernels, serve, params, cfg,
+                                serve_fields, serve_tokens)
+    # both drives' launches, each checked equal to serve's
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    del params
+    _release(torch)
+    emit("serve_traced", seconds=clock() - t0, **fields)
 
     t0 = clock()
     eng_ssm, cfg_ssm, fields = serve_ssm_phase(torch, kernels, serve, M)
@@ -3387,6 +3771,7 @@ def main() -> int:
     eng_g, cfg_g, fields = serve_gemma_phase(torch, kernels, serve, M)
     for name, n in fields["launches"].items():
         launches[name] += n
+    gemma_tokens = {r.uid: list(r.generated) for r in eng_g.completed}
     emit("serve_gemma", seconds=clock() - t0, **fields)
 
     t0 = clock()
@@ -3399,9 +3784,16 @@ def main() -> int:
     fields = serve_gemma_wide_phase(torch, kernels, M, eng_g, cfg_g)
     for name, n in fields["launches"].items():
         launches[name] += n
+    emit("serve_gemma_wide", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_async_phase(torch, kernels, serve, eng_g, cfg_g,
+                               gemma_tokens)
+    for name, n in fields["launches"].items():
+        launches[name] += n
     del eng_g
     _release(torch)
-    emit("serve_gemma_wide", seconds=clock() - t0, **fields)
+    emit("serve_async", seconds=clock() - t0, **fields)
 
     t0 = clock()
     eng_h, cfg_h, fields = serve_hybrid_phase(torch, kernels, serve, M)
@@ -3436,8 +3828,9 @@ def main() -> int:
             "library_ms")
     for name, row in rows.items():
         # main-path launches: the serve phases (the gemma int8 drive at
-        # catch chunk 64 and both serve_shared legs included) and
-        # model_train, each counted from 0
+        # catch chunk 64, both serve_shared legs, the traced drive, both
+        # serve_async legs and its CLI run included) and model_train,
+        # each counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))

@@ -130,15 +130,30 @@ quantize).  Two kinds of config run so:
   port runs the plain chunked scan and the plain masked softmax, which
   is what the JAX engine runs.
 
-Not ported yet: tracing (``ServeConfig.trace`` / ``trace_clock`` raise
-``NotImplementedError`` naming ROADMAP A.8, and so does
-``dump_chrome_trace``).
+Tracing (``ServeConfig.trace``, ``serving.telemetry.Tracer``) records
+the JAX engine's spans and lifecycle events at the JAX engine's points:
+``step`` / ``admit`` / ``plan`` / ``draft`` / ``dispatch`` / ``retire`` /
+``publish`` on the engine track, ``prefill_dispatch`` around an
+admission prefill, a residency span per slot, and per-request events
+(submit, queued, admitted, prefill_chunk, prompt_done, first_token,
+tokens, spec_round, cow_fork, preempt, resume, finish, cancel).  The
+fences are the port's device synchronisation: a traced step waits for
+the device in a ``sync`` span (``prefill_sync`` after an admission
+prefill) just before it copies the wave's result to the host, which
+waits for the device anyway, so tokens are unchanged; on CPU tensors the
+span is empty.  Untraced, every span is a ``nullcontext`` and the step
+is the same code.  ``dump_chrome_trace`` writes the Perfetto dump.
+
+``step`` runs under ``torch.no_grad()``: no wave needs gradients, and
+the frontend runs steps on an executor thread, where a caller's grad
+mode does not reach.
 """
 from __future__ import annotations
 
 import hashlib
 import itertools
 import os
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -160,7 +175,7 @@ from repro_torch.serving.spec_decode import (SpecDecoder, accept_greedy,
                                              make_self_draft,
                                              sample_from_logits,
                                              validate_spec)
-from repro_torch.serving.telemetry import MetricsRegistry
+from repro_torch.serving.telemetry import SLOT_TID0, MetricsRegistry, Tracer
 
 
 # ---------------------------------------------------------------------------
@@ -280,19 +295,10 @@ class Request:
     saved_state: Optional[dict] = None  # KV snapshot from preemption
 
 
-# field -> (the value that means "off", ROADMAP item that ports it)
-_NOT_PORTED = {
-    "trace": (False, "A.8 (tracer)"),
-    "trace_clock": (None, "A.8 (tracer)"),
-}
-
-
 @dataclass(frozen=True)
 class ServeConfig:
     """The JAX ``ServeConfig``, field for field and default for default
-    (see ``repro.serving.engine.ServeConfig`` for each field).  A field
-    whose feature is not ported yet raises ``NotImplementedError`` here
-    when it is set to anything but "off"."""
+    (see ``repro.serving.engine.ServeConfig`` for each field)."""
     max_slots: int = 4
     max_len: int = 256
     temperature: float = 0.0            # 0 => greedy
@@ -320,16 +326,10 @@ class ServeConfig:
     min_match_tokens: int = 1
     quant_kv: Optional[str] = None
     quant_draft: bool = False
+    # record engine-phase spans and request lifecycles (Tracer) against
+    # trace_clock (None -> telemetry.grid_clock)
     trace: bool = False
     trace_clock: Optional[Callable[[], float]] = None
-
-    def __post_init__(self):
-        for name, (off, item) in _NOT_PORTED.items():
-            if getattr(self, name) != off:
-                raise NotImplementedError(
-                    f"ServeConfig.{name}={getattr(self, name)!r}: not ported "
-                    f"to repro_torch yet (ROADMAP {item}); leave it at "
-                    f"{off!r}")
 
 
 class EdgeServingEngine:
@@ -465,6 +465,7 @@ class EdgeServingEngine:
         self.spec_accepted = 0
         self.spec_emitted = 0
         self.metrics = MetricsRegistry()
+        self.tracer = Tracer(clock=scfg.trace_clock) if scfg.trace else None
         self._legacy_stats = self._register_metrics()
 
     def _make_spec(self, draft) -> Optional[SpecDecoder]:
@@ -557,6 +558,11 @@ class EdgeServingEngine:
                     f"(kv_pool_blocks); it could never finish")
         if req.arrival is None:
             req.arrival = float(next(self._arrival))
+        if self.tracer is not None:
+            fresh = req.saved_state is None and not req.generated
+            self._revent(req, "submit" if fresh else "resubmit",
+                         prompt_tokens=len(req.prompt))
+            self._revent(req, "queued", depth=len(self.queue) + 1)
         self.queue.append(req)
 
     def _rank(self, req: Request):
@@ -675,6 +681,8 @@ class EdgeServingEngine:
 
     def _admit_resumed(self, req: Request, slot: int) -> None:
         need = self._blocks_needed(req)   # same formula the scan reserved
+        self._slot_begin(req, slot)
+        self._revent(req, "resume", slot=slot)
         st = req.saved_state
         req.saved_state = None
         if self.paged:
@@ -702,6 +710,9 @@ class EdgeServingEngine:
         ``_cow_guard`` allocate fresh pages and fork a partially matched
         tail page."""
         L = getattr(req, "_ctx_len", 0)
+        self._slot_begin(req, slot)
+        self._revent(req, "admitted", slot=slot, mode="wave",
+                     prefix_hit_tokens=L)
         if self.paged:
             self._set_table(slot, list(getattr(req, "_ctx_blocks", None)
                                        or []))
@@ -808,6 +819,7 @@ class EdgeServingEngine:
                             self._copy_page(old, new)
                             req._ctx_blocks[-1] = new
                             self.cow_forks += 1
+                            self._revent(req, "cow_fork", slot=slot)
                     blocks = self.pool.alloc(fresh_n)
                 except PoolExhausted:
                     self._release_ctx(req)
@@ -819,6 +831,10 @@ class EdgeServingEngine:
             group = admitted
             if not group:
                 return
+        for req, slot in group:
+            self._slot_begin(req, slot)
+            self._revent(req, "admitted", slot=slot, mode="prefill",
+                         prefix_hit_tokens=getattr(req, "_ctx_len", 0))
         m = len(group)
         prompts = np.zeros((m, bucket), np.int32)
         true_len = np.zeros((m,), np.int32)
@@ -855,12 +871,16 @@ class EdgeServingEngine:
             # flash_attention (the dense twin passes neither)
             kw = dict(use_kernel=self._kernel_prefill,
                       use_flash=self._kernel_prefill)
-        logits, self.cache = M.prefill_paged(
-            self.cfg, self.params, {"tokens": torch.from_numpy(prompts).to(dev)},
-            self.scfg.max_len, self.cache,
-            slots=torch.tensor([s for _, s in group], dtype=torch.int32,
-                               device=dev),
-            true_len=torch.from_numpy(true_len).to(dev), **kw)
+        with self._span("prefill_dispatch", bucket=bucket, rows=m):
+            logits, self.cache = M.prefill_paged(
+                self.cfg, self.params,
+                {"tokens": torch.from_numpy(prompts).to(dev)},
+                self.scfg.max_len, self.cache,
+                slots=torch.tensor([s for _, s in group], dtype=torch.int32,
+                                   device=dev),
+                true_len=torch.from_numpy(true_len).to(dev), **kw)
+        # device prefill time apart from the host's first-token sampling
+        self._fence("prefill_sync")
         if self.spec is not None:
             # the draft prefills the FULL prompt (it never chunks), so
             # catch-up slots are draft-complete once their prompt is in
@@ -871,10 +891,13 @@ class EdgeServingEngine:
             L, n1 = int(ctx_len[i]), int(true_len[i])
             req._ctx_blocks, req._ctx_len = [], 0
             remainder = suffixes[i][n1:]
+            self._revent(req, "prefill_chunk", slot=slot, n=n1)
             tok = None
             if not remainder.size:
+                self._revent(req, "prompt_done", slot=slot)
                 tok = self._sample_first(req, logits_host[i])
                 req.generated.append(tok)
+                self._rtokens(req, slot, 1)
                 hit_eos = (self.scfg.eos_id >= 0
                            and tok == self.scfg.eos_id)
                 if len(req.generated) >= req.max_new_tokens or hit_eos:
@@ -886,6 +909,9 @@ class EdgeServingEngine:
                         self._set_table(slot, [])
                     req.done = True
                     self.completed.append(req)
+                    self._revent(req, "finish", slot=slot,
+                                 n_generated=len(req.generated))
+                    self._slot_end(slot)
                     continue
             self.pos[slot] = L + n1
             if remainder.size:
@@ -1025,6 +1051,7 @@ class EdgeServingEngine:
                 self.slot_blocks[s][j] = new
                 self.block_tables[s, j] = new
                 self.cow_forks += 1
+                self._revent(self.slot_req[s], "cow_fork", slot=s)
 
     def _has_pending(self) -> bool:
         return any(self.active[s] and self.pending[s] is not None
@@ -1062,6 +1089,7 @@ class EdgeServingEngine:
         if "catch" in modes and len(modes) > 1:
             self.mixed_waves += 1
 
+    @torch.no_grad()
     def step(self) -> int:
         """ONE step of the serving core: admit, plan, one wave (extend
         while any slot speculates or catches up, decode otherwise),
@@ -1069,33 +1097,38 @@ class EdgeServingEngine:
         nothing stepped, requests are queued and detached requests hold
         every page, the worst-ranked holder is reclaimed.  Returns the
         number of active slots stepped (0 = idle)."""
-        self._admit_batch()
-        if self.extend_ok and (self.spec is not None
-                               or self._has_pending()):
-            stepped = self._extend_step()
-        else:
-            stepped = self._decode_wave()
-        if (stepped == 0 and self.paged and self.queue
-                and not self.active.any()):
-            # requests requeued by _ensure_blocks mid-step may need zero
-            # new pages — give admission one more look before reclaiming
-            self._admit_batch()
-            if not self.active.any():
-                self._reclaim()
+        with self._span("step", step=self.steps):
+            with self._span("admit", queued=len(self.queue)):
+                self._admit_batch()
+            if self.extend_ok and (self.spec is not None
+                                   or self._has_pending()):
+                stepped = self._extend_step()
+            else:
+                stepped = self._decode_wave()
+            if (stepped == 0 and self.paged and self.queue
+                    and not self.active.any()):
+                # requests requeued by _ensure_blocks mid-step may need
+                # zero new pages — one more admission look before
+                # reclaiming
+                with self._span("admit", queued=len(self.queue)):
+                    self._admit_batch()
+                if not self.active.any():
+                    self._reclaim()
         return stepped
 
     def _decode_wave(self) -> int:
         """The plain one-token wave (every active slot has width 1;
         slots still consuming a prompt on a non-extendable config
         teacher-force one pending token)."""
-        if self.paged:
-            self._ensure_blocks()
-            self._cow_guard()
-        self._record_plan({
-            s: (("catch", 1) if (self.pending[s] is not None
-                                 and self.pending[s].size) else
-                ("plain", 1))
-            for s in range(self.scfg.max_slots) if self.active[s]})
+        with self._span("plan"):
+            if self.paged:
+                self._ensure_blocks()
+                self._cow_guard()
+            self._record_plan({
+                s: (("catch", 1) if (self.pending[s] is not None
+                                     and self.pending[s].size) else
+                    ("plain", 1))
+                for s in range(self.scfg.max_slots) if self.active[s]})
         n_active = int(self.active.sum())
         if n_active == 0:
             return 0
@@ -1105,38 +1138,48 @@ class EdgeServingEngine:
                                       self.pool.num_used)
 
         act = self.active
-        tokens, pos, temps, topks = self._device_tensors(
-            self.tokens, self.pos, self.temps, self.topks)
-        tables = (self._device_tensors(self.block_tables)[0] if self.paged
-                  else None)
-        nxt = self._decode_fn(tokens, pos, temps, topks, tables,
-                              any_temp=bool((self.temps[act] > 0).any()),
-                              any_topk=bool((self.topks[act] > 0).any()))
+        with self._span("dispatch", mode="decode", rows=n_active):
+            tokens, pos, temps, topks = self._device_tensors(
+                self.tokens, self.pos, self.temps, self.topks)
+            tables = (self._device_tensors(self.block_tables)[0]
+                      if self.paged else None)
+            nxt = self._decode_fn(
+                tokens, pos, temps, topks, tables,
+                any_temp=bool((self.temps[act] > 0).any()),
+                any_topk=bool((self.topks[act] > 0).any()))
+        self._fence("sync")
         nxt_host = nxt.cpu().numpy()
-        for slot in range(self.scfg.max_slots):
-            if not self.active[slot]:
-                continue
-            self.pos[slot] += 1
-            req = self.slot_req[slot]
-            pend = self.pending[slot]
-            out_of_room = int(self.pos[slot]) >= self.scfg.max_len - 1
-            if pend is not None and pend.size:
-                # still consuming the prompt: teacher-force the next
-                # prompt token, discard the sampled one
-                self.tokens[slot, 0] = int(pend[0])
-                self.pending[slot] = pend[1:]
-                if out_of_room:
+        with self._span("retire"):
+            for slot in range(self.scfg.max_slots):
+                if not self.active[slot]:
+                    continue
+                self.pos[slot] += 1
+                req = self.slot_req[slot]
+                pend = self.pending[slot]
+                out_of_room = int(self.pos[slot]) >= self.scfg.max_len - 1
+                if pend is not None and pend.size:
+                    # still consuming the prompt: teacher-force the next
+                    # prompt token, discard the sampled one
+                    self._revent(req, "prefill_chunk", slot=slot, n=1)
+                    self.tokens[slot, 0] = int(pend[0])
+                    self.pending[slot] = pend[1:]
+                    if out_of_room:
+                        self._finish(slot, req)
+                    continue
+                if pend is not None:
+                    # the wave that consumed the last prompt token
+                    self._revent(req, "prompt_done", slot=slot)
+                self.pending[slot] = None
+                tok = int(nxt_host[slot])
+                self.tokens[slot, 0] = tok
+                req.generated.append(tok)
+                self._rtokens(req, slot, 1)
+                hit_eos = self.scfg.eos_id >= 0 and tok == self.scfg.eos_id
+                if (len(req.generated) >= req.max_new_tokens or hit_eos
+                        or out_of_room):
                     self._finish(slot, req)
-                continue
-            self.pending[slot] = None
-            tok = int(nxt_host[slot])
-            self.tokens[slot, 0] = tok
-            req.generated.append(tok)
-            hit_eos = self.scfg.eos_id >= 0 and tok == self.scfg.eos_id
-            if (len(req.generated) >= req.max_new_tokens or hit_eos
-                    or out_of_room):
-                self._finish(slot, req)
-        self._publish_frontiers()
+        with self._span("publish"):
+            self._publish_frontiers()
         self.steps += 1
         self.decode_waves += 1
         return n_active
@@ -1160,6 +1203,7 @@ class EdgeServingEngine:
         finish on budget, EOS or the ``max_len`` wall."""
         self.tokens[s, 0] = tok
         req.generated.append(tok)
+        self._rtokens(req, s, 1)
         eos = self.scfg.eos_id
         if (len(req.generated) >= req.max_new_tokens
                 or (eos >= 0 and tok == eos)
@@ -1180,26 +1224,27 @@ class EdgeServingEngine:
         B, K = self.scfg.max_slots, self.K
         gamma = self.scfg.spec_gamma
         eos = self.scfg.eos_id
-        plan: dict[int, tuple] = {}
-        for s in range(B):
-            if not self.active[s]:
-                continue
-            pend = self.pending[s]
-            npend = 0 if pend is None else int(pend.size)
-            room = self.scfg.max_len - 1 - int(self.pos[s])
-            if npend:
-                plan[s] = ("catch", max(1, min(1 + npend, K, room)))
-            elif self.spec is not None and min(gamma, room) >= 2:
-                plan[s] = ("spec", min(gamma, room))
-            else:
-                plan[s] = ("plain", 1)
-        plan = self._apply_budget(plan)
-        if self.paged:
-            spans = {s: v for s, (_, v) in plan.items()}
-            self._ensure_blocks(spans)
-            self._cow_guard(spans)
-            plan = {s: p for s, p in plan.items() if self.active[s]}
-        self._record_plan(plan)
+        with self._span("plan"):
+            plan: dict[int, tuple] = {}
+            for s in range(B):
+                if not self.active[s]:
+                    continue
+                pend = self.pending[s]
+                npend = 0 if pend is None else int(pend.size)
+                room = self.scfg.max_len - 1 - int(self.pos[s])
+                if npend:
+                    plan[s] = ("catch", max(1, min(1 + npend, K, room)))
+                elif self.spec is not None and min(gamma, room) >= 2:
+                    plan[s] = ("spec", min(gamma, room))
+                else:
+                    plan[s] = ("plain", 1)
+            plan = self._apply_budget(plan)
+            if self.paged:
+                spans = {s: v for s, (_, v) in plan.items()}
+                self._ensure_blocks(spans)
+                self._cow_guard(spans)
+                plan = {s: p for s, p in plan.items() if self.active[s]}
+            self._record_plan(plan)
         n_active = int(self.active.sum())
         if n_active == 0:
             return 0
@@ -1215,9 +1260,10 @@ class EdgeServingEngine:
             # budget-shrunk round must not burn draft steps it cannot
             # verify
             k_spec = max(v for m, v in plan.values() if m == "spec")
-            proposals, dists = self.spec.propose(
-                spec_slots, self.tokens[:, 0], self.temps, self.topks,
-                k_spec, self._rng)
+            with self._span("draft", slots=len(spec_slots), width=k_spec):
+                proposals, dists = self.spec.propose(
+                    spec_slots, self.tokens[:, 0], self.temps, self.topks,
+                    k_spec, self._rng)
 
         fed = np.zeros((B, K), np.int32)
         valid = np.ones((B,), np.int32)
@@ -1233,11 +1279,15 @@ class EdgeServingEngine:
 
         # all-greedy waves bring only the (B, K) argmax ids to the host
         need_logits = bool((self.temps[self.active] > 0).any())
-        fed_t, pos_t, valid_t = self._device_tensors(fed, self.pos, valid)
-        tables = (self._device_tensors(self.block_tables)[0] if self.paged
-                  else None)
-        greedy, logits = self._extend_fn(fed_t, pos_t, valid_t, tables,
-                                         need_logits=need_logits)
+        with self._span("dispatch", mode="extend", rows=n_active,
+                        fed_tokens=int(sum(v for _, v in plan.values()))):
+            fed_t, pos_t, valid_t = self._device_tensors(fed, self.pos,
+                                                         valid)
+            tables = (self._device_tensors(self.block_tables)[0]
+                      if self.paged else None)
+            greedy, logits = self._extend_fn(fed_t, pos_t, valid_t, tables,
+                                             need_logits=need_logits)
+        self._fence("sync")
         greedy = greedy.cpu().numpy()                        # (B, K)
         logits = logits.cpu().numpy() if need_logits else None
 
@@ -1248,65 +1298,72 @@ class EdgeServingEngine:
                                       self._rng)
 
         any_spec = False
-        for s in range(B):
-            if s not in plan or not self.active[s]:
-                continue
-            mode, v = plan[s]
-            req = self.slot_req[s]
-            temp, top_k = float(self.temps[s]), int(self.topks[s])
-            if mode == "catch":
-                self.pos[s] += v
-                rest = self.pending[s][v - 1:]
-                if rest.size:
-                    self.tokens[s, 0] = int(rest[0])
-                    self.pending[s] = rest[1:]
-                    if int(self.pos[s]) >= self.scfg.max_len - 1:
-                        self._finish(s, req)
+        with self._span("retire"):
+            for s in range(B):
+                if s not in plan or not self.active[s]:
                     continue
-                self.pending[s] = None
-                self._retire(s, req, sample(s, v - 1, temp, top_k))
-                continue
-            if mode == "plain":
-                self.pos[s] += 1
-                self._retire(s, req, sample(s, 0, temp, top_k))
-                continue
-            # speculative round
-            any_spec = True
-            if temp <= 0:
-                n_acc, emitted = accept_greedy(proposals[s][:v - 1],
-                                               greedy[s, :v])
-            else:
-                n_acc, emitted = accept_proposals(
-                    proposals[s][:v - 1], dists[s][:v - 1],
-                    logits[s, :v], temp, top_k, self._rng)
-            self.spec.advance(s, n_acc + 1)
-            self.spec_rounds += 1
-            self.spec_proposed += v - 1
-            self.spec_accepted += n_acc
-            # acceptance by draft depth (registry counters)
-            for j in range(v - 1):
-                self.metrics.counter(f"spec.depth{j}.proposed").inc()
-            for j in range(n_acc):
-                self.metrics.counter(f"spec.depth{j}.accepted").inc()
-            # budget / EOS truncation (both finish the request)
-            emit = emitted[:req.max_new_tokens - len(req.generated)]
-            if eos >= 0 and eos in emit:
-                emit = emit[:emit.index(eos) + 1]
-            req.generated.extend(emit)
-            self.spec_emitted += len(emit)
-            # frontier: every emitted token but a final correction/bonus
-            # was fed (and written) this wave
-            self.pos[s] += min(len(emit) + 1, n_acc + 1)
-            if (len(req.generated) >= req.max_new_tokens
-                    or (eos >= 0 and emit and emit[-1] == eos)
-                    or int(self.pos[s]) >= self.scfg.max_len - 1):
-                self._finish(s, req)
-            else:
-                self.tokens[s, 0] = emit[-1]
-                self._truncate_slot(s)   # rejected-tail pages back
+                mode, v = plan[s]
+                req = self.slot_req[s]
+                temp, top_k = float(self.temps[s]), int(self.topks[s])
+                if mode == "catch":
+                    self._revent(req, "prefill_chunk", slot=s, n=v)
+                    self.pos[s] += v
+                    rest = self.pending[s][v - 1:]
+                    if rest.size:
+                        self.tokens[s, 0] = int(rest[0])
+                        self.pending[s] = rest[1:]
+                        if int(self.pos[s]) >= self.scfg.max_len - 1:
+                            self._finish(s, req)
+                        continue
+                    self._revent(req, "prompt_done", slot=s)
+                    self.pending[s] = None
+                    self._retire(s, req, sample(s, v - 1, temp, top_k))
+                    continue
+                if mode == "plain":
+                    self.pos[s] += 1
+                    self._retire(s, req, sample(s, 0, temp, top_k))
+                    continue
+                # speculative round
+                any_spec = True
+                if temp <= 0:
+                    n_acc, emitted = accept_greedy(proposals[s][:v - 1],
+                                                   greedy[s, :v])
+                else:
+                    n_acc, emitted = accept_proposals(
+                        proposals[s][:v - 1], dists[s][:v - 1],
+                        logits[s, :v], temp, top_k, self._rng)
+                self.spec.advance(s, n_acc + 1)
+                self.spec_rounds += 1
+                self.spec_proposed += v - 1
+                self.spec_accepted += n_acc
+                # acceptance by draft depth (registry counters)
+                for j in range(v - 1):
+                    self.metrics.counter(f"spec.depth{j}.proposed").inc()
+                for j in range(n_acc):
+                    self.metrics.counter(f"spec.depth{j}.accepted").inc()
+                self._revent(req, "spec_round", slot=s, proposed=v - 1,
+                             accepted=n_acc)
+                # budget / EOS truncation (both finish the request)
+                emit = emitted[:req.max_new_tokens - len(req.generated)]
+                if eos >= 0 and eos in emit:
+                    emit = emit[:emit.index(eos) + 1]
+                req.generated.extend(emit)
+                self.spec_emitted += len(emit)
+                self._rtokens(req, s, len(emit))
+                # frontier: every emitted token but a final
+                # correction/bonus was fed (and written) this wave
+                self.pos[s] += min(len(emit) + 1, n_acc + 1)
+                if (len(req.generated) >= req.max_new_tokens
+                        or (eos >= 0 and emit and emit[-1] == eos)
+                        or int(self.pos[s]) >= self.scfg.max_len - 1):
+                    self._finish(s, req)
+                else:
+                    self.tokens[s, 0] = emit[-1]
+                    self._truncate_slot(s)   # rejected-tail pages back
         if any_spec:
             self.spec_steps += 1
-        self._publish_frontiers()
+        with self._span("publish"):
+            self._publish_frontiers()
         self.steps += 1
         self.extend_waves += 1
         return n_active
@@ -1357,6 +1414,8 @@ class EdgeServingEngine:
         self.pool.free(list(leftovers) + list(blocks[nb:]))
 
     def _finish(self, slot: int, req: Request) -> None:
+        self._revent(req, "finish", slot=slot,
+                     n_generated=len(req.generated))
         req.done = True
         self.completed.append(req)
         self._release_slot(slot)
@@ -1367,6 +1426,7 @@ class EdgeServingEngine:
         sampled token was never fed back) — and retire as a chain into
         the radix cache (``_retire_chain``; freed without it)."""
         req = self.slot_req[slot]
+        self._slot_end(slot)
         self.active[slot] = False
         self.slot_req[slot] = None
         self.pending[slot] = None
@@ -1593,12 +1653,66 @@ class EdgeServingEngine:
         return {key: self.metrics.get(name)
                 for key, name in self._legacy_stats.items()}
 
-    # ------------------------------------------------------------------
+    def _span(self, name: str, **args):
+        """Engine-phase span when tracing; a no-op context otherwise (the
+        untraced step is the same code)."""
+        if self.tracer is None:
+            return nullcontext()
+        return self.tracer.span(name, **args)
+
+    def _fence(self, name: str) -> None:
+        """Traced only: wait for the device's queued work in a span of
+        its own, so a step's device time shows apart from its host
+        dispatch and retire.  Value-neutral: the host copy right after
+        waits for the same work.  Empty on a CPU engine."""
+        if self.tracer is None:
+            return
+        with self.tracer.span(name):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _revent(self, req: Request, name: str, slot: Optional[int] = None,
+                **args) -> None:
+        """Per-request lifecycle event (no-op untraced), mirrored onto
+        the slot's track when resident, the frontend track otherwise."""
+        if self.tracer is not None:
+            self.tracer.req_event(
+                req.uid, name,
+                tid=None if slot is None else SLOT_TID0 + slot, **args)
+
+    def _rtokens(self, req: Request, slot: int, n: int) -> None:
+        """Token-retirement stamps, after ``n`` tokens were appended to
+        ``req.generated``: ``first_token`` closes the TTFT decomposition,
+        ``tokens`` feeds the per-request inter-token series."""
+        if self.tracer is None or n <= 0:
+            return
+        if len(req.generated) == n:
+            self._revent(req, "first_token", slot=slot)
+        self._revent(req, "tokens", slot=slot, n=n)
+
+    def _slot_begin(self, req: Request, slot: int) -> None:
+        """Open the slot-residency span on the slot's track."""
+        if self.tracer is not None:
+            tid = SLOT_TID0 + slot
+            self.tracer.name_track(tid, f"slot{slot}")
+            self.tracer.begin(f"u{req.uid}", tid, uid=req.uid)
+
+    def _slot_end(self, slot: int) -> None:
+        if self.tracer is not None:
+            self.tracer.end(SLOT_TID0 + slot)
+
     def dump_chrome_trace(self, path: str) -> dict:
-        """The tracer's Perfetto dump: not ported yet (A.8)."""
-        raise NotImplementedError(
-            "EdgeServingEngine.dump_chrome_trace: the tracer is not "
-            "ported to repro_torch yet (ROADMAP A.8 (tracer))")
+        """Write the tracer's Perfetto / chrome://tracing JSON to
+        ``path`` (engine phases on one track, one track per slot, a
+        ``request_summary`` instant per request with its TTFT
+        decomposition).  Requires ``ServeConfig.trace=True``."""
+        if self.tracer is None:
+            raise ValueError(
+                "tracing is off — construct the engine with "
+                "ServeConfig(trace=True) to record a trace")
+        return self.tracer.dump_chrome_trace(path)
+
+    # ------------------------------------------------------------------
 
     def cancel(self, uid: int) -> bool:
         """Abort a request — queued, preempted-and-detached, mid-catch-up
@@ -1633,6 +1747,7 @@ class EdgeServingEngine:
         return False
 
     def _mark_cancelled(self, req: Request) -> None:
+        self._revent(req, "cancel", n_generated=len(req.generated))
         req.done = True
         req.cancelled = True
         self.cancelled.append(req)
@@ -1651,6 +1766,8 @@ class EdgeServingEngine:
         req = self.slot_req[slot]
         if req is None:
             return None
+        self._revent(req, "preempt", slot=slot)
+        self._slot_end(slot)
         req.saved_state = {
             "cache": extract_slot(self.cache, slot, self.axes),
             "pos": int(self.pos[slot]),

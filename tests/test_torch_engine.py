@@ -29,7 +29,6 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.models import model as M
 from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
-from repro_torch.serving.engine import _NOT_PORTED
 
 ARCH = "phi3-medium-14b"
 BASE = dict(max_slots=3, max_len=96, prefill_buckets=(8, 16, 32), seed=3,
@@ -235,24 +234,21 @@ def test_params_on_another_device_raise(models):
 _ON = {"paged": False, "prefix_cache": True, "prefix_persist_path": "x.npz",
        "min_match_tokens": 20, "trace": True, "trace_clock": lambda: 0.0}
 # the fields this test has covered since the engine was first ported:
-# the tracer's still raise, the others are ported and must work
+# every one is ported now and must work
 _FIELDS = ("min_match_tokens", "paged", "prefix_cache",
            "prefix_persist_path", "trace", "trace_clock")
 
 
 @pytest.mark.parametrize("field", _FIELDS)
 def test_unported_serve_config_fields_raise(field, models, tmp_path):
-    """A field still in ``_NOT_PORTED`` (the tracer, A.8) raises in
-    ``ServeConfig``; a field ported since works on the paged phi3
-    engine: ``paged=False`` serves the dense twin, ``prefix_cache`` arms
-    the radix cache (a hit on the matrix traffic), ``min_match_tokens``
-    turns a match shorter than it into a miss, and
+    """Each field, ported since the engine was first ported, works on
+    the paged phi3 engine: ``paged=False`` serves the dense twin,
+    ``prefix_cache`` arms the radix cache (a hit on the matrix traffic),
+    ``min_match_tokens`` turns a match shorter than it into a miss,
     ``prefix_persist_path`` writes a store on ``close()`` that a new
-    engine reads back."""
-    if field in _NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServeConfig(**{"prefix_cache": False, field: _ON[field]})
-        return
+    engine reads back, ``trace`` records a valid trace with one summary
+    per request, and ``trace_clock`` stamps it (a clock stuck at 0:
+    every stamp 0)."""
     _, _, cfg, params = models
     value = (str(tmp_path / "store.npz") if field == "prefix_persist_path"
              else _ON[field])
@@ -262,6 +258,21 @@ def test_unported_serve_config_fields_raise(field, models, tmp_path):
     st = eng.stats()
     if field == "paged":
         assert not eng.paged and eng.prefix_cache is None
+        return
+    if field in ("trace", "trace_clock"):
+        from repro_torch.serving.telemetry import validate_chrome_trace
+        assert (eng.tracer is not None) == (field == "trace")
+        if field == "trace_clock":
+            # the clock alone records nothing: tracing is off
+            with pytest.raises(ValueError, match="tracing is off"):
+                eng.dump_chrome_trace(str(tmp_path / "t.json"))
+            eng = EdgeServingEngine(cfg, params, ServeConfig(
+                **dict(kw, trace=True)), device="cpu")
+            _drain(eng, _traffic(Request, cfg.vocab_size))
+            assert {e["ts"] for e in eng.tracer.chrome_events()} == {0.0}
+        events = eng.tracer.chrome_events()
+        assert validate_chrome_trace(events) == []
+        assert len(eng.tracer.request_summaries()) == 7
         return
     assert eng.sharable
     if field == "min_match_tokens":

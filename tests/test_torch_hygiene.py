@@ -183,3 +183,24 @@ def test_public_names_are_ported_or_name_their_item(jax_name):
             missing += [f"{name}.{a}" for a in vars(theirs)
                         if not a.startswith("_") and not hasattr(obj, a)]
     assert missing == [], f"{port_name} lacks {missing}"
+
+
+def test_tracer_and_frontend_are_ported():
+    """A.8's tracer and frontend are the port's own: no stand-in of
+    ``unported.not_ported`` among them, the tracer's ``ServeConfig``
+    fields construct, and no source of the port cites A.8 as unported."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import EdgeServingEngine, ServeConfig, telemetry
+    names = {"Tracer": telemetry.Tracer,
+             "validate_chrome_trace": telemetry.validate_chrome_trace,
+             "summarize_trace": telemetry.summarize_trace,
+             "dump_chrome_trace": EdgeServingEngine.dump_chrome_trace,
+             "AsyncServingFrontend": serve.AsyncServingFrontend,
+             "StreamHandle": serve.StreamHandle}
+    stubs = [n for n, obj in names.items()
+             if getattr(obj, "roadmap_item", None) is not None]
+    assert stubs == []
+    assert ServeConfig(trace=True, trace_clock=lambda: 0.0).trace
+    cites = [str(p.relative_to(ROOT)) for p in SOURCES
+             if "A.8" in p.read_text()]
+    assert cites == []
