@@ -18,8 +18,11 @@ non-zero without printing a result:
               and under bf16 queries (the pair int8 serving runs),
               softcap 0 and 50 (at scale 1, where it binds), ragged
               lengths, -1 table entries, an empty row (decode) and a
-              row at pos 0 (extend); lengths and pos on the split plan's
-              boundaries, one page short of them and with a -1 hole
+              row at pos 0 (extend); granite-moe-1b-a400m's served
+              decode shape (H=16, K=8, hd=64, 128-page tables; bf16 and
+              int8 pages, each timed) and its int8 catch-up widths
+              (S = 16 and 64, held and timed); lengths and pos on the
+              split plan's boundaries, one page short of them and with a -1 hole
               that empties a split, two calls bitwise equal, and a
               plain merge without the last split's partial shown to
               fall outside the tolerance; gemma3-1b's global-layer shape
@@ -224,11 +227,51 @@ non-zero without printing a result:
               path at float32: logits, mamba states and ring K/V within
               the stated share of their max, greedy tokens equal; one
               bf16 prefill of each timed.
-22. reference_gemma — the gemma3-1b smoke config at float32 (window
+22. serve_moe — the ninth main path: granite-moe-1b-a400m at full width
+              and depth (24 layers of 32 experts, top 8, expert d_ff
+              512, 16 heads over 8 kv heads of 64; bf16, ~2.67 GB)
+              through ``launch.serve.build_engine`` on a bf16 pool at
+              ``serve_gemma``'s settings and traffic (4 slots, max_len
+              2048, buckets to 512, catch-up chunk 16, 8 requests of
+              16-1000 prompt tokens x 32 new): ``paged_attention`` ==
+              24 x decode waves, nothing through the extend kernel.
+              Times and profiles one 4-slot decode wave beside its bound
+              (every expert's weights and the wave's pages).  Then
+              ``launch.serve.main`` at its defaults for granite at full
+              size: its line, and decode reads through the kernel.
+23. serve_moe_int8 — the same weights and traffic on an int8 pool:
+              ``paged_attention`` == 24 x decode waves,
+              ``paged_extend_attention`` == 24 x extend waves; every
+              layer's kernel read against the gather read on identical
+              inputs (``_layerwise_blocks`` over ``model.paged_layers``)
+              for a decode and a 16-token extend wave; tokens reported
+              against ``serve_moe``'s by the int8 gate.
+24. serve_moe_shared — granite at ``ServeConfig``'s defaults, max_len
+              512, the hand-written reads, ``serve_shared``'s household
+              traffic: 7 hits and 1470 hit tokens, ``paged_attention``
+              == 24 x decode waves, no page leaked; hit rows' tokens
+              reported against a cold engine (capacity follows the
+              suffix's shape, so they may differ).
+25. model_moe — on ``serve_moe``'s pool: one 4-slot decode wave through
+              the kernel and the gather read (greedy tokens equal,
+              logits within BF16_REL_TOL of max |logit|); the first moe
+              layer's routing on the card against the CPU in float32 on
+              its normed input of a 4 x 512 batch (experts, positions and
+              kept pairs equal but at counted near-ties, outputs of rows
+              routed alike within the float32 tolerance); the share of
+              real (token, choice) pairs dropped at a decode wave
+              (capacity 2), a 16-token catch-up wave (20) and the
+              4 x 512 prefill (640).
+26. reference_moe — the granite and kimi-k2 smoke configs at float32 and
+              capacity factor 1.25 (pairs drop), traffic whose slots go
+              idle mid-run and whose long prompts catch up: card tokens
+              equal the CPU's on a float pool and meet the int8 gate on
+              an int8 pool, both kernels launched.
+27. reference_gemma — the gemma3-1b smoke config at float32 (window
               16), prompts of 20-150 tokens: the engine on the card and on
               the CPU emit the same greedy tokens on a float pool and
               meet the int8 gate on an int8 pool, both kernels launched.
-23. reference — the phi3 smoke config at float32: the engine on the card
+28. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -244,7 +287,7 @@ non-zero without printing a result:
               gemma3-1b smoke config (8 layers) at float32: the card's
               ``loss_fn(use_flash=True)`` within 1e-5 of the CPU's, two
               train steps' losses and gradient norms within 1e-4.
-24. reference_shared — the phi3 smoke config at float32 over
+29. reference_shared — the phi3 smoke config at float32 over
               ``tests/test_engine_matrix.py``'s traffic (copied): the dense
               twin, the prefix-cache engine with the hand-written reads
               and the same speculating on the card, and the prefix-cache
@@ -419,9 +462,14 @@ INT8_LCP_SHARE = 0.6
 EXTEND_WIDTHS = (("gemma3", dict(H=4, K=1, hd=256, n_blk=128),
                   (16, 21, 22, 64, 512)),
                  ("phi3", dict(n_blk=32), (41, 64)),
+                 ("granite-moe", dict(H=16, K=8, hd=64, n_blk=128),
+                  (16, 64)),
                  ("tile+1", dict(H=4, K=4, hd=128, n_blk=16), (65,)),
                  ("tile+4", dict(H=8, K=2, hd=64, n_blk=16), (17,)))
 EXTEND_TIMED_GEMMA = (64, 512)
+# granite-moe-1b-a400m's served int8 catch-up waves (16 query heads over
+# 8 kv heads of 64, 128-page tables), timed at these chunk widths
+EXTEND_TIMED_MOE = (16, 64)
 # a short gemma3-1b int8 drive whose catch-up waves send 64 tokens a slot
 # through the extend read, held to the gather read by the int8 gate
 GEMMA_WIDE_SERVE = dict(GEMMA_SERVE, catch_chunk=64)
@@ -445,6 +493,19 @@ SHARED_SERVE = dict(max_len=512, use_pallas_paged=True)
 SHARED_SYS, SHARED_PERSONA, SHARED_TAIL = 205, 5, (8, 200)
 SHARED_USERS, SHARED_NEW = 8, 32
 SHARED_STORE = ROOT / "build" / "serve_shared_store.npz"
+# the ninth path: granite-moe-1b-a400m (24 layers of 32 experts, top 8,
+# capacity factor 1.25) at GEMMA_SERVE's settings and traffic: prompts
+# past the largest bucket (512) catch up in 16-token extend waves.  A
+# 4-slot decode wave grants each expert ceil(4 * 8 * 1.25 / 32) = 2 rows
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_SERVE = dict(GEMMA_SERVE)
+MOE_TRAFFIC = GEMMA_TRAFFIC
+MOE_CLI_ARGV = ("--arch", MOE_ARCH, "--scale", "full")
+# the routing check's admission batch (rows, bucket), and the distance
+# of two sorted router logits below which the card and the CPU may order
+# them differently (float32 sums in another order)
+MOE_ROUTE_ROWS = (4, 512)
+ROUTER_NEAR_TIE = 1e-4
 
 
 def emit(phase: str, **fields) -> None:
@@ -667,55 +728,68 @@ def _decode_plans(torch, pa, q, kp, bt, dev):
 
 
 def _decode_times(torch, pa, ref, timer, q, kp, vp, bt, ln, scale,
-                  dev="cuda"):
+                  dev="cuda", scales=None):
     """Device ms of the kernel (and of its CUDA-core instantiation where
     it runs on the tensor cores, held to the same tolerance), its plain
     version and SDPA (over K/V gathered inside the timed call, and over
-    K/V gathered beforehand) on a layer-deep pool cycled per call, and
-    the bound."""
+    K/V gathered beforehand; on int8 pages, with ``scales`` (L, nB, bs,
+    K) per pool, gathered and dequantized) on a layer-deep pool cycled
+    per call, and the bound."""
     import torch.nn.functional as F
     L = kp.shape[0]
     B, H, hd = q.shape
     K, bs = kp.shape[-2], kp.shape[2]
+    scales = scales or {}
+
+    def sc(i):
+        return {k: v[i % L] for k, v in scales.items()}
     ms = timer(torch, lambda i: pa.paged_attention(
-        q, kp[i % L], vp[i % L], bt, ln, scale=scale))
+        q, kp[i % L], vp[i % L], bt, ln, scale=scale, **sc(i)))
     plan, cores = _decode_plans(torch, pa, q, kp[0], bt, dev)
     cuda_cores_ms = None
     if cores is not None:
         got = pa.paged_attention(q, kp[0], vp[0], bt, ln, scale=scale,
-                                 plan=cores).float()
+                                 plan=cores, **sc(0)).float()
         exp = ref.paged_attention_ref(q.float(), kp[0], vp[0], bt, ln,
-                                      scale=scale)
+                                      scale=scale, **sc(0))
         if not torch.allclose(got, exp, **TOL["bfloat16"]):
             raise AssertionError("paged_attention on the CUDA cores: max "
                                  f"abs err {float((got - exp).abs().max())}")
         cuda_cores_ms = timer(torch, lambda i: pa.paged_attention(
-            q, kp[i % L], vp[i % L], bt, ln, scale=scale, plan=cores))
+            q, kp[i % L], vp[i % L], bt, ln, scale=scale, plan=cores,
+            **sc(i)))
     plain_ms = timer(torch, lambda i: ref.paged_attention_ref(
-        q, kp[i % L], vp[i % L], bt, ln, scale=scale), iters=20, warmup=3)
+        q, kp[i % L], vp[i % L], bt, ln, scale=scale, **sc(i)), iters=20,
+        warmup=3)
     btc = bt.clamp(min=0).long()
     t = torch.arange(bt.shape[1] * bs, device=q.device)
     mask = ((t[None, :] < ln[:, None])
             & torch.repeat_interleave(bt >= 0, bs, dim=1))[:, None, None, :]
     q4 = q[:, :, None, :]
 
-    def gathered(x):
-        return x[btc].reshape(B, -1, K, hd).transpose(1, 2)
+    def gathered(x, s=None):
+        g = x[btc]
+        if s is not None:
+            g = (g.float() * s[btc][..., None]).to(q.dtype)
+        return g.reshape(B, -1, K, hd).transpose(1, 2)
 
     def library(l):
         return F.scaled_dot_product_attention(
-            q4, gathered(kp[l]), gathered(vp[l]), attn_mask=mask,
-            scale=scale, enable_gqa=True)
+            q4, gathered(kp[l], scales.get("k_scale", [None] * L)[l]),
+            gathered(vp[l], scales.get("v_scale", [None] * L)[l]),
+            attn_mask=mask, scale=scale, enable_gqa=True)
     lib_err = float((library(0)[:, :, 0].float() - ref.paged_attention_ref(
-        q, kp[0], vp[0], bt, ln, scale=scale).float()).abs().max())
+        q, kp[0], vp[0], bt, ln, scale=scale, **sc(0)).float()).abs().max())
     library_ms = timer(torch, lambda i: library(i % L))
-    kg = [gathered(kp[l]).contiguous() for l in range(L)]
-    vg = [gathered(vp[l]).contiguous() for l in range(L)]
+    kg = [gathered(kp[l], scales.get("k_scale", [None] * L)[l]).contiguous()
+          for l in range(L)]
+    vg = [gathered(vp[l], scales.get("v_scale", [None] * L)[l]).contiguous()
+          for l in range(L)]
     pregathered_ms = timer(torch, lambda i: F.scaled_dot_product_attention(
         q4, kg[i % L], vg[i % L], attn_mask=mask, scale=scale,
         enable_gqa=True))
     del kg, vg
-    bound_ms, bound_by = _bound(torch, q, kp[0], bt, ln, {})
+    bound_ms, bound_by = _bound(torch, q, kp[0], bt, ln, sc(0))
     return {"ms": ms, "cuda_cores_ms": cuda_cores_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library_ms_gather_excluded": pregathered_ms,
@@ -835,6 +909,27 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
          scale=256 ** -0.5, **{k: v[0] for k, v in sc.items()})
     del q, kp, vp
 
+    # granite-moe-1b-a400m's served decode waves: 16 query heads over 8
+    # kv heads of 64 (G = 2), 128-page tables (max_len 2048) at its
+    # traffic's lengths (prompts 16-1000 plus 32 new tokens); bf16 pages
+    # and int8 pages under bf16 queries, each held and timed (24 pools,
+    # one a layer, cycled)
+    moe_shape = dict(B=4, H=16, K=8, hd=64, n_blk=128)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    moe_len = torch.randint(17, 1000 + 32 + 1, (4,), generator=g)
+    timed_moe = {}
+    for pages in (torch.bfloat16, torch.int8):
+        q, kp, vp, bt, ln, sc = _paged_inputs(torch, pages,
+                                              q_dtype=torch.bfloat16,
+                                              layers=24, lengths=moe_len,
+                                              seed=36, dev=dev, **moe_shape)
+        name = str(pages).replace("torch.", "")
+        held("bfloat16", f"granite-moe served {name}", q, kp[0], vp[0], bt,
+             ln, scale=64 ** -0.5, **{k: v[0] for k, v in sc.items()})
+        timed_moe[name] = _decode_times(torch, pa, ref, timer, q, kp, vp, bt,
+                                        ln, 64 ** -0.5, dev, scales=sc)
+        del q, kp, vp, sc
+
     # 4 rows of 4096 tokens (phi3-medium-4k's window), 8 pools (670 MB)
     q, kp, vp, bt, ln, _ = _paged_inputs(torch, torch.bfloat16, layers=8,
                                          n_blk=256, lengths=[4096] * 4,
@@ -869,7 +964,8 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
         "plan_serve": plan._asdict(),
         "broken_merge_without_last_split_err": boundary,
         "timed": {"serve": row, "long": timed_long, "gemma3": timed_gemma,
-                  "gemma3_served": timed_served},
+                  "gemma3_served": timed_served,
+                  "granite_moe_served": timed_moe},
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
         "over K/V gathered inside the timed call (library_ms); "
         "library_ms_gather_excluded gathers beforehand",
@@ -1136,6 +1232,18 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
                                              256 ** -0.5)
         worst = max(worst, timed_wide[f"S={S}"]["kernel_max_abs_err"])
         del args
+    # granite-moe-1b-a400m's served int8 catch-up waves past the largest
+    # bucket (512), 24 pools cycled
+    timed_moe = {}
+    for S in EXTEND_TIMED_MOE:
+        mpos = torch.randint(512, 2048 - S + 1, (4,), generator=g)
+        args = _extend_inputs(torch, torch.int8, q_dtype=torch.bfloat16,
+                              layers=24, S=S, H=16, K=8, hd=64, n_blk=128,
+                              pos=mpos, seed=50 + S, dev=dev)
+        timed_moe[f"S={S}"] = _extend_times(torch, pea, ref, timer, *args,
+                                            64 ** -0.5)
+        worst = max(worst, timed_moe[f"S={S}"]["kernel_max_abs_err"])
+        del args
     return {
         "name": "paged_extend_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_extend_attention.cu",
@@ -1147,6 +1255,7 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
         "timed_pos": row["pos"], "timed_S": S,
         "timed_kernel_max_abs_err_bf16": row["kernel_max_abs_err"],
         "timed_gemma3": timed_gemma, "timed_gemma3_wide": timed_wide,
+        "timed_granite_moe": timed_moe,
         "widths": widths,
         "library_call": "gather + dequantize, then "
         "F.scaled_dot_product_attention(enable_gqa=True) with a boolean "
@@ -2166,10 +2275,14 @@ def _check_pool(eng, phase: str) -> None:
 
 
 def _pool(eng) -> dict:
-    """The engine's page pool: every layer's on a uniform trunk, the
-    global layers' on a local:global pattern."""
+    """The engine's page pool: every layer's on a uniform trunk, the moe
+    layers' on a moe trunk, the global layers' on a local:global
+    pattern."""
     cache = eng.cache
-    return cache["layers"] if "layers" in cache else cache["super"]["global"]
+    for key in ("layers", "moe_layers"):
+        if key in cache:
+            return cache[key]
+    return cache["super"]["global"]
 
 
 def _device_profile(torch, fn) -> dict:
@@ -2281,10 +2394,10 @@ def _layerwise_blocks(torch, cfg, params, cache, tokens, block):
     summation order only.  Returns the largest per-layer max |kernel -
     gather| and whether every layer's pair is within TOL["float32"]."""
     from repro_torch.models import layers as L
-    from repro_torch.models import transformer as T
+    from repro_torch.models import model as M
     x = L.embed(cfg, params["embed"], tokens)
     worst, ok = 0.0, True
-    for lp, pool in T.paged_layers(cfg, params, cache):
+    for lp, pool in M.paged_layers(cfg, params, cache):
         shadow = {k: v.clone() for k, v in pool.items()}
         ker, _ = block(lp, x, shadow, True)
         x, _ = block(lp, x, pool, False)
@@ -3285,6 +3398,449 @@ def reference_shared(torch, M, get_smoke_config, kernels, dev="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# the ninth path: the moe family (granite-moe-1b-a400m)
+# ---------------------------------------------------------------------------
+
+def _moe_block(cfg, pos, bt, S):
+    """One layer of a moe cache's walk (``model.paged_layers``) as
+    ``_layerwise_blocks`` calls it: a dense first layer through the
+    transformer's block, a moe layer through moe's; a decode wave
+    (``S`` None) or an extend wave of S tokens."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+
+    def block(lp, x, pool, k):
+        if S is None:
+            fn = (moe.moe_block_decode_paged if "moe" in lp
+                  else T.block_decode_paged)
+            return fn(cfg, lp, x, pool, pos, bt, k)
+        fn = (moe.moe_block_extend_paged if "moe" in lp
+              else T.block_extend_paged)
+        return fn(cfg, lp, x, pos, pool, bt, None, use_pallas=k)
+    return block
+
+
+def _moe_wave_bound(torch, eng, lengths) -> dict:
+    """Least time of one decode wave of ``len(lengths)`` rows: every
+    weight read once (all experts: each runs on its capacity of rows
+    whether or not a row chose it; the tied embedding table as the
+    unembedding), each row's K/V pages below its position read once,
+    against the wave's operations at the bf16 rate."""
+    cfg = eng.cfg
+
+    def nbytes(node):
+        if isinstance(node, dict):
+            return sum(nbytes(v) for v in node.values())
+        return node.numel() * node.element_size()
+    weight = nbytes(eng.params)
+    experts = nbytes({k: eng.params["moe_layers"]["moe"][k]
+                      for k in ("w_gate", "w_up", "w_down")})
+    pool = _pool(eng)
+    kv = sum(lengths) * cfg.num_layers * 2 * cfg.num_kv_heads \
+        * cfg.head_dim * pool["k"].element_size()
+    from repro_torch.models import moe
+    c = moe.capacity(cfg, len(lengths))
+    ops = 2 * (cfg.num_layers - cfg.first_dense_layers) * cfg.num_experts \
+        * c * 3 * cfg.d_model * cfg.moe_d_ff \
+        + 2 * cfg.active_param_count() * len(lengths)
+    ms, by = _roofline(weight + kv, ops, "bfloat16")
+    return {"bound_ms": ms, "bound_by": by, "weight_bytes": weight,
+            "expert_weight_bytes": experts,
+            "expert_bytes_ms": experts / HBM_BYTES_PER_S * 1e3,
+            "kv_bytes": kv, "capacity": c}
+
+
+def _moe_drive(torch, kernels, serve, M, eng, cfg, int8: bool, dev):
+    """Serve MOE_TRAFFIC through ``eng``: every layer of every decode wave
+    through ``paged_attention`` and, on an int8 pool, every layer of
+    every (catch-up) extend wave through ``paged_extend_attention`` (a
+    float pool's extend waves read through the gather, as in JAX); a
+    prompt past the largest bucket must catch up.  Then times and
+    profiles one 4-slot decode wave, beside its bound."""
+    L = cfg.num_layers
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_attention": L * eng.decode_waves,
+        "paged_extend_attention": L * eng.extend_waves if int8 else 0,
+        "quant_matmul": 0, "ssd_scan": 0},
+        needs=("paged_attention",) + (("paged_extend_attention",)
+                                      if int8 else ()),
+        traffic=MOE_TRAFFIC)
+    longest = max(fields["prompt_lengths"])
+    if longest <= max(eng.scfg.prefill_buckets) or eng.extend_waves == 0:
+        raise AssertionError(f"serve_moe: longest prompt {longest}, "
+                             f"{eng.extend_waves} extend waves")
+    lengths, bt, pos, tok = _wave_state(torch, eng, cfg, 1, dev)
+
+    def wave():
+        return M.decode_step_paged(cfg, eng.params, eng.cache, tok, pos, bt,
+                                   True)
+    fields.update(
+        experts=cfg.num_experts, top_k=cfg.num_experts_per_tok,
+        capacity_factor=cfg.capacity_factor, catch_chunk=eng.K,
+        active_params=cfg.active_param_count(),
+        decode_wave_lengths=lengths,
+        decode_wave_ms=cuda_ms(torch, lambda i: wave(), iters=10, warmup=2),
+        decode_wave_profile=_device_profile(torch, wave),
+        decode_wave_bound=_moe_wave_bound(torch, eng, [n + 1 for n in
+                                                       lengths]))
+    return fields
+
+
+def _moe_cli(torch, kernels, serve, layers: int) -> dict:
+    """``launch.serve.main`` at its defaults for granite at full size
+    (``--mode async``, the prefix cache on, on the card): its JSON line,
+    every request finished, and decode reads through the kernel (one a
+    layer of each decode wave) and nothing else."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    _zero(kernels)
+    with contextlib.redirect_stdout(buf):
+        serve.main(list(MOE_CLI_ARGV))
+    launches = _counts(kernels)
+    line = json.loads(next(ln for ln in buf.getvalue().splitlines()
+                           if ln.startswith("{")))
+    args = serve.parse_args(list(MOE_CLI_ARGV))
+    n = launches["paged_attention"]
+    if (line["requests"] != args.requests
+            or line["tokens"] != args.requests * args.max_new
+            or n == 0 or n % layers
+            or any(v for k, v in launches.items() if k != "paged_attention")):
+        raise AssertionError(f"serve_moe CLI: {line}, launches {launches}")
+    _release(torch)
+    return {"argv": list(MOE_CLI_ARGV), "line": line, "launches": launches}
+
+
+def serve_moe_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
+    """Drive the ninth main path: granite-moe-1b-a400m at full width and
+    depth through ``launch.serve.build_engine`` on a bf16 pool, then the
+    serve CLI at its defaults; returns (engine, cfg, phase fields), the
+    fields' launches summing both."""
+    clock = serve.default_clock
+    t0 = clock()
+    cfg, eng = serve.build_engine(MOE_ARCH, scale,
+                                  dict(MOE_SERVE, prefix_cache=False), dev)
+    init_s = clock() - t0
+    fields = _moe_drive(torch, kernels, serve, M, eng, cfg, False, dev)
+    fields["init_s"] = init_s
+    fields["cli"] = _moe_cli(torch, kernels, serve, cfg.num_layers)
+    fields["launches"] = {k: v + fields["cli"]["launches"][k]
+                          for k, v in fields["launches"].items()}
+    return eng, cfg, fields
+
+
+def serve_moe_int8_phase(torch, kernels, serve, M, eng0, cfg, moe_tokens,
+                         dev="cuda"):
+    """The same weights and traffic on an int8 pool; then every layer's
+    kernel read against the gather read on identical inputs and a copy
+    of the same pool at float32 activations (``_layerwise_blocks`` over
+    ``model.paged_layers``), for a decode and a 16-token extend wave.
+    Tokens are reported against ``serve_moe``'s by the int8 gate."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    eng = EdgeServingEngine(cfg, eng0.params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, quant_kv="int8",
+        **MOE_SERVE), device=eng0.device)
+    fields = _moe_drive(torch, kernels, serve, M, eng, cfg, True, dev)
+    tokens = {r.uid: list(r.generated) for r in eng.completed}
+    first, lcp, total = _int8_gate(tokens, moe_tokens)
+    fields.update(bf16_first_tokens_equal=f"{first}/{len(moe_tokens)}",
+                  bf16_lcp_share=lcp / total,
+                  bf16_tokens_equal=tokens == moe_tokens)
+    S = eng.K
+    _, bt, pos, tok = _wave_state(torch, eng, cfg, S, dev)
+    cfg32 = cfg.replace(dtype="float32")
+    for name, tokens_in, width in (("decode", tok[:, :1], None),
+                                   ("extend", tok, S)):
+        err, ok = _layerwise_blocks(torch, cfg32, eng.params, eng.cache,
+                                    tokens_in, _moe_block(cfg32, pos, bt,
+                                                          width))
+        fields[f"{name}_layerwise_max_abs_err"] = err
+        if not ok:
+            raise AssertionError(f"serve_moe_int8: {name} kernel read "
+                                 f"differs from the gather read on "
+                                 f"identical inputs by {err}")
+    fields["layer_tolerance"] = TOL["float32"]
+    del eng
+    _release(torch)
+    return fields
+
+
+def serve_moe_shared_phase(torch, kernels, serve, M, params, cfg,
+                           dev="cuda"):
+    """granite at ``ServeConfig()``'s defaults (the radix prefix cache
+    on), max_len 512, the hand-written reads, with the household traffic
+    of ``_shared_requests``: 7 hits and 1 miss, 7 x 210 hit tokens (the
+    system prompt and the persona), ``paged_attention`` == 24 x decode
+    waves, no page leaked.  The hit rows' tokens are reported against a
+    cold engine of the same weights: capacity follows the suffix's
+    shape, so they need not be equal."""
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    L = cfg.num_layers
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**SHARED_SERVE),
+                            device=dev)
+    if not (eng.sharable and eng.paged and eng.prefix_cache is not None):
+        raise AssertionError("serve_moe_shared: the prefix cache is off")
+    reqs = _shared_requests(cfg, Request)
+    run = _shared_drive(torch, kernels, serve, eng, reqs)
+    st = eng.stats()
+    expect = dict.fromkeys(kernels, 0)
+    expect["paged_attention"] = L * run["decode_waves"]
+    run.update({k: st[f"prefix_{k}"] for k in (
+        "hits", "misses", "hit_tokens", "hit_tokens_block", "cached_blocks")})
+    run.update(cow_forks=st["cow_forks"],
+               predicted={"hits": SHARED_USERS - 1,
+                          "hit_tokens": (SHARED_USERS - 1)
+                          * (SHARED_SYS + SHARED_PERSONA)})
+    if run["launches"] != expect or run["decode_waves"] == 0:
+        raise AssertionError(f"serve_moe_shared: launches {run['launches']}"
+                             f", expected {expect}")
+    if (run["hits"], run["misses"], run["hit_tokens"]) != (
+            SHARED_USERS - 1, 1, run["predicted"]["hit_tokens"]):
+        raise AssertionError(f"serve_moe_shared: {st}")
+    _check_pool(eng, "serve_moe_shared")
+    del eng
+    cold_eng = EdgeServingEngine(cfg, params, ServeConfig(
+        **SHARED_SERVE, prefix_cache=False), device=dev)
+    cold_reqs = _shared_requests(cfg, Request)
+    cold = _shared_drive(torch, kernels, serve, cold_eng, cold_reqs)
+    _check_pool(cold_eng, "serve_moe_shared cold")
+    del cold_eng
+    _release(torch)
+    hot_tok = {r.uid: list(r.generated) for r in reqs[1:]}
+    cold_tok = {r.uid: list(r.generated) for r in cold_reqs[1:]}
+    first, lcp, total = _int8_gate(hot_tok, cold_tok)
+    run.update(arch=cfg.name, depth=L, cold={k: cold[k] for k in (
+        "tok_per_s", "ms_per_step", "ttft_user0_ms", "ttft_users1_7_p50_ms",
+        "steps", "decode_waves", "extend_waves")},
+        hit_first_tokens_equal_cold=f"{first}/{len(hot_tok)}",
+        hit_lcp_share_cold=lcp / total,
+        hit_tokens_equal_cold=hot_tok == cold_tok)
+    return run
+
+
+class _RouteRecorder:
+    """Within a ``with`` block, every ``moe._route`` call appends its
+    (experts, kept) pair, both (N, k), to ``calls``."""
+
+    def __init__(self, moe):
+        self.moe, self.orig, self.calls = moe, moe._route, []
+
+    def __enter__(self):
+        def recording(*args, **kw):
+            out = self.orig(*args, **kw)
+            self.calls.append((out[1], out[3]))
+            return out
+        self.moe._route = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+
+def model_moe_phase(torch, M, eng, cfg, dev="cuda"):
+    """(a) One 4-slot decode wave on ``serve_moe``'s served pool, kernel
+    read against gather read: at float32 activations (the reads differ
+    in summation order only) greedy tokens equal and logits within
+    F32_REL_TOL x max |logit|; at the serving bf16 activations, where
+    the gather path rounds its probabilities to bf16, the logits, greedy
+    agreement and each layer's (token, choice) pairs routed to another
+    expert are reported: a router choice within the rounding difference
+    of the next one flips, capacity (2 rows an expert) then moves other
+    rows' pairs, and the difference grows through the 24 layers.
+    (b) Routing of the first moe layer on the card against the CPU,
+    float32 weights, on its normed input (computed once on the card) for
+    a 4 x 512 admission batch: experts, positions and kept pairs equal
+    but at (token, choice) pairs whose sorted router logits lie within
+    ROUTER_NEAR_TIE of a neighbour's across a choice boundary (counted);
+    the mixture outputs of rows routed alike within TOL["float32"].
+    (c) The share of real (token, choice) pairs dropped, over every moe
+    layer, in a decode wave, a 16-token catch-up wave and the 4 x 512
+    prefill."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    res = {}
+    _, bt, pos, tok = _wave_state(torch, eng, cfg, 1, dev)
+    cfg32 = cfg.replace(dtype="float32")
+
+    def wave(c, use_kernel):
+        with _RouteRecorder(moe) as rec:
+            out = M.decode_step_paged(c, eng.params, eng.cache, tok, pos, bt,
+                                      use_kernel)[0][:, 0].float()
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("model_moe: non-finite logits")
+        return out, rec.calls
+    (ker32, rk32), (gat32, rg32) = wave(cfg32, True), wave(cfg32, False)
+    scale = float(gat32.abs().max())
+    d32 = float((ker32 - gat32).abs().max())
+    same32 = int((ker32.argmax(-1) == gat32.argmax(-1)).sum())
+    if d32 > F32_REL_TOL * scale or same32 != 4:
+        raise AssertionError(f"model_moe: float32 kernel vs gather logits "
+                             f"differ by {d32} (max |logit| {scale}), "
+                             f"argmax {same32}/4")
+    (ker16, rk), (gat16, rg) = wave(cfg, True), wave(cfg, False)
+
+    def apart(rk, rg):
+        return [int((ek != eg).sum()) for (ek, _), (eg, _) in zip(rk, rg)]
+    flips = apart(rk, rg)
+    res.update(max_abs_logit_f32=scale, f32_kernel_vs_gather=d32,
+               f32_pairs_routed_apart_by_layer=apart(rk32, rg32),
+               f32_tolerance=f"{F32_REL_TOL} x max |logit|",
+               argmax_agree_f32_kernel_gather=f"{same32}/4",
+               bf16_kernel_vs_gather=float((ker16 - gat16).abs().max()),
+               bf16_max_abs_logit=float(gat16.abs().max()),
+               argmax_agree_bf16_kernel_gather=(
+                   f"{int((ker16.argmax(-1) == gat16.argmax(-1)).sum())}/4"),
+               bf16_pairs_routed_apart_by_layer=flips,
+               bf16_first_layer_routed_apart=next(
+                   (i for i, n in enumerate(flips) if n), None))
+
+    # (b) routing on the card against the CPU
+    Bq, S = MOE_ROUTE_ROWS
+    g = torch.Generator().manual_seed(9)
+    tokens = torch.randint(0, cfg.vocab_size, (Bq, S), dtype=torch.int32,
+                           generator=g).to(dev)
+    first = next(lp for lp, _ in M.paged_layers(cfg, eng.params, eng.cache)
+                 if "moe" in lp)
+    p32 = _tree(lambda t: t.float(), first)
+    _, norm = L.make_norm(cfg32)
+    with torch.no_grad():
+        x = L.embed(cfg32, eng.params["embed"], tokens)
+        positions = torch.broadcast_to(torch.arange(
+            S, dtype=torch.int32, device=x.device), (Bq, S))
+        a, _, _ = L.attention_fwd(cfg32, p32["attn"], norm(p32["ln1"], x),
+                                  positions, is_global=True)
+        h = norm(p32["ln2"], x + a).reshape(Bq * S, -1).contiguous()
+        p_cpu = _tree(lambda t: t.cpu(), p32["moe"])
+        _, e_ca, pos_ca, v_ca, _ = (t.cpu() for t in moe._route(
+            cfg32, p32["moe"]["router"], h))
+        _, e_cp, pos_cp, v_cp, _ = moe._route(cfg32, p_cpu["router"],
+                                              h.cpu())
+        out_card = moe._moe_tokens(cfg32, p32["moe"], h)[0].cpu()
+        out_cpu = moe._moe_tokens(cfg32, p_cpu, h.cpu())[0]
+    k, E = cfg.num_experts_per_tok, cfg.num_experts
+    logits = torch.matmul(h.cpu(), p_cpu["router"])
+    srt = torch.sort(logits, dim=-1, descending=True).values
+    gap = srt[:, 1:k + 1] - srt[:, :k]                   # (N, k): j vs j+1
+    tie = gap.abs() < ROUTER_NEAR_TIE
+    near = tie.clone()
+    near[:, 1:] |= tie[:, :-1]                           # j-1 vs j as well
+    flip = e_ca != e_cp
+    if bool((flip & ~near).any()):
+        raise AssertionError(f"model_moe: card routing differs from the "
+                             f"CPU's at {int((flip & ~near).sum())} pairs "
+                             f"that are not near-ties")
+    touched = torch.unique(torch.cat([e_ca[flip], e_cp[flip]]))
+    comparable = ~torch.isin(e_cp, touched)
+    if not bool(((pos_ca == pos_cp) & (v_ca == v_cp))[comparable].all()):
+        raise AssertionError("model_moe: card positions or kept pairs "
+                             "differ from the CPU's")
+    alike = ((e_ca == e_cp) & (pos_ca == pos_cp) & (v_ca == v_cp)).all(dim=1)
+    oc, op = out_card[alike], out_cpu[alike]
+    if not bool(torch.allclose(oc, op, **TOL["float32"])):
+        raise AssertionError(f"model_moe: outputs of rows routed alike "
+                             f"differ by {float((oc - op).abs().max())}")
+    res.update(route_rows=[Bq, S], route_capacity=moe.capacity(cfg, Bq * S),
+               route_near_tie_pairs=int(near.sum()),
+               route_flipped_pairs=int(flip.sum()),
+               route_rows_alike=f"{int(alike.sum())}/{Bq * S}",
+               route_out_max_abs_err=float((oc - op).abs().max()),
+               route_near_tie=ROUTER_NEAR_TIE,
+               route_out_tolerance=TOL["float32"])
+
+    # (c) dropped shares, recorded around moe._route
+    S16 = eng.K
+    _, bt16, pos16, tok16 = _wave_state(torch, eng, cfg, S16, dev)
+    calls = {
+        "decode": (4, lambda: M.decode_step_paged(
+            cfg, eng.params, eng.cache, tok, pos, bt, True)),
+        f"catch_up_{S16}": (4 * S16, lambda: M.extend_paged(
+            cfg, eng.params, eng.cache, tok16, pos16, bt16, None, True)),
+        f"prefill_{Bq}x{S}": (Bq * S, lambda: M.prefill(
+            cfg, eng.params, {"tokens": tokens}, S))}
+    for name, (rows, call) in calls.items():
+        with _RouteRecorder(moe) as rec, torch.no_grad():
+            call()
+        real = sum(int((e < cfg.num_experts).sum()) for e, _ in rec.calls)
+        dropped = sum(int(((e < cfg.num_experts) & ~v).sum())
+                      for e, v in rec.calls)
+        res[f"dropped_share_{name}"] = dropped / real
+        res[f"capacity_{name}"] = moe.capacity(cfg, rows)
+    return res
+
+
+def _moe_reference_requests(cfg, request_cls) -> list:
+    """Seven requests of 5-150 prompt tokens (those past the largest
+    bucket catch up) whose budgets free slots at different waves, so idle
+    slots ride the decode waves beside live ones."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [request_cls(uid=u, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(5, 151)), dtype=np.int32),
+        max_new_tokens=n, priority=u % 3)
+        for u, n in enumerate((3, 8, 2, 6, 10, 4, 5))]
+
+
+def reference_moe(torch, M, get_smoke_config, kernels, dev="cuda"):
+    """The granite and kimi smoke configs at float32 and their default
+    capacity factor (1.25: pairs drop): the engine on the card (hand
+    kernels) and on the CPU (plain versions) over traffic whose slots go
+    idle mid-run and whose long prompts catch up.  On a float pool the
+    greedy tokens must be equal; on an int8 pool they meet the JAX int8
+    gate.  The card legs must have launched ``paged_attention`` and, on
+    int8, ``paged_extend_attention``."""
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    res = {}
+    for arch in (MOE_ARCH, "kimi-k2-1t-a32b"):
+        cfg = get_smoke_config(arch).replace(dtype="float32")
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        out = {"capacity_factor": cfg.capacity_factor}
+        for pool in ("float32", "int8"):
+            tokens = {}
+            for leg, leg_dev in (("cpu", "cpu"), ("card", dev)):
+                eng = EdgeServingEngine(cfg, _to(params, leg_dev),
+                                        ServeConfig(
+                    max_slots=3, max_len=192, prefix_cache=False,
+                    use_pallas_paged=True, policy="priority",
+                    quant_kv="int8" if pool == "int8" else None),
+                    device=leg_dev)
+                _zero(kernels)
+                for r in _moe_reference_requests(cfg, Request):
+                    eng.submit(r)
+                eng.run_until_drained()
+                tokens[leg] = {r.uid: list(r.generated)
+                               for r in eng.completed}
+            launches = _counts(kernels)
+            need = ["paged_attention"] + (["paged_extend_attention"]
+                                          if pool == "int8" else [])
+            out[f"{pool}_card_launches"] = launches
+            out[f"{pool}_waves_decode_extend"] = [eng.decode_waves,
+                                                  eng.extend_waves]
+            if any(launches[n] == 0 for n in need) or eng.extend_waves == 0:
+                raise AssertionError(f"reference_moe {arch} {pool}: "
+                                     f"launches {launches}")
+            cpu, card = tokens["cpu"], tokens["card"]
+            if set(card) != set(cpu) or len(cpu) != 7:
+                raise AssertionError(f"reference_moe {arch} {pool}: "
+                                     f"requests {sorted(card)}")
+            if pool == "float32":
+                if card != cpu:
+                    raise AssertionError(f"reference_moe {arch}: card "
+                                         f"tokens {card} != CPU {cpu}")
+                out["float32_tokens_equal"] = True
+                continue
+            first, lcp, total = _int8_gate(card, cpu)
+            out.update(int8_first_tokens_equal=f"{first}/{len(cpu)}",
+                       int8_lcp_share=lcp / total,
+                       int8_tokens_equal=card == cpu)
+            if first != len(cpu) or lcp < INT8_LCP_SHARE * total:
+                raise AssertionError(f"reference_moe {arch} int8: first "
+                                     f"{first}/{len(cpu)}, LCP {lcp}/"
+                                     f"{total}")
+        res[arch] = out
+    return res
+
+
+# ---------------------------------------------------------------------------
 # the always-on path: the span tracer and the asyncio frontend
 # ---------------------------------------------------------------------------
 
@@ -3806,6 +4362,37 @@ def main() -> int:
     del eng_h
     _release(torch)
     emit("model_hybrid", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    eng_m, cfg_m, fields = serve_moe_phase(torch, kernels, serve, M)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    moe_tokens = {r.uid: list(r.generated) for r in eng_m.completed}
+    emit("serve_moe", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_moe_int8_phase(torch, kernels, serve, M, eng_m, cfg_m,
+                                  moe_tokens)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_moe_int8", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_moe_shared_phase(torch, kernels, serve, M, eng_m.params,
+                                    cfg_m)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_moe_shared", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = model_moe_phase(torch, M, eng_m, cfg_m)
+    del eng_m
+    _release(torch)
+    emit("model_moe", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    emit("reference_moe", **reference_moe(torch, M, get_smoke_config,
+                                          kernels), seconds=clock() - t0)
 
     t0 = clock()
     emit("reference_gemma", **reference_gemma(

@@ -73,17 +73,26 @@ quantize_weights = _qm.quantize_weights
 def paged_attention(q, k_pages, v_pages, block_tables, lengths, *, scale,
                     softcap: float = 0.0, k_scale=None, v_scale=None):
     """Paged single-token decode read; see ``ref.paged_attention_ref``
-    for the semantics.  Rows with no valid position differ by
-    definition: the kernel returns 0 there, the plain version the mean
-    of the clipped page 0 (as their JAX originals do)."""
+    for the semantics.  Rows with no valid position (an idle slot's row
+    in a decode wave) differ by definition: the kernel returns 0 there,
+    the plain version the mean of the clipped page 0 (as their JAX
+    originals do).  On CPU tensors this op returns the plain version
+    with the kernel's 0 on such rows, so a served row reads the same on
+    either device: in a moe decode wave an idle row competes for expert
+    capacity with the live rows, so its value reaches their tokens."""
     _no_backward("paged_attention", q, k_pages, v_pages, k_scale, v_scale)
     kw = dict(scale=scale, softcap=softcap, k_scale=k_scale, v_scale=v_scale)
     if q.device.type == "cuda":
         return _pa.paged_attention(q, k_pages, v_pages, block_tables,
                                    lengths, **kw)
     if q.device.type == "cpu":
-        return ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
-                                       lengths, **kw)
+        out = ref.paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                      lengths, **kw)
+        bs = k_pages.shape[1]
+        t = torch.arange(block_tables.shape[1] * bs, device=q.device)
+        live = ((t[None, :] < lengths[:, None])
+                & torch.repeat_interleave(block_tables >= 0, bs, dim=1))
+        return torch.where(live.any(dim=1)[:, None, None], out, 0)
     raise ValueError(f"paged_attention: no kernel for device {q.device}")
 
 

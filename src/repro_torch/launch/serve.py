@@ -24,6 +24,7 @@ open handle with the error, so no caller waits forever.
     python -m repro_torch.launch.serve --arch phi3-medium-14b --scale full
     python -m repro_torch.launch.serve --arch mamba2-370m --scale full
     python -m repro_torch.launch.serve --arch zamba2-7b --scale full
+    python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --scale full
     python -m repro_torch.launch.serve --arch phi3-medium-14b --persist PATH
 
 ``--mode async`` (the default, as in the JAX CLI) submits
@@ -42,7 +43,9 @@ arch is gemma3-1b, as in the JAX CLI.  Weights are random, from a seeded
 ``torch.Generator`` on the device, or restored from ``--params`` (a
 checkpoint of ``training.checkpoint.save``, as ``launch.train
 --checkpoint`` writes) onto them.  On a CUDA device the engine reads
-paged decode KV through the hand-written ``paged_attention`` kernel (an
+paged decode KV through the hand-written ``paged_attention`` kernel (a
+moe model too: its router, dispatch and expert products are plain
+PyTorch, as the JAX package computes them outside any kernel; an
 ssm or hybrid model, served without a page pool, runs its admission
 prefills' scan through ``ssd_scan`` instead, and the hybrid's shared
 attention block through ``flash_attention``) and stores weights in the

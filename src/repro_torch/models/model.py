@@ -1,10 +1,12 @@
 """Unified model API (PyTorch port of ``repro.models.model``).
 
 The same entry points, dispatched on ``cfg.family``; the port has the
-dense family (``models.transformer``), the ssm family (``models.ssm``)
-and the hybrid family (``models.hybrid``: mamba blocks and one shared
-attention block), and every other family raises
-``NotImplementedError`` naming its ROADMAP item:
+dense family (``models.transformer``), the moe family (``models.moe``:
+capacity-dispatched experts, and dense first layers where the config
+has them), the ssm family (``models.ssm``) and the hybrid family
+(``models.hybrid``: mamba blocks and one shared attention block), and
+every other family raises ``NotImplementedError`` naming its ROADMAP
+item:
 
     init_params(cfg, generator, device)           -> params
     forward(cfg, params, tokens, use_kernel=...)  -> logits (B, S, V)
@@ -24,6 +26,7 @@ attention block), and every other family raises
     extend_paged(cfg, params, cache, toks[B,S],
                  pos, block_tables)               -> (logits[B,S,V], cache)
     extend(cfg, params, cache, toks[B,S], pos)    -> (logits[B,S,V], cache)
+    paged_layers(cfg, params, cache)              -> [(layer params, pool)]
     extendable / spec_decodable / prefix_sharable -> bool
     make_batch(cfg, shape, generator, device)     -> random batch
 
@@ -41,10 +44,11 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
-from repro_torch.models import hybrid, ssm, transformer
+from repro_torch.models import hybrid, moe, ssm, transformer
 
-_FAMILIES = {"dense": transformer, "ssm": ssm, "hybrid": hybrid}
-_FAMILY_ITEMS = {"moe": "A.9.1", "vlm": "A.9.2", "encdec": "A.9.3"}
+_FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm,
+             "hybrid": hybrid}
+_FAMILY_ITEMS = {"vlm": "A.9.2", "encdec": "A.9.3"}
 
 
 def family_module(cfg: ModelConfig):
@@ -72,9 +76,10 @@ def specialize(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
 
 def apply(cfg: ModelConfig, params, batch: dict, *, use_flash: bool = False,
           use_kernel: bool = False, remat: Optional[str] = None):
-    """Full-sequence logits (B, S, V) and a scalar aux loss (0 where n/a,
-    float32).  ``use_flash`` sends the attention of the dense and hybrid
-    families through ``kernels.ops.flash_attention`` and ``use_kernel``
+    """Full-sequence logits (B, S, V) and a scalar aux loss (float32: the
+    moe family's load-balancing loss, 0 for the others).  ``use_flash``
+    sends the attention of the dense, moe and hybrid families through
+    ``kernels.ops.flash_attention`` and ``use_kernel``
     the ssm and hybrid families' scan through ``kernels.ops.ssd_scan``
     (neither kernel has a backward); ``remat`` is the JAX checkpoint
     policy name (``transformer._maybe_remat``)."""
@@ -86,6 +91,9 @@ def apply(cfg: ModelConfig, params, batch: dict, *, use_flash: bool = False,
     if cfg.family == "hybrid":
         return hybrid.forward(cfg, params, tokens, use_flash=use_flash,
                               use_kernel=use_kernel, remat=remat), zero
+    if cfg.family == "moe":
+        return moe.forward(cfg, params, tokens, use_flash=use_flash,
+                           remat=remat)
     return family_module(cfg).forward(cfg, params, tokens,
                                       use_flash=use_flash, remat=remat), zero
 
@@ -246,6 +254,14 @@ def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
         cfg, params, batch["tokens"], max_len, cache, slots=slots,
         write_tables=write_tables, ctx_tables=ctx_tables, ctx_len=ctx_len,
         true_len=true_len, use_flash=use_flash)
+
+
+def paged_layers(cfg: ModelConfig, params, cache):
+    """(layer params, layer pool) view pairs of every paged layer of a
+    paged cache, in the order the trunk runs them: the dense family's
+    global layers (``transformer.paged_layers``), or the moe family's
+    dense layers then its moe layers (``moe.paged_layers``)."""
+    return family_module(cfg).paged_layers(cfg, params, cache)
 
 
 def extend(cfg: ModelConfig, params, cache, tokens, pos, valid_len=None):

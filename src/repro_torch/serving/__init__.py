@@ -1,7 +1,11 @@
 """EdgeAI-Hub serving runtime, PyTorch port: continuous batching for one
 model over a paged KV pool with a radix prefix cache and speculative
 decoding.  See ``serving.engine`` for the step contract and what is not
-ported yet."""
+ported yet.  One carve-out from exactness: moe expert capacity comes from
+a call's static (padded, batched) token count, so under capacity
+pressure the tokens dropped depend on the batch (pads never take
+capacity, but the bound is shape-derived); with ``capacity_factor`` high
+enough that nothing drops, moe is exact like every other family."""
 from repro_torch.serving.engine import (
     EdgeServingEngine,
     Request,

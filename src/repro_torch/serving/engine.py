@@ -94,6 +94,19 @@ a store — equal a cold run's.  Configs whose decode state is not all in
 pages (gemma's local rings, the ssm and hybrid recurrences) never
 share: the cache stays off.
 
+MoE capacity (the moe family, ``models.moe``): an expert takes at most
+``capacity(cfg, N)`` tokens of a call, with N the call's static token
+count: a decode wave's ``max_slots`` rows (idle slots ride along with
+their stale token and position, unmasked, as in JAX), an extend wave's
+``max_slots x K`` (pad rows are kept out of capacity, not out of the
+bound), an admission group's ``m x bucket`` (pads likewise).  Under
+capacity pressure which tokens drop therefore depends on the batch: a
+request served beside others, or admitted as a hit suffix, can emit
+other tokens than served alone or cold.  The engine feeds the JAX
+engine's rows in the JAX engine's order, so it drops the same tokens;
+with ``capacity_factor`` high enough that nothing drops, moe is exact
+like every other family and its hits equal cold runs.
+
 Sampling is per request (``Request.temperature`` / ``top_k`` over the
 ``ServeConfig`` defaults): the decode wave samples on the device from
 the engine's ``torch.Generator`` (Gumbel-max), first tokens and

@@ -204,3 +204,21 @@ def test_tracer_and_frontend_are_ported():
     cites = [str(p.relative_to(ROOT)) for p in SOURCES
              if "A.8" in p.read_text()]
     assert cites == []
+
+
+def test_moe_family_is_ported():
+    """A.9.1's moe family is the port's own: ``models.moe`` holds every
+    public name of ``repro.models.moe`` working (none a stand-in of
+    ``unported.not_ported``), the model API dispatches to it, and no
+    source of the port cites A.9.1 as unported."""
+    from repro.models import moe as jax_moe
+    from repro_torch.models import model, moe
+    names = _public_names(jax_moe)
+    assert {"moe_mlp", "capacity", "prefill_paged", "extend"} <= set(names)
+    stubs = [n for n in names
+             if getattr(getattr(moe, n), "roadmap_item", None) is not None]
+    assert stubs == []
+    assert model._FAMILIES["moe"] is moe and "moe" not in model._FAMILY_ITEMS
+    cites = [str(p.relative_to(ROOT)) for p in SOURCES
+             if "A.9.1" in p.read_text()]
+    assert cites == []

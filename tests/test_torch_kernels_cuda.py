@@ -255,6 +255,20 @@ def test_kernel_gemma_global_shape(device, dtype, q_dtype):
                                **TOL[q_dtype])
 
 
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+def test_kernel_granite_moe_shape(device, dtype, q_dtype):
+    """granite-moe-1b-a400m's layers: H=16 over K=8 (G = 2), hd 64,
+    128-page tables (max_len 2048), ragged rows."""
+    args, scales = _case(device, dtype, q_dtype, B=4, H=16, K=8, hd=64,
+                         nB=512, n_blk=128, seed=23,
+                         lengths=[1032, 17, 700, 2048])
+    kw = dict(scale=64 ** -0.5, **scales)
+    out = pa.paged_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _plain(args, **kw),
+                               **TOL[q_dtype])
+    assert torch.equal(out, pa.paged_attention(*args, **kw))
+
+
 # ---------------------------------------------------------------------------
 # paged_extend_attention
 # ---------------------------------------------------------------------------
@@ -394,11 +408,13 @@ def test_extend_kernel_takes_rows_past_the_first_versions_limit(device):
 
 # (name, B, S, H, K, hd, n_blk): the widths an int8 catch-up wave may have
 # at gemma3-1b's global layers (the first version refused S >= 22) and at
-# phi3's (S >= 41), and a row count one past a 64-row tile (G = 1)
+# phi3's (S >= 41), a row count one past a 64-row tile (G = 1), and
+# granite-moe-1b-a400m's served chunks (G = 2, hd 64)
 EXTEND_WIDTHS = [("gemma", 4, S, 4, 1, 256, 128) for S in (16, 21, 22, 64,
                                                          512)] \
     + [("phi3", 4, S, 40, 10, 128, 32) for S in (41, 64)] \
-    + [("tile+1", 2, 65, 4, 4, 128, 16), ("tile+4", 2, 17, 8, 2, 64, 16)]
+    + [("tile+1", 2, 65, 4, 4, 128, 16), ("tile+4", 2, 17, 8, 2, 64, 16)] \
+    + [("granite", 4, S, 16, 8, 64, 128) for S in (16, 64)]
 
 
 @pytest.mark.parametrize("name,B,S,H,K,hd,n_blk", EXTEND_WIDTHS,

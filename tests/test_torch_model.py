@@ -248,7 +248,8 @@ def test_unported_configs_raise(arch):
     """Unported families raise at ``init_params``; gemma's local:global
     pattern trains, evaluates and serves through the paged engine, and
     (ported since, A.4) admits into the dense twin's strips and rings
-    (``write_tables=None``)."""
+    (``write_tables=None``); the moe family (ported since, A.9.1) builds
+    its params and admits into the page pool."""
     cfg = get_smoke_config(arch)
     if cfg.family == "dense":
         params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -257,6 +258,16 @@ def test_unported_configs_raise(arch):
             32, M.init_cache(cfg, 1, 32, "cpu"),
             slots=torch.zeros((1,), dtype=torch.int32))
         assert logits.shape == (1, 1, cfg.vocab_size)
+        return
+    if cfg.family == "moe":
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        cache = M.init_paged_cache(cfg, 1, 32, 4, 8, device="cpu")
+        logits, _ = M.prefill_paged(
+            cfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
+            32, cache, slots=torch.zeros((1,), dtype=torch.int32),
+            write_tables=torch.tensor([[2]], dtype=torch.int32))
+        assert logits.shape == (1, 1, cfg.vocab_size)
+        assert bool(cache["moe_layers"]["k"][:, 2, :4].abs().sum() > 0)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")

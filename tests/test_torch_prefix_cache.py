@@ -450,7 +450,8 @@ def test_published_pages_survive_writer_rollback(models):
 
 
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b",
-                                  "mamba2-370m", "zamba2-7b"])
+                                  "mamba2-370m", "zamba2-7b",
+                                  "granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
 def test_serve_config_defaults_serve_every_family(arch):
     """``ServeConfig()`` constructs and serves each ported family; the
     cache is armed exactly where ``model.prefix_sharable``; the tracer's
@@ -461,7 +462,7 @@ def test_serve_config_defaults_serve_every_family(arch):
     assert scfg.prefix_cache and scfg.paged
     eng = EdgeServingEngine(cfg, params, scfg, device="cpu")
     assert eng.sharable == M.prefix_sharable(cfg)
-    assert (eng.prefix_cache is not None) == (arch == "phi3-medium-14b")
+    assert (eng.prefix_cache is not None) == M.prefix_sharable(cfg)
     rng = np.random.default_rng(0)
     sys_prompt = rng.integers(0, cfg.vocab_size, 20, dtype=np.int32)
     reqs = [Request(uid=u, prompt=np.concatenate(
