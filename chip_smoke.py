@@ -34,6 +34,12 @@ non-zero without printing a result:
               there) and at G x S one and four rows past a 64-row tile,
               each with its plan's merge without the last split shown
               to fail; the
+              paged reads at internvl2-76b's shape (64 query heads over
+              8 kv heads of 128: G = 8) and whisper-base's (8 heads of
+              64: G = 1), 64-page tables, bf16 and int8 pages (the
+              decode read) and int8 catch-up and verify widths (the
+              extend read: S = 5 and 16; 16), each held, its plan's
+              merge without the last split shown to fail, and timed; the
               decode read timed at the serving shape, at 4 rows x 4096
               tokens (8 pools, 670 MB), at the gemma shape and at its
               served shape, beside SDPA with the gather timed and
@@ -52,7 +58,10 @@ non-zero without printing a result:
               of every projection timed on cold weights beside its bound
               and the bf16 cuBLAS yardstick (the plans printed), the sum
               over one draft layer's seven decode launches and over a
-              draft prefill's 56; the ptxas lines of the M > 8 kernel;
+              draft prefill's 56; the int8 draft's projections of
+              internvl2-76b (K = 8192 and 28672) at M = 4, 9, 64 and
+              768, x in bf16 and f32, two broken versions at K = 28672,
+              M = 4 and 768 timed; the ptxas lines of the M > 8 kernel;
               ``ssd_scan`` against the plain chunked path in float32 at
               mamba2-370m's width (h=32, p=64, n=128, chunk 256) for b 1
               and 4, l 16 / 256 / 300 / 1024 / 2048, at zamba2-7b's
@@ -262,16 +271,56 @@ non-zero without printing a result:
               real (token, choice) pairs dropped at a decode wave
               (capacity 2), a 16-token catch-up wave (20) and the
               4 x 512 prefill (640).
-26. reference_moe — the granite and kimi-k2 smoke configs at float32 and
+26. serve_vlm — the tenth main path: internvl2-76b at full width
+              (d_model 8192, 64 query heads over 8 kv heads of 128,
+              d_ff 28672, vocab 128256, 256 image tokens of 3200) and 32
+              of its 80 layers (the one cut: 29.57e9 bf16 parameters,
+              59.1 GB) behind ``EdgeServingEngine`` on a bf16 pool, 4
+              slots, max_len 1024, buckets to 512, chunked prefill with
+              16-token chunks; 8 requests of 16-400 text tokens, each
+              with its own 256 x 3200 image, 32 new: ``paged_attention``
+              == 32 x decode waves; one decode wave timed and profiled
+              beside its bound (the trunk's and head's weights).
+27. model_vlm — ``model``'s kernel-vs-gather decode wave on that pool.
+28. serve_vlm_int8 — the same on an int8 pool: catch-up waves through
+              ``paged_extend_attention`` (32 x extend waves), every
+              layer's kernel read held to the gather read on identical
+              inputs for a decode and a 16-token extend wave.
+29. serve_vlm_shared — internvl2 at ``ServeConfig``'s other defaults
+              (the prefix cache on), max_len 1024, buckets to 512, on
+              ``serve_shared``'s household traffic with one image for
+              users 0-7 and a ninth user with another image and user
+              1's text: predicted 7 hits of 256 + 210 tokens (every hit
+              covers the image), 2 misses (the ninth user never hits),
+              each request's acquired context recorded; no page leaked;
+              hit rows' first tokens equal a cold engine's (the tokens
+              after them reported).
+30. serve_vlm_spec — internvl2 speculating on an int8 pool with a
+              2-layer int8 draft (``make_draft``) that prefills its own
+              image: extend launches == 32 x waves, ``quant_matmul`` ==
+              7 x 2 x draft forward calls at K = 8192 and 28672.
+31. serve_whisper — whisper-base at full size (6 + 6 layers of 512,
+              1500 audio frames) through ``launch.serve.build_engine``
+              on a bf16 and an int8 pool, max_len 448, buckets to 128,
+              8 requests of 16-300 tokens with their own 1500 x 512
+              audio (decode reads through the kernel, 6 a wave; int8
+              catch-up through the extend kernel), then the serve CLI at
+              its defaults (``--mode async``, prefix cache on).
+32. model_whisper — the kernel-vs-gather decode wave on its pool.
+33. reference_vlm / 34. reference_encdec — the internvl2 and whisper
+              smoke configs at float32 with their extras, prompts past
+              the largest bucket: card tokens equal the CPU's on a float
+              pool and meet the int8 gate on an int8 pool.
+35. reference_moe — the granite and kimi-k2 smoke configs at float32 and
               capacity factor 1.25 (pairs drop), traffic whose slots go
               idle mid-run and whose long prompts catch up: card tokens
               equal the CPU's on a float pool and meet the int8 gate on
               an int8 pool, both kernels launched.
-27. reference_gemma — the gemma3-1b smoke config at float32 (window
+36. reference_gemma — the gemma3-1b smoke config at float32 (window
               16), prompts of 20-150 tokens: the engine on the card and on
               the CPU emit the same greedy tokens on a float pool and
               meet the int8 gate on an int8 pool, both kernels launched.
-28. reference — the phi3 smoke config at float32: the engine on the card
+37. reference — the phi3 smoke config at float32: the engine on the card
               (hand kernels) and on the CPU (plain versions) must emit
               the same greedy tokens on a float pool, and on an int8
               pool meet the JAX package's int8 gate (every first token
@@ -287,7 +336,7 @@ non-zero without printing a result:
               gemma3-1b smoke config (8 layers) at float32: the card's
               ``loss_fn(use_flash=True)`` within 1e-5 of the CPU's, two
               train steps' losses and gradient norms within 1e-4.
-29. reference_shared — the phi3 smoke config at float32 over
+38. reference_shared — the phi3 smoke config at float32 over
               ``tests/test_engine_matrix.py``'s traffic (copied): the dense
               twin, the prefix-cache engine with the hand-written reads
               and the same speculating on the card, and the prefix-cache
@@ -506,6 +555,50 @@ MOE_CLI_ARGV = ("--arch", MOE_ARCH, "--scale", "full")
 # them differently (float32 sums in another order)
 MOE_ROUTE_ROWS = (4, 512)
 ROUTER_NEAR_TIE = 1e-4
+# the tenth path: the families whose requests carry extras (the stub
+# frontends' image or audio embeddings).  internvl2-76b at full width
+# (d_model 8192, 64 query heads over 8 kv heads of 128, d_ff 28672, vocab
+# 128256, 256 image tokens of 3200) cut to 32 of its 80 layers (29.57B
+# parameters, 59.1 GB in bf16; all 80 would be 141 GB); 4 slots of
+# max_len 1024, buckets to 512, chunked prefill with 16-token chunks: a
+# request prefills its image and first 16 text tokens, the rest catches
+# up in extend waves; 8 requests of 16-400 text tokens, each its own
+# image, 32 new tokens
+VLM_ARCH = "internvl2-76b"
+VLM_LAYERS = 32
+VLM_SERVE = dict(max_slots=4, max_len=1024, policy="priority",
+                 prefill_buckets=(16, 32, 64, 128, 256, 512),
+                 chunked_prefill=True, catch_chunk=16)
+VLM_TRAFFIC = (8, 16, 400, 32)                # requests, prompts, new
+# the prefix cache at ServeConfig()'s other defaults, max_len 1024 and
+# buckets to 512: serve_shared's household traffic with one image for
+# users 0-7 and a ninth user with another image and user 1's text
+VLM_SHARED_SERVE = dict(max_len=1024, use_pallas_paged=True,
+                        prefill_buckets=(16, 32, 64, 128, 256, 512))
+VLM_DRAFT_LAYERS = 2
+# whisper-base at full size (6 encoder and 6 decoder layers of 512, 8
+# heads of 64, 1500 audio frames): max_len 448 (its decoder position
+# table), buckets to 128, prompts to 300 catch up in 16-token extend
+# waves; then the serve CLI at its defaults
+WHISPER_ARCH = "whisper-base"
+WHISPER_SERVE = dict(max_slots=4, max_len=448, policy="priority",
+                     prefill_buckets=(16, 32, 64, 128), catch_chunk=16)
+WHISPER_TRAFFIC = (8, 16, 300, 32)            # requests, prompts, new
+WHISPER_CLI_ARGV = ("--arch", WHISPER_ARCH, "--scale", "full")
+# the paged reads at the two families' served shapes, 64-page tables:
+# internvl2-76b's G = 8 at hd 128 and whisper-base's G = 1 at hd 64
+# (name, shape, pools cycled when timed, extend widths)
+EXTRAS_PAGED = (("internvl2", dict(H=64, K=8, hd=128, n_blk=64), VLM_LAYERS,
+                 (5, 16)),
+                ("whisper", dict(H=8, K=8, hd=64, n_blk=64), 6, (16,)))
+# the int8 draft's projections of internvl2-76b (K, N): the GEMV at the
+# decode rows, the M > 8 kernel at these M (768: one draft admission
+# row of 256 image and 512 text positions)
+EXTEND_WIDTHS += tuple((name, shape, widths)
+                       for name, shape, _, widths in EXTRAS_PAGED)
+QM_VLM = {"wq / wo": (8192, 8192), "wk / wv": (8192, 1024),
+          "w_gate / w_up": (8192, 28672), "w_down": (28672, 8192)}
+QM_VLM_M = (9, 64, 768)
 
 
 def emit(phase: str, **fields) -> None:
@@ -930,6 +1023,40 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
                                         ln, 64 ** -0.5, dev, scales=sc)
         del q, kp, vp, sc
 
+    # the vlm and encdec families' served decode reads (EXTRAS_PAGED):
+    # bf16 and int8 pages under bf16 queries, the first row over its
+    # whole table, each held, its plan's merge without the last split
+    # shown to fail, and timed (one pool a layer, cycled)
+    timed_extras, extras_broken = {}, {}
+    for arch, shape, layers, _ in EXTRAS_PAGED:
+        g = torch.Generator(device="cpu").manual_seed(12)
+        ext_len = torch.randint(17, shape["n_blk"] * 16 + 1, (4,),
+                                generator=g)
+        ext_len[0] = shape["n_blk"] * 16
+        hd = shape["hd"]
+        for pages in (torch.bfloat16, torch.int8):
+            q, kp, vp, bt, ln, sc = _paged_inputs(
+                torch, pages, q_dtype=torch.bfloat16, layers=layers,
+                lengths=ext_len, seed=37, dev=dev, B=4, **shape)
+            name = f"{arch} {str(pages).replace('torch.', '')}"
+            kw = dict(scale=hd ** -0.5, **{k: v[0] for k, v in sc.items()})
+            held("bfloat16", name, q, kp[0], vp[0], bt, ln, **kw)
+            plan = _decode_plans(torch, pa, q, kp[0], bt, dev)[0]
+            exp = ref.paged_attention_ref(q.float(), kp[0], vp[0], bt, ln,
+                                          **kw)
+            broken = pa.split_reference(q, kp[0], vp[0], bt, ln, plan,
+                                        drop=plan.splits - 1, **kw)
+            extras_broken[name] = float((broken - exp).abs().max())
+            if plan.splits < 2 or torch.allclose(broken, exp,
+                                                 **TOL["bfloat16"]):
+                raise AssertionError(f"paged_attention {name}: a merge "
+                                     f"without the last split passes the "
+                                     f"tolerance ({plan})")
+            timed_extras[name] = _decode_times(torch, pa, ref, timer, q, kp,
+                                               vp, bt, ln, hd ** -0.5, dev,
+                                               scales=sc)
+            del q, kp, vp, sc
+
     # 4 rows of 4096 tokens (phi3-medium-4k's window), 8 pools (670 MB)
     q, kp, vp, bt, ln, _ = _paged_inputs(torch, torch.bfloat16, layers=8,
                                          n_blk=256, lengths=[4096] * 4,
@@ -963,9 +1090,11 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
     }, {"errors": errs, "tolerance": TOL, "softcap50_moves": moves,
         "plan_serve": plan._asdict(),
         "broken_merge_without_last_split_err": boundary,
+        "extras_broken_merge_err": extras_broken,
         "timed": {"serve": row, "long": timed_long, "gemma3": timed_gemma,
                   "gemma3_served": timed_served,
-                  "granite_moe_served": timed_moe},
+                  "granite_moe_served": timed_moe,
+                  "extras_served": timed_extras},
         "library_call": "F.scaled_dot_product_attention(enable_gqa=True) "
         "over K/V gathered inside the timed call (library_ms); "
         "library_ms_gather_excluded gathers beforehand",
@@ -1244,6 +1373,21 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
                                             64 ** -0.5)
         worst = max(worst, timed_moe[f"S={S}"]["kernel_max_abs_err"])
         del args
+    # the vlm and encdec families' served int8 catch-up and verify waves
+    # past the vlm's image (EXTRAS_PAGED), one pool a layer, cycled
+    timed_extras = {}
+    for arch, shape, layers, widths_S in EXTRAS_PAGED:
+        for S in widths_S:
+            epos = torch.randint(256, shape["n_blk"] * 16 - S + 1, (4,),
+                                 generator=g)
+            args = _extend_inputs(torch, torch.int8, q_dtype=torch.bfloat16,
+                                  layers=layers, S=S, pos=epos,
+                                  seed=60 + S, dev=dev, **shape)
+            timed_extras[f"{arch} S={S}"] = _extend_times(
+                torch, pea, ref, timer, *args, shape["hd"] ** -0.5)
+            worst = max(worst,
+                        timed_extras[f"{arch} S={S}"]["kernel_max_abs_err"])
+            del args
     return {
         "name": "paged_extend_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_extend_attention.cu",
@@ -1256,6 +1400,7 @@ def check_paged_extend_attention(torch, pea, ref, timer, dev="cuda"):
         "timed_kernel_max_abs_err_bf16": row["kernel_max_abs_err"],
         "timed_gemma3": timed_gemma, "timed_gemma3_wide": timed_wide,
         "timed_granite_moe": timed_moe,
+        "timed_extras": timed_extras,
         "widths": widths,
         "library_call": "gather + dequantize, then "
         "F.scaled_dot_product_attention(enable_gqa=True) with a boolean "
@@ -1379,6 +1524,44 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
                 worst = max(worst, err)
         del wq, scale
 
+    # the vlm int8 draft's projections (QM_VLM, K up to 28672): the GEMV
+    # at 4 rows and the M > 8 kernel at QM_VLM_M, x in bf16 and f32; at
+    # K = 28672, K short by one 32-row tile (4 rows) and by one 64-row
+    # step (64 rows), on x at 3 x randn, must fall outside the tolerance
+    vlm_broken = {}
+    for i, (n, (K, N)) in enumerate(QM_VLM.items()):
+        wq, scale = _qm_weight(torch, qm, K, N, seed=200 + i, dev=dev)
+        for M in (4,) + QM_VLM_M:
+            plans[f"vlm M={M} {n}"] = (
+                qm.gemv_plan if M <= qm.GEMV_MAX_M else qm.mma_plan)(
+                    M, K, N, sms)._asdict()
+            for dt in ("bfloat16", "float32"):
+                g = torch.Generator(device=dev).manual_seed(M)
+                x = torch.randn((M, K), generator=g, device=dev).to(
+                    torch.bfloat16).to(getattr(torch, dt))
+                out = qm.quant_matmul(x, wq, scale,
+                                      out_dtype=getattr(torch, dt))
+                err = _qm_check(torch, ref, out, x, wq, scale,
+                                f"vlm M={M} {n}", dt)
+                errs[f"vlm M={M} {n} {dt}"] = err
+                worst = max(worst, err)
+        if K == max(k for k, _ in QM_VLM.values()):
+            for M, cut, bname in ((4, 32, "k_short_one_tile"),
+                                  (64, 64, "k_short_one_64_row_step")):
+                g = torch.Generator(device=dev).manual_seed(M)
+                x = 3.0 * torch.randn((M, K), generator=g, device=dev)
+                exp = ref.quant_matmul_ref(x, wq, scale,
+                                           out_dtype=torch.float32)
+                v = ref.quant_matmul_ref(x[:, :K - cut], wq[:K - cut], scale,
+                                         out_dtype=torch.float32)
+                vlm_broken[bname] = float((v - exp).abs().max())
+                if torch.allclose(v, exp, **QM_TOL["float32"]) \
+                        or vlm_broken[bname] <= QM_BROKEN_MOVES:
+                    raise AssertionError(
+                        f"quant_matmul K={K}: the broken version {bname} "
+                        f"moves the output by only {vlm_broken[bname]}")
+        del wq, scale
+
     # two calls, bitwise equal: the split partials are summed in a fixed
     # order (both kernels; split and unsplit plans)
     repeat, rep_plans = {}, {}
@@ -1441,9 +1624,16 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
         for n, (k, nn) in QM_DECODE.items():
             times[f"prefill M={M} {n}"] = time_gemv(torch, qm, ref, timer,
                                                     M, k, nn, dev=dev)
+    for n, (k, nn) in QM_VLM.items():
+        for M in (4, QM_VLM_M[-1]):
+            times[f"vlm M={M} {n}"] = time_gemv(torch, qm, ref, timer, M, k,
+                                                nn, dev=dev)
     layer = {k: sum(QM_LAYER_LAUNCHES[n] * times[f"decode {n}"][k]
                     for n in QM_DECODE)
              for k in ("ms", "library_ms", "bound_ms")}
+    vlm_layer = {k: sum(QM_LAYER_LAUNCHES[n] * times[f"vlm M=4 {n}"][k]
+                        for n in QM_VLM)
+                 for k in ("ms", "library_ms", "bound_ms")}
     draft_prefill = {f"M={M}": {k: DRAFT_LAYERS * sum(
         QM_LAYER_LAUNCHES[n] * times[f"prefill M={M} {n}"][k]
         for n in QM_DECODE) for k in ("ms", "library_ms", "bound_ms")}
@@ -1457,6 +1647,8 @@ def check_quant_matmul(torch, qm, ref, timer, dev="cuda"):
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],
     }, {"errors": errs, "tolerance": QM_TOL, "broken_moves": moves,
+        "vlm_broken_moves": vlm_broken,
+        "vlm_draft_layer_seven_launches": vlm_layer,
         "bitwise_repeatable": repeat, "repeat_plans": rep_plans,
         "prefill_plans": plans, "timed": times,
         "draft_layer_seven_launches": layer,
@@ -2276,10 +2468,10 @@ def _check_pool(eng, phase: str) -> None:
 
 def _pool(eng) -> dict:
     """The engine's page pool: every layer's on a uniform trunk, the moe
-    layers' on a moe trunk, the global layers' on a local:global
-    pattern."""
+    layers' on a moe trunk, the decoder's self attention on an encdec
+    cache, the global layers' on a local:global pattern."""
     cache = eng.cache
-    for key in ("layers", "moe_layers"):
+    for key in ("layers", "moe_layers", "self"):
         if key in cache:
             return cache[key]
     return cache["super"]["global"]
@@ -3486,29 +3678,30 @@ def _moe_drive(torch, kernels, serve, M, eng, cfg, int8: bool, dev):
     return fields
 
 
-def _moe_cli(torch, kernels, serve, layers: int) -> dict:
-    """``launch.serve.main`` at its defaults for granite at full size
-    (``--mode async``, the prefix cache on, on the card): its JSON line,
-    every request finished, and decode reads through the kernel (one a
-    layer of each decode wave) and nothing else."""
+def _serve_cli(torch, kernels, serve, argv, layers: int) -> dict:
+    """``launch.serve.main(argv)``, the serve CLI at its defaults for an
+    arch at full size (``--mode async``, the prefix cache on, on the
+    card): its JSON line, every request finished, and decode reads
+    through the kernel (one a paged layer of each decode wave) and
+    nothing else."""
     import contextlib
     import io
     buf = io.StringIO()
     _zero(kernels)
     with contextlib.redirect_stdout(buf):
-        serve.main(list(MOE_CLI_ARGV))
+        serve.main(list(argv))
     launches = _counts(kernels)
     line = json.loads(next(ln for ln in buf.getvalue().splitlines()
                            if ln.startswith("{")))
-    args = serve.parse_args(list(MOE_CLI_ARGV))
+    args = serve.parse_args(list(argv))
     n = launches["paged_attention"]
     if (line["requests"] != args.requests
             or line["tokens"] != args.requests * args.max_new
             or n == 0 or n % layers
             or any(v for k, v in launches.items() if k != "paged_attention")):
-        raise AssertionError(f"serve_moe CLI: {line}, launches {launches}")
+        raise AssertionError(f"{args.arch} CLI: {line}, launches {launches}")
     _release(torch)
-    return {"argv": list(MOE_CLI_ARGV), "line": line, "launches": launches}
+    return {"argv": list(argv), "line": line, "launches": launches}
 
 
 def serve_moe_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
@@ -3523,7 +3716,8 @@ def serve_moe_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
     init_s = clock() - t0
     fields = _moe_drive(torch, kernels, serve, M, eng, cfg, False, dev)
     fields["init_s"] = init_s
-    fields["cli"] = _moe_cli(torch, kernels, serve, cfg.num_layers)
+    fields["cli"] = _serve_cli(torch, kernels, serve, MOE_CLI_ARGV,
+                               cfg.num_layers)
     fields["launches"] = {k: v + fields["cli"]["launches"][k]
                           for k, v in fields["launches"].items()}
     return eng, cfg, fields
@@ -3838,6 +4032,414 @@ def reference_moe(torch, M, get_smoke_config, kernels, dev="cuda"):
                                      f"{total}")
         res[arch] = out
     return res
+
+
+# ---------------------------------------------------------------------------
+# the tenth path: the vlm and encdec families (requests with extras)
+# ---------------------------------------------------------------------------
+
+def _nbytes(node) -> int:
+    if isinstance(node, dict):
+        return sum(_nbytes(v) for v in node.values())
+    return node.numel() * node.element_size()
+
+
+def _numel(node) -> int:
+    if isinstance(node, dict):
+        return sum(_numel(v) for v in node.values())
+    return node.numel()
+
+
+def _extras_wave_bound(torch, eng, cfg, lengths) -> dict:
+    """Least time of one decode wave of ``len(lengths)`` rows at
+    positions ``lengths``: the weights the wave reads once (the vlm's
+    trunk and untied head, not its embedding table or projector; the
+    encdec's decoder and tied table), each row's K/V pages below its
+    position (and the encdec's cross K/V) read once, against two
+    operations a weight and row at the bf16 rate."""
+    p = eng.params
+    B = len(lengths)
+    parts = ([p["trunk"], p["unembed"], p["final_norm"]]
+             if cfg.family == "vlm" else [p["decoder"], p["embed"],
+                                          p["dec_ln"]])
+    weight = sum(_nbytes(x) for x in parts)
+    kv_row = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim
+    kv = sum(lengths) * kv_row * _pool(eng)["k"].element_size()
+    cross = (0 if cfg.family == "vlm" else B * kv_row * cfg.encoder_seq
+             * eng.cache["cross_k"].element_size())
+    ms, by = _roofline(weight + kv + cross,
+                       2 * B * sum(_numel(x) for x in parts), "bfloat16")
+    return {"bound_ms": ms, "bound_by": by, "weight_bytes": weight,
+            "weight_bytes_ms": weight / HBM_BYTES_PER_S * 1e3,
+            "kv_bytes": kv, "cross_kv_bytes": cross}
+
+
+def _extras_drive(torch, kernels, serve, M, eng, cfg, int8: bool, traffic,
+                  dev):
+    """Serve ``traffic`` (each request with its image or audio) through
+    ``eng``: every layer of every decode wave through ``paged_attention``
+    and, on an int8 pool, every layer of every extend wave through
+    ``paged_extend_attention`` (a float pool's extend waves read through
+    the gather, as in JAX); a prompt must catch up.  Then times and
+    profiles one 4-slot decode wave beside its bound."""
+    from repro_torch.configs import get_config
+    L = cfg.num_layers
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_attention": L * eng.decode_waves,
+        "paged_extend_attention": L * eng.extend_waves if int8 else 0},
+        needs=("paged_attention",) + (("paged_extend_attention",)
+                                      if int8 else ()),
+        traffic=traffic)
+    full = get_config(cfg.name).num_layers
+    if L != full:
+        fields["depth_cut"] = (f"{L} of {full} layers (the one cut; every "
+                               "width as published)")
+    if eng.extend_waves == 0:
+        raise AssertionError(f"{cfg.name}: no prompt caught up")
+    lengths, bt, pos, tok = _wave_state(torch, eng, cfg, 1, dev)
+
+    def wave():
+        return M.decode_step_paged(cfg, eng.params, eng.cache, tok, pos, bt,
+                                   True)
+    fields.update(
+        catch_chunk=eng.K, chunked_prefill=eng.chunked,
+        extras={k: list(v.shape) for k, v in
+                eng.completed[0].extras.items()},
+        decode_wave_lengths=lengths,
+        decode_wave_ms=cuda_ms(torch, lambda i: wave(), iters=10, warmup=2),
+        decode_wave_profile=_device_profile(torch, wave),
+        decode_wave_bound=_extras_wave_bound(torch, eng, cfg,
+                                             [n + 1 for n in lengths]))
+    return fields
+
+
+def _vlm_config(scale):
+    """internvl2-76b at full width and VLM_LAYERS of its layers (or the
+    smoke config)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    if scale == "smoke":
+        return get_smoke_config(VLM_ARCH)
+    return get_config(VLM_ARCH).replace(num_layers=VLM_LAYERS)
+
+
+def serve_vlm_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
+    """Drive the tenth main path's vlm: internvl2-76b at full width,
+    VLM_LAYERS deep, bf16 weights from seed 0 through ``model.init_params``
+    and ``EdgeServingEngine`` (``launch.serve.build_engine`` builds every
+    layer, 141 GB) on a bf16 pool at VLM_SERVE, VLM_TRAFFIC with one
+    image a request; returns (engine, cfg, phase fields)."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    clock = serve.default_clock
+    t0 = clock()
+    cfg = _vlm_config(scale)
+    if torch.device(dev).type == "cuda":
+        cfg = cfg.replace(param_dtype=cfg.dtype)
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    eng = EdgeServingEngine(cfg, params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, **VLM_SERVE), device=dev)
+    _sync(torch)
+    init_s = clock() - t0
+    fields = _extras_drive(torch, kernels, serve, M, eng, cfg, False,
+                           VLM_TRAFFIC, dev)
+    fields.update(
+        init_s=init_s, heads=[cfg.num_heads, cfg.num_kv_heads, cfg.head_dim],
+        d_ff=cfg.d_ff, vocab=cfg.vocab_size,
+        image_tokens=[cfg.num_image_tokens, cfg.image_embed_dim],
+        weight_gb=_nbytes(params) / 1e9)
+    return eng, cfg, fields
+
+
+def serve_vlm_int8_phase(torch, kernels, serve, M, eng0, cfg, vlm_tokens,
+                         dev="cuda"):
+    """The same weights and traffic on an int8 pool: catch-up waves
+    through ``paged_extend_attention``; then every layer's kernel read
+    against the gather read on identical inputs and a copy of the same
+    pool at float32 activations (``_layerwise_blocks`` over
+    ``model.paged_layers``), for a decode and a 16-token extend wave.
+    Tokens are reported against ``serve_vlm``'s by the int8 gate."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    eng = EdgeServingEngine(cfg, eng0.params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, quant_kv="int8",
+        **VLM_SERVE), device=eng0.device)
+    fields = _extras_drive(torch, kernels, serve, M, eng, cfg, True,
+                           VLM_TRAFFIC, dev)
+    tokens = {r.uid: list(r.generated) for r in eng.completed}
+    first, lcp, total = _int8_gate(tokens, vlm_tokens)
+    fields.update(bf16_first_tokens_equal=f"{first}/{len(vlm_tokens)}",
+                  bf16_lcp_share=lcp / total,
+                  bf16_tokens_equal=tokens == vlm_tokens)
+    S = eng.K
+    _, bt, pos, tok = _wave_state(torch, eng, cfg, S, dev)
+    cfg32 = cfg.replace(dtype="float32")
+    blocks = {
+        "decode": (tok[:, :1], lambda lp, x, pg, k: T.block_decode_paged(
+            cfg32, lp, x, pg, pos, bt, k)),
+        "extend": (tok, lambda lp, x, pg, k: T.block_extend_paged(
+            cfg32, lp, x, pos, pg, bt, None, use_pallas=k))}
+    for name, (tokens_in, block) in blocks.items():
+        err, ok = _layerwise_blocks(torch, cfg32, eng.params, eng.cache,
+                                    tokens_in, block)
+        fields[f"{name}_layerwise_max_abs_err"] = err
+        if not ok:
+            raise AssertionError(f"serve_vlm_int8: {name} kernel read "
+                                 f"differs from the gather read on "
+                                 f"identical inputs by {err}")
+    fields["layer_tolerance"] = TOL["float32"]
+    del eng
+    _release(torch)
+    return fields
+
+
+def _vlm_shared_requests(cfg, request_cls) -> list:
+    """serve_shared's household traffic (``_shared_requests``) with one
+    image for users 0-7 (seed 1), and a ninth user with another image
+    (seed 2) and user 1's text."""
+    import numpy as np
+    shape = (cfg.num_image_tokens, cfg.image_embed_dim)
+    image, other = (np.random.default_rng(s).normal(0, 0.1, shape)
+                    .astype(np.float32) for s in (1, 2))
+    reqs = _shared_requests(cfg, request_cls)
+    for r in reqs:
+        r.extras = {"image_embeds": image}
+    reqs.append(request_cls(uid=SHARED_USERS, max_new_tokens=SHARED_NEW,
+                            prompt=reqs[1].prompt.copy(),
+                            extras={"image_embeds": other}))
+    return reqs
+
+
+def serve_vlm_shared_phase(torch, kernels, serve, M, params, cfg,
+                           dev="cuda"):
+    """internvl2 at ``ServeConfig()``'s other defaults (the radix prefix
+    cache on, not chunked) with max_len 1024, buckets to 512 and the
+    hand-written reads, over ``_vlm_shared_requests``.  Predicted from
+    the schedule before the run: user 0 alone to its first token
+    publishes its chain past the shared text, so users 1-7 each hit
+    exactly the image and the shared text (256 + 210 tokens: 7 hits,
+    3262 hit tokens), and the ninth user, whose image differs, misses
+    (2 misses).  Each request's acquired context is recorded at its
+    admission.  ``paged_attention`` == layers x decode waves, no page
+    leaked; the hit rows' first tokens equal a cold engine's, their
+    longest common prefix with it reported."""
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    L, P = cfg.num_layers, cfg.num_image_tokens
+    share = P + SHARED_SYS + SHARED_PERSONA
+    predicted = {"hits": SHARED_USERS - 1, "misses": 2,
+                 "hit_tokens": (SHARED_USERS - 1) * share}
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**VLM_SHARED_SERVE),
+                            device=dev)
+    if not (eng.sharable and eng.paged and not eng.chunked):
+        raise AssertionError("serve_vlm_shared: the prefix cache is off")
+    acquired = {}
+    lookup = eng._lookup
+
+    def recording(req):
+        lookup(req)
+        acquired[req.uid] = req._ctx_len
+    eng._lookup = recording
+    reqs = _vlm_shared_requests(cfg, Request)
+    run = _shared_drive(torch, kernels, serve, eng, reqs)
+    del eng._lookup
+    st = eng.stats()
+    expect = dict.fromkeys(kernels, 0)
+    expect["paged_attention"] = L * run["decode_waves"]
+    run.update({k: st[f"prefix_{k}"] for k in (
+        "hits", "misses", "hit_tokens", "hit_tokens_block", "cached_blocks")})
+    run.update(cow_forks=st["cow_forks"], predicted=predicted,
+               acquired_context=acquired, image_tokens=P)
+    if run["launches"] != expect or run["decode_waves"] == 0:
+        raise AssertionError(f"serve_vlm_shared: launches "
+                             f"{run['launches']}, expected {expect}")
+    if {k: run[k] for k in predicted} != predicted or acquired != {
+            u: (0 if u in (0, SHARED_USERS) else share)
+            for u in range(SHARED_USERS + 1)}:
+        raise AssertionError(f"serve_vlm_shared: {st}, acquired "
+                             f"{acquired}, predicted {predicted}")
+    _check_pool(eng, "serve_vlm_shared")
+    del eng
+    _release(torch)
+    cold_eng = EdgeServingEngine(cfg, params, ServeConfig(
+        **VLM_SHARED_SERVE, prefix_cache=False), device=dev)
+    cold_reqs = _vlm_shared_requests(cfg, Request)
+    cold = _shared_drive(torch, kernels, serve, cold_eng, cold_reqs)
+    _check_pool(cold_eng, "serve_vlm_shared cold")
+    del cold_eng
+    _release(torch)
+    hot_tok = {r.uid: list(r.generated) for r in reqs[1:]}
+    cold_tok = {r.uid: list(r.generated) for r in cold_reqs[1:]}
+    first, lcp, total = _int8_gate(hot_tok, cold_tok)
+    run.update(arch=cfg.name, depth=L, cold={k: cold[k] for k in (
+        "tok_per_s", "ms_per_step", "ttft_user0_ms", "ttft_users1_7_p50_ms",
+        "steps", "decode_waves", "extend_waves")},
+        hit_first_tokens_equal_cold=f"{first}/{len(hot_tok)}",
+        hit_lcp_share_cold=lcp / total,
+        hit_tokens_equal_cold=hot_tok == cold_tok)
+    # every hit row's first token (its suffix prefill's own output over
+    # the image and text read from shared pages) must equal the cold
+    # row's; the tokens after it are reported: at bf16 with random
+    # weights a 32-layer trunk leaves near-tied logits that the two
+    # reads' rounding flips, and the rows then drift (PERF.md, section 6)
+    if first != len(hot_tok):
+        raise AssertionError(f"serve_vlm_shared: hit rows against cold: "
+                             f"first {first}/{len(hot_tok)}, LCP "
+                             f"{lcp}/{total}")
+    return run
+
+
+def serve_vlm_spec_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
+    """internvl2 served speculatively on an int8 pool at VLM_SERVE
+    (``spec_gamma=4``, ``quant_draft``) with ``make_draft``'s explicit
+    draft of the first VLM_DRAFT_LAYERS layers, quantized to int8 by the
+    engine: the draft prefills its own image prefix (the projector is
+    the verify model's), every wave is an extend wave through
+    ``paged_extend_attention`` (layers x waves), no wave decodes, and
+    every draft forward call (counted around ``SpecDecoder``) runs its 7
+    projections a layer through ``quant_matmul``."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    dcfg, dparams = make_draft(cfg, params, VLM_DRAFT_LAYERS)
+    eng = EdgeServingEngine(cfg, params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, quant_kv="int8", **SPEC,
+        **VLM_SERVE), device=dev, draft=(dcfg, dparams))
+    del dparams
+    if eng.spec is None or eng.spec.prefix != cfg.num_image_tokens:
+        raise AssertionError("serve_vlm_spec: the draft has no image prefix")
+    calls = {"_decode": 0, "_prefill": 0}
+    _count_calls(eng.spec, calls, calls)
+    L = cfg.num_layers
+    fields = _drive(torch, kernels, serve, eng, cfg, lambda: {
+        "paged_extend_attention": L * eng.extend_waves,
+        "quant_matmul": 7 * VLM_DRAFT_LAYERS * sum(calls.values())},
+        needs=("paged_extend_attention", "quant_matmul"),
+        traffic=VLM_TRAFFIC)
+    st = eng.stats()
+    if st["spec_rounds"] < 1 or not st["quant_draft"] \
+            or eng.decode_waves != 0:
+        raise AssertionError(f"serve_vlm_spec: {st} with "
+                             f"{eng.decode_waves} decode waves")
+    fields.update(
+        draft_layers=VLM_DRAFT_LAYERS, draft_image_prefix=eng.spec.prefix,
+        draft_calls=dict(calls), verify_width=eng.K,
+        spec_rounds=st["spec_rounds"], spec_proposed=st["spec_proposed"],
+        spec_accepted=st["spec_accepted"],
+        spec_acceptance=st["spec_acceptance"],
+        acceptance_note="both models have random weights: acceptance near "
+        "0 is expected and is no target",
+        draft_int8_projection_bytes=_projection_bytes(eng.spec.params))
+    del eng
+    _release(torch)
+    return fields
+
+
+def serve_whisper_phase(torch, kernels, serve, M, scale="full", dev="cuda"):
+    """Drive the tenth main path's encdec: whisper-base at full size
+    through ``launch.serve.build_engine`` on a bf16 and an int8 pool at
+    WHISPER_SERVE, WHISPER_TRAFFIC with one 1500 x 512 audio a request
+    (decoder layers x decode waves through ``paged_attention``, and x
+    extend waves through ``paged_extend_attention`` on int8 pages), then
+    the serve CLI at its defaults; returns (the bf16 engine, cfg, phase
+    fields), the launches summing all three drives."""
+    from repro_torch.serving import EdgeServingEngine, ServeConfig
+    clock = serve.default_clock
+    t0 = clock()
+    cfg, eng = serve.build_engine(WHISPER_ARCH, scale,
+                                  dict(WHISPER_SERVE, prefix_cache=False),
+                                  dev)
+    _sync(torch)
+    init_s = clock() - t0
+    fields = {"bf16": _extras_drive(torch, kernels, serve, M, eng, cfg,
+                                    False, WHISPER_TRAFFIC, dev)}
+    fields["bf16"]["init_s"] = init_s
+    tokens = {r.uid: list(r.generated) for r in eng.completed}
+    eng8 = EdgeServingEngine(cfg, eng.params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, quant_kv="int8",
+        **WHISPER_SERVE), device=eng.device)
+    int8 = _extras_drive(torch, kernels, serve, M, eng8, cfg, True,
+                         WHISPER_TRAFFIC, dev)
+    first, lcp, total = _int8_gate(
+        {r.uid: list(r.generated) for r in eng8.completed}, tokens)
+    int8.update(bf16_first_tokens_equal=f"{first}/{len(tokens)}",
+                bf16_lcp_share=lcp / total)
+    del eng8
+    fields["int8"] = int8
+    fields["cli"] = _serve_cli(torch, kernels, serve, WHISPER_CLI_ARGV,
+                               cfg.num_layers)
+    fields.update(arch=cfg.name, encoder_layers=cfg.encoder_layers,
+                  decoder_layers=cfg.num_layers, d_model=cfg.d_model,
+                  audio_frames=cfg.encoder_seq, params=cfg.param_count(),
+                  weight_gb=_nbytes(eng.params) / 1e9, depth_cut=False,
+                  launches={k: fields["bf16"]["launches"][k]
+                            + int8["launches"][k]
+                            + fields["cli"]["launches"][k] for k in kernels})
+    _release(torch)
+    return eng, cfg, fields
+
+
+def _extras_reference_requests(cfg, request_cls) -> list:
+    """Six requests of 5-150 text tokens, each with its own image or
+    audio (seed 0), budgets that free slots at different waves."""
+    import numpy as np
+    from repro_torch.models import model as M
+    rng = np.random.default_rng(0)
+    key = M.EXTRAS_KEY[cfg.family]
+    shape = ((cfg.num_image_tokens, cfg.image_embed_dim)
+             if cfg.family == "vlm" else (cfg.encoder_seq, cfg.d_model))
+    return [request_cls(uid=u, prompt=rng.integers(
+        0, cfg.vocab_size, int(rng.integers(5, 151)), dtype=np.int32),
+        max_new_tokens=n, priority=u % 3,
+        extras={key: rng.normal(0, 0.1, shape).astype(np.float32)})
+        for u, n in enumerate((3, 8, 2, 6, 10, 4))]
+
+
+def reference_extras(torch, M, get_smoke_config, kernels, arch,
+                     dev="cuda"):
+    """``arch``'s smoke config at float32: the engine on the card (hand
+    kernels) and on the CPU (plain versions), max_len 256, buckets to
+    64 (longer prompts catch up), over ``_extras_reference_requests``.
+    On a float pool the greedy tokens must be equal; on an int8 pool
+    they meet the JAX int8 gate.  The card legs must have launched
+    ``paged_attention`` and, on int8, ``paged_extend_attention``."""
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    cfg = get_smoke_config(arch).replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    out = {"arch": arch}
+    for pool in ("float32", "int8"):
+        tokens = {}
+        for leg, leg_dev in (("cpu", "cpu"), ("card", dev)):
+            eng = EdgeServingEngine(cfg, _to(params, leg_dev), ServeConfig(
+                max_slots=3, max_len=256, prefix_cache=False,
+                prefill_buckets=(16, 32, 64), use_pallas_paged=True,
+                quant_kv="int8" if pool == "int8" else None),
+                device=leg_dev)
+            _zero(kernels)
+            for r in _extras_reference_requests(cfg, Request):
+                eng.submit(r)
+            eng.run_until_drained()
+            tokens[leg] = {r.uid: list(r.generated) for r in eng.completed}
+        launches = _counts(kernels)
+        need = ["paged_attention"] + (["paged_extend_attention"]
+                                      if pool == "int8" else [])
+        out[f"{pool}_card_launches"] = launches
+        if any(launches[n] == 0 for n in need) or eng.extend_waves == 0:
+            raise AssertionError(f"reference {arch} {pool}: launches "
+                                 f"{launches}")
+        cpu, card = tokens["cpu"], tokens["card"]
+        if set(card) != set(cpu) or len(cpu) != 6:
+            raise AssertionError(f"reference {arch} {pool}: requests "
+                                 f"{sorted(card)}")
+        if pool == "float32":
+            if card != cpu:
+                raise AssertionError(f"reference {arch}: card tokens "
+                                     f"{card} != CPU {cpu}")
+            out["float32_tokens_equal"] = True
+            continue
+        first, lcp, total = _int8_gate(card, cpu)
+        out.update(int8_first_tokens_equal=f"{first}/{len(cpu)}",
+                   int8_lcp_share=lcp / total, int8_tokens_equal=card == cpu)
+        if first != len(cpu) or lcp < INT8_LCP_SHARE * total:
+            raise AssertionError(f"reference {arch} int8: first {first}/"
+                                 f"{len(cpu)}, LCP {lcp}/{total}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4389,6 +4991,60 @@ def main() -> int:
     del eng_m
     _release(torch)
     emit("model_moe", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    eng_v, cfg_v, fields = serve_vlm_phase(torch, kernels, serve, M)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    vlm_tokens = {r.uid: list(r.generated) for r in eng_v.completed}
+    emit("serve_vlm", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = model_phase(torch, M, eng_v, cfg_v)
+    emit("model_vlm", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_vlm_int8_phase(torch, kernels, serve, M, eng_v, cfg_v,
+                                  vlm_tokens)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    params_v = eng_v.params
+    del eng_v
+    _release(torch)
+    emit("serve_vlm_int8", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_vlm_shared_phase(torch, kernels, serve, M, params_v,
+                                    cfg_v)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_vlm_shared", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = serve_vlm_spec_phase(torch, kernels, serve, M, params_v, cfg_v)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    del params_v
+    _release(torch)
+    emit("serve_vlm_spec", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    eng_w, cfg_w, fields = serve_whisper_phase(torch, kernels, serve, M)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("serve_whisper", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = model_phase(torch, M, eng_w, cfg_w)
+    del eng_w
+    _release(torch)
+    emit("model_whisper", seconds=clock() - t0, **fields)
+
+    for phase, arch in (("reference_vlm", VLM_ARCH),
+                        ("reference_encdec", WHISPER_ARCH)):
+        t0 = clock()
+        emit(phase, **reference_extras(torch, M, get_smoke_config, kernels,
+                                       arch), seconds=clock() - t0)
 
     t0 = clock()
     emit("reference_moe", **reference_moe(torch, M, get_smoke_config,

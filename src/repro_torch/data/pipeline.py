@@ -53,9 +53,11 @@ def data_iterator(cfg: ModelConfig, shape: InputShape,
                   device: DeviceLike = None) -> Iterator[dict]:
     """Yields model batches ``{"tokens", "targets"}`` (int32 on
     ``device``, default ``cuda``), this shard's rows of each global
-    step.  The stub-frontend embedding inputs of the vlm and encdec
-    families come with their slices (``batch_shapes`` raises for
-    them)."""
+    step, plus the stub frontends' embeddings where the family takes
+    them (``image_embeds`` / ``audio_embeds``): ``0.1 * randn`` from a
+    torch generator seeded as the JAX package seeds its key
+    (``(seed * 1000003 + step) % 2**31``), so the numbers are not
+    JAX's."""
     dcfg = dcfg or DataConfig()
     dev = resolve_device(device)
     shapes = M.batch_shapes(cfg, shape)
@@ -65,5 +67,14 @@ def data_iterator(cfg: ModelConfig, shape: InputShape,
         toks = synthetic_tokens(dcfg, cfg.vocab_size, local_b,
                                 shapes["tokens"].shape[1], step)
         t = torch.from_numpy(toks).to(dev)
-        yield {"tokens": t[:, :-1], "targets": t[:, 1:]}
+        batch = {"tokens": t[:, :-1], "targets": t[:, 1:]}
+        for name in ("image_embeds", "audio_embeds"):
+            if name in shapes:
+                spec = shapes[name]
+                gen = torch.Generator(device=dev).manual_seed(
+                    (dcfg.seed * 1000003 + step) % (2 ** 31))
+                batch[name] = 0.1 * torch.randn(
+                    (local_b,) + tuple(spec.shape[1:]), generator=gen,
+                    dtype=spec.dtype, device=dev)
+        yield batch
         step += 1

@@ -25,6 +25,8 @@ open handle with the error, so no caller waits forever.
     python -m repro_torch.launch.serve --arch mamba2-370m --scale full
     python -m repro_torch.launch.serve --arch zamba2-7b --scale full
     python -m repro_torch.launch.serve --arch granite-moe-1b-a400m --scale full
+    python -m repro_torch.launch.serve --arch whisper-base --scale full
+    python -m repro_torch.launch.serve --arch internvl2-76b --scale smoke
     python -m repro_torch.launch.serve --arch phi3-medium-14b --persist PATH
 
 ``--mode async`` (the default, as in the JAX CLI) submits
@@ -357,17 +359,29 @@ def _cast_like(tree, like):
 def make_requests(cfg, n: int, min_prompt: int, max_prompt: int,
                   max_new: int, policy: str) -> list:
     """``n`` requests with prompts of ``min_prompt..max_prompt`` random
-    tokens from ``np.random.default_rng(0)`` (the JAX CLI's traffic)."""
+    tokens and, for the vlm and encdec families, their stub image or
+    audio embeddings (``0.1 * normal``, float32), all from one
+    ``np.random.default_rng(0)`` in the JAX CLI's order: the JAX CLI's
+    traffic, bit for bit."""
     rng = np.random.default_rng(0)
     reqs = []
     for uid in range(n):
         length = int(rng.integers(min_prompt, max_prompt + 1))
+        extras = {}
+        if cfg.family == "vlm":
+            extras["image_embeds"] = rng.normal(
+                0, 0.1, (cfg.num_image_tokens, cfg.image_embed_dim)
+            ).astype(np.float32)
+        if cfg.family == "encdec":
+            extras["audio_embeds"] = rng.normal(
+                0, 0.1, (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
         reqs.append(Request(
             uid=uid,
             prompt=rng.integers(0, cfg.vocab_size, length, dtype=np.int32),
             max_new_tokens=max_new,
             priority=uid % 3,
-            deadline=float(uid) if policy == "edf" else None))
+            deadline=float(uid) if policy == "edf" else None,
+            extras=extras))
     return reqs
 
 

@@ -24,9 +24,12 @@ Conventions
 * The dense decode cache (``init_kv_cache`` / ``attention_decode`` /
   ``attention_extend``) covers global strips and local ring windows and
   is updated IN PLACE like the pool.
-* Not ported yet, raising ``NotImplementedError``: cross-attention
-  decode, the long-sequence (blockwise) prefill branch and the encdec
-  family's ``gelu_mlp`` / ``sinusoidal_positions``.
+* Cross attention (the encdec family's decoder reading the encoder
+  output) and the encoder's non-causal self-attention run through
+  ``attention_weights_and_out`` with no mask, as JAX computes them
+  outside any Pallas kernel.
+* Not ported yet, raising ``NotImplementedError``: the long-sequence
+  (blockwise) prefill branch.
 """
 from __future__ import annotations
 
@@ -37,7 +40,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.unported import not_ported
 
 NEG_INF = -2.0e38
 
@@ -279,6 +281,17 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return _rotate(x, *_rope_angles(positions, x.shape[-1], theta))
 
 
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embedding table (n, d), float32."""
+    half = d // 2
+    log_timescale = math.log(10_000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                  device=device))
+    scaled = torch.arange(n, dtype=torch.float32,
+                          device=device)[:, None] * inv[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # attention
 # ---------------------------------------------------------------------------
@@ -309,17 +322,19 @@ def attention_weights_and_out(q, k, v, mask, *, scale, softcap=0.0):
     """GQA attention core.
 
     q: (B, S, K, G, hd)   k, v: (B, T, K, hd)   mask: broadcast (B,1,1,S,T)
-    returns (B, S, K, G, hd).  Scores are float32 products of the
-    activation-dtype inputs (the JAX ``preferred_element_type``); both
-    contractions are batched matmuls over (B, K) with the G query heads
-    of a group stacked along the rows.
+    or None (every key, the JAX all-ones mask of cross and non-causal
+    attention); returns (B, S, K, G, hd).  Scores are float32 products
+    of the activation-dtype inputs (the JAX ``preferred_element_type``);
+    both contractions are batched matmuls over (B, K) with the G query
+    heads of a group stacked along the rows.
     """
     B, S, K, G, hd = q.shape
     T = k.shape[1]
     qr = q.permute(0, 2, 3, 1, 4).reshape(B, K, G * S, hd).float()
     scores = torch.matmul(qr, k.permute(0, 2, 3, 1).float())
     scores = _softcap(scores.view(B, K, G, S, T) * scale, softcap)
-    scores = torch.where(mask, scores, NEG_INF)
+    if mask is not None:
+        scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.matmul(probs.view(B, K, G * S, T), v.permute(0, 2, 1, 3))
     return out.view(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
@@ -340,19 +355,21 @@ def window_mask(s: int, t: int, window: int, q_offset=0,
 
 
 def _project_seq(cfg: ModelConfig, params, x, positions, *,
-                 is_global: bool):
+                 is_global: bool, kv_x=None):
     """Shared q/k/v projection + qk-norm + RoPE for the full-sequence
-    paths (``attention_fwd`` and the paged extend).  The JAX function's
-    cross-attention source ``kv_x`` belongs to the enc-dec slice."""
+    paths (``attention_fwd`` and the paged extend).  ``kv_x`` (B, T, d)
+    is a cross-attention source: k and v are projected from it and
+    nothing is rotated."""
     q = weight_einsum("bsd,dhq->bshq", x, params["wq"])
-    k = weight_einsum("btd,dkq->btkq", x, params["wk"])
-    v = weight_einsum("btd,dkq->btkq", x, params["wv"])
+    src = x if kv_x is None else kv_x
+    k = weight_einsum("btd,dkq->btkq", src, params["wk"])
+    v = weight_einsum("btd,dkq->btkq", src, params["wv"])
 
     if cfg.use_qk_norm:
         q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, cfg.norm_eps)
 
-    if not cfg.use_abs_pos:
+    if not cfg.use_abs_pos and kv_x is None:
         theta = (cfg.rope_theta_global
                  if (is_global and cfg.rope_theta_global) else cfg.rope_theta)
         sin, cos = _rope_angles(positions, q.shape[-1], theta)  # q and k
@@ -365,31 +382,38 @@ BLOCKWISE_CHUNK = 1024
 
 
 def attention_fwd(cfg: ModelConfig, params, x, positions, *,
-                  is_global: bool, use_flash: bool = False):
-    """Full-sequence causal self-attention (training / prefill).
+                  is_global: bool, kv_x=None, causal: bool = True,
+                  use_flash: bool = False):
+    """Full-sequence attention (training / prefill).
 
-    x: (B, S, d).  ``use_flash`` sends the attention through
+    x: (B, S, d).  ``kv_x`` (B, T, d) is a cross-attention source, and
+    ``causal=False`` lets every query see every key (the encoder); both
+    take the unmasked softmax, whatever ``use_flash`` says, as in JAX.
+    Otherwise ``use_flash`` sends the causal attention through
     ``kernels.ops.flash_attention`` (the hand-written kernel on CUDA
     tensors, its plain version on CPU tensors; neither has a backward).
     Otherwise local (sliding-window) layers take the chunked O(S*W) path
     when S > 2W and S % W == 0, and the rest the plain masked softmax.
     Returns (out (B,S,d), k, v) — k/v returned for cache construction.
     The JAX function's blockwise branch (S >= 8192) raises
-    ``NotImplementedError`` here; its cross-attention / non-causal
-    arguments belong to the enc-dec slice.
+    ``NotImplementedError`` here.
     """
     B, S, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
 
-    q, k, v = _project_seq(cfg, params, x, positions, is_global=is_global)
+    q, k, v = _project_seq(cfg, params, x, positions, is_global=is_global,
+                           kv_x=kv_x)
 
     T = k.shape[1]
     qg = q.reshape(B, S, K, G, hd)
 
     window = 0 if is_global else cfg.local_window
-    if use_flash:
+    if kv_x is not None or not causal:
+        out = attention_weights_and_out(qg, k, v, None, scale=scale,
+                                        softcap=cfg.attn_logit_softcap)
+    elif use_flash:
         from repro_torch.kernels import ops as kernel_ops
         out = kernel_ops.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), scale=scale,
@@ -509,18 +533,29 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
     slot lies in [0, pos] and, on a local layer, above ``pos -
     local_window``.  A row that writes past its frontier (the draft's
     parked writes) only ever overwrites entries above that frontier on
-    a strip.  Enc-dec cross attention is a later slice.  Returns (out
-    (B, 1, d), cache).
+    a strip.  ``cross_kv`` = (k, v), each (B, T, K, hd), is the encdec
+    decoder's cross attention: the query attends all T entries, nothing
+    is rotated or written, and the cache comes back untouched.  Returns
+    (out (B, 1, d), cache).
     """
-    if cross_kv is not None:
-        raise _not_ported("cross-attention decode", "A.9.3 (encdec family)")
     B, S, d = x.shape
     assert S == 1
-    pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
-                                             device=x.device), (B,))
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     G = H // K
     scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+    if cross_kv is not None:
+        q = weight_einsum("bsd,dhq->bshq", x, params["wq"])
+        if cfg.use_qk_norm:
+            q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
+        k, v = cross_kv
+        out = attention_weights_and_out(q.reshape(B, 1, K, G, hd), k, v,
+                                        None, scale=scale,
+                                        softcap=cfg.attn_logit_softcap)
+        o = weight_einsum("bshq,hqd->bsd", out.reshape(B, 1, H, hd),
+                          params["wo"])
+        return o, cache
+    pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
+                                             device=x.device), (B,))
 
     q, knew, vnew = _decode_project(cfg, params, x, pos, is_global=is_global)
 
@@ -1045,6 +1080,27 @@ def mlp(params, x, activation="silu"):
     return weight_einsum("bsf,fd->bsd", h, params["w_down"])
 
 
+def init_gelu_mlp(cfg: ModelConfig, gen, stack=(), dtype=torch.float32,
+                  device=None):
+    """Whisper-style 2-matrix GELU MLP with biases (zero at init)."""
+    d, f = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=dtype, device=device)
+    return {
+        "w_in": _dense_init(gen, (d, f), stack, **kw),
+        "b_in": _zeros((f,), stack, **kw),
+        "w_out": _dense_init(gen, (f, d), stack, in_axis_size=f, **kw),
+        "b_out": _zeros((d,), stack, **kw),
+    }
+
+
+def gelu_mlp(params, x):
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(weight_einsum("bsd,df->bsf", x, params["w_in"])
+               + params["b_in"].to(x.dtype), approximate="tanh")
+    return weight_einsum("bsf,fd->bsd", h, params["w_out"]) \
+        + params["b_out"].to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
@@ -1082,10 +1138,3 @@ def init_unembed(cfg: ModelConfig, gen, dtype=torch.float32, device=None):
     return {"w": _dense_init(gen, (cfg.d_model, cfg.vocab_size),
                              dtype=dtype, device=device)}
 
-
-# the encdec family's pieces (A.9.3)
-gelu_mlp = not_ported("repro.models.layers.gelu_mlp", "A.9.3 (encdec family)")
-init_gelu_mlp = not_ported("repro.models.layers.init_gelu_mlp",
-                           "A.9.3 (encdec family)")
-sinusoidal_positions = not_ported("repro.models.layers.sinusoidal_positions",
-                                  "A.9.3 (encdec family)")

@@ -1,12 +1,13 @@
 """Unified model API (PyTorch port of ``repro.models.model``).
 
-The same entry points, dispatched on ``cfg.family``; the port has the
-dense family (``models.transformer``), the moe family (``models.moe``:
+The same entry points, dispatched on ``cfg.family``, over all six
+families: dense (``models.transformer``), moe (``models.moe``:
 capacity-dispatched experts, and dense first layers where the config
-has them), the ssm family (``models.ssm``) and the hybrid family
-(``models.hybrid``: mamba blocks and one shared attention block), and
-every other family raises ``NotImplementedError`` naming its ROADMAP
-item:
+has them), ssm (``models.ssm``), hybrid (``models.hybrid``: mamba
+blocks and one shared attention block), vlm (``models.vlm``: projected
+image tokens before the dense trunk's text) and encdec
+(``models.encdec``: an audio encoder and a decoder with cross
+attention):
 
     init_params(cfg, generator, device)           -> params
     forward(cfg, params, tokens, use_kernel=...)  -> logits (B, S, V)
@@ -33,8 +34,8 @@ item:
 The JAX entry points return new caches; these update the cache's
 tensors in place and return the same cache (``prefill`` makes a new
 one, as in JAX).  ``batch`` is a dict of ``tokens`` / ``targets`` (and
-an optional ``loss_mask``); the vlm and encdec families' embedding
-inputs come with their slices.
+an optional ``loss_mask``), plus the stub frontends' embeddings:
+``image_embeds`` (vlm) or ``audio_embeds`` (encdec).
 """
 from __future__ import annotations
 
@@ -44,22 +45,25 @@ import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
-from repro_torch.models import hybrid, moe, ssm, transformer
+from repro_torch.models import encdec, hybrid, moe, ssm, transformer, vlm
 
 _FAMILIES = {"dense": transformer, "moe": moe, "ssm": ssm,
-             "hybrid": hybrid}
-_FAMILY_ITEMS = {"vlm": "A.9.2", "encdec": "A.9.3"}
+             "hybrid": hybrid, "encdec": encdec, "vlm": vlm}
+# the stub frontends' embedding input of each family that takes one
+EXTRAS_KEY = {"vlm": "image_embeds", "encdec": "audio_embeds"}
 
 
 def family_module(cfg: ModelConfig):
-    if cfg.family in _FAMILIES:
-        return _FAMILIES[cfg.family]
-    item = _FAMILY_ITEMS.get(cfg.family)
-    if item is None:
+    if cfg.family not in _FAMILIES:
         raise ValueError(cfg.family)
-    raise NotImplementedError(
-        f"the {cfg.family} family is not ported to repro_torch yet "
-        f"(ROADMAP {item})")
+    return _FAMILIES[cfg.family]
+
+
+def _extras(cfg: ModelConfig, batch: dict) -> dict:
+    """The family's embedding keyword from ``batch`` (none for the
+    token-only families)."""
+    key = EXTRAS_KEY.get(cfg.family)
+    return {} if key is None else {key: batch.get(key)}
 
 
 def init_params(cfg: ModelConfig, generator=None, device: DeviceLike = None):
@@ -94,6 +98,10 @@ def apply(cfg: ModelConfig, params, batch: dict, *, use_flash: bool = False,
     if cfg.family == "moe":
         return moe.forward(cfg, params, tokens, use_flash=use_flash,
                            remat=remat)
+    if cfg.family in EXTRAS_KEY:
+        return family_module(cfg).forward(
+            cfg, params, tokens, batch[EXTRAS_KEY[cfg.family]],
+            use_flash=use_flash, remat=remat), zero
     return family_module(cfg).forward(cfg, params, tokens,
                                       use_flash=use_flash, remat=remat), zero
 
@@ -104,7 +112,7 @@ def loss_fn(cfg: ModelConfig, params, batch: dict, **opts):
     the batch has one.  Returns (loss, {"ce", "aux"})."""
     logits, aux = apply(cfg, params, batch, **opts)
     targets = batch["targets"]
-    logits = logits[:, -targets.shape[1]:]
+    logits = logits[:, -targets.shape[1]:]   # vlm: align to the text
     logp = torch.log_softmax(logits.float(), dim=-1)
     del logits
     nll = -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
@@ -127,12 +135,25 @@ class TensorSpec(NamedTuple):
 
 
 def batch_shapes(cfg: ModelConfig, shape: InputShape) -> dict:
-    """``TensorSpec`` of every model input of a train/prefill batch."""
-    if cfg.family in ("vlm", "encdec"):
-        family_module(cfg)
+    """``TensorSpec`` of every model input of a train/prefill batch, in
+    the JAX order: the vlm's text is ``seq_len - num_image_tokens`` long
+    beside its image embeddings; the encdec's audio embeddings are
+    (encoder_seq, d_model) a row."""
     B, S = shape.global_batch, shape.seq_len
-    return {"tokens": TensorSpec((B, S), torch.int32),
-            "targets": TensorSpec((B, S), torch.int32)}
+    i32, act = torch.int32, cfg.activation_dtype
+    if cfg.family == "vlm":
+        S_text = S - cfg.num_image_tokens
+        return {"tokens": TensorSpec((B, S_text), i32),
+                "image_embeds": TensorSpec(
+                    (B, cfg.num_image_tokens, cfg.image_embed_dim), act),
+                "targets": TensorSpec((B, S_text), i32)}
+    if cfg.family == "encdec":
+        return {"tokens": TensorSpec((B, S), i32),
+                "audio_embeds": TensorSpec(
+                    (B, cfg.encoder_seq, cfg.d_model), act),
+                "targets": TensorSpec((B, S), i32)}
+    return {"tokens": TensorSpec((B, S), i32),
+            "targets": TensorSpec((B, S), i32)}
 
 
 def count_params(params) -> int:
@@ -164,7 +185,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int, *,
     decodes exactly like an unpadded one.  ``use_kernel`` sends the ssm
     and hybrid families' scan through ``kernels.ops.ssd_scan``;
     ``use_flash`` is the attention families' switch (the hybrid's shared
-    block included)."""
+    block included).  The vlm and encdec families read their embeddings
+    from ``batch``; the vlm's ``true_len`` counts text tokens."""
     if cfg.family == "ssm":
         return ssm.prefill(cfg, params, batch["tokens"], max_len,
                            use_kernel=use_kernel, true_len=true_len)
@@ -174,7 +196,8 @@ def prefill(cfg: ModelConfig, params, batch: dict, max_len: int, *,
                               true_len=true_len)
     return family_module(cfg).prefill(cfg, params, batch["tokens"], max_len,
                                       use_flash=use_flash,
-                                      true_len=true_len)
+                                      true_len=true_len,
+                                      **_extras(cfg, batch))
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
@@ -237,7 +260,9 @@ def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
     that read the shared prefix's pages (only where
     ``prefix_sharable(cfg)``; ``ctx_len`` is token-granular and both
     tables are then the row's full block table); ``write_tables=None``
-    is the dense engine's admission into ``max_len`` strips.  Returns
+    is the dense engine's admission into ``max_len`` strips.  The vlm
+    and encdec families read their embeddings from ``batch`` (a vlm hit
+    row ignores them: its chain covers the image).  Returns
     (last-true-token logits, cache)."""
     if cfg.family == "ssm":
         return ssm.prefill_paged(
@@ -253,14 +278,15 @@ def prefill_paged(cfg: ModelConfig, params, batch: dict, max_len, cache, *,
     return family_module(cfg).prefill_paged(
         cfg, params, batch["tokens"], max_len, cache, slots=slots,
         write_tables=write_tables, ctx_tables=ctx_tables, ctx_len=ctx_len,
-        true_len=true_len, use_flash=use_flash)
+        true_len=true_len, use_flash=use_flash, **_extras(cfg, batch))
 
 
 def paged_layers(cfg: ModelConfig, params, cache):
     """(layer params, layer pool) view pairs of every paged layer of a
-    paged cache, in the order the trunk runs them: the dense family's
-    global layers (``transformer.paged_layers``), or the moe family's
-    dense layers then its moe layers (``moe.paged_layers``)."""
+    paged cache, in the order the trunk runs them: the dense and vlm
+    families' global layers (``transformer.paged_layers``), the moe
+    family's dense layers then its moe layers (``moe.paged_layers``), or
+    the encdec decoder's layers (their self attention is paged)."""
     return family_module(cfg).paged_layers(cfg, params, cache)
 
 

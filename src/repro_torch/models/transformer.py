@@ -266,10 +266,23 @@ def trunk_fwd(cfg: ModelConfig, trunk: Params, x, positions, *,
     return x
 
 
-def forward(cfg: ModelConfig, params: Params, tokens, *, use_flash=False,
-            remat: Optional[str] = None):
-    """Full-sequence logits (B, S, V). tokens: (B, S)."""
+def _with_prefix(cfg: ModelConfig, params: Params, tokens, prefix_embeds):
+    """Token embeddings (B, S_text, d) behind the optional (B, P, d)
+    prefix embeddings (the vlm's projected image tokens); returns (x,
+    P)."""
     x = L.embed(cfg, params["embed"], tokens)
+    if prefix_embeds is None:
+        return x, 0
+    return (torch.cat([prefix_embeds.to(x.dtype), x], dim=1),
+            prefix_embeds.shape[1])
+
+
+def forward(cfg: ModelConfig, params: Params, tokens, *, prefix_embeds=None,
+            use_flash=False, remat: Optional[str] = None):
+    """Full-sequence logits (B, P + S, V). tokens: (B, S); the optional
+    ``prefix_embeds`` (B, P, d) go first (the vlm's image tokens), and
+    logits cover the whole sequence."""
+    x, _ = _with_prefix(cfg, params, tokens, prefix_embeds)
     B, S, _ = x.shape
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
@@ -509,13 +522,14 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
     cache of B rows sized ``max_len``: strips and rings).  ``true_len``
     (int | (B,) int32) marks right-padded rows: logits come from each
     row's true last token and pad positions stay out of the cache, so a
-    padded prefill decodes exactly like an unpadded one.  VLM prefix
-    embeddings belong to the vlm slice."""
-    if prefix_embeds is not None:
-        raise L._not_ported("prefix embeddings", "A.9.2 (vlm family)")
-    x = L.embed(cfg, params["embed"], tokens)
+    padded prefill decodes exactly like an unpadded one.
+    ``prefix_embeds`` (B, P, d) go before the tokens at positions [0, P)
+    (the vlm's image tokens); ``true_len`` counts text tokens and is
+    offset by P here."""
+    x, P = _with_prefix(cfg, params, tokens, prefix_embeds)
     B, S, _ = x.shape
     n = broadcast_true_len(true_len, B, x.device)
+    n = None if n is None else n + P
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
     cache = _cache(cfg, B, max_len, L.init_kv_cache(
@@ -559,16 +573,17 @@ def prefill_paged(cfg: ModelConfig, params: Params, tokens, max_len,
     (``pattern_period <= 1``) takes context.  With ``write_tables=None``
     this is the dense engine's admission: the same prefill math, its
     global K/V filled into ``max_len`` strips scattered at ``slots``.
-    VLM prefix embeddings belong to the vlm slice.  Returns
-    (last-true-token logits (m, 1, V), cache)."""
-    if prefix_embeds is not None:
-        raise L._not_ported("prefix embeddings", "A.9.2 (vlm family)")
+    ``prefix_embeds`` (m, P, d) go before a cold row's tokens (the vlm's
+    image tokens; ``write_tables`` then covers P + S positions) and
+    ``true_len`` counts text tokens.  Returns (last-true-token logits
+    (m, 1, V), cache)."""
     if ctx_tables is not None and cfg.pattern_period > 1:
         raise ValueError("prefix-cache context requires a fully-paged "
                          "trunk (pattern_period <= 1)")
-    x = L.embed(cfg, params["embed"], tokens)
+    x, P = _with_prefix(cfg, params, tokens, prefix_embeds)
     B, S, _ = x.shape
     n = broadcast_true_len(true_len, B, x.device)
+    n = None if n is None else n + P
     off = (torch.zeros((B,), dtype=torch.int32, device=x.device)
            if ctx_len is None
            else torch.as_tensor(ctx_len, dtype=torch.int32, device=x.device))

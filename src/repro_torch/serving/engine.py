@@ -94,6 +94,19 @@ a store — equal a cold run's.  Configs whose decode state is not all in
 pages (gemma's local rings, the ssm and hybrid recurrences) never
 share: the cache stays off.
 
+Extras (the vlm and encdec families): a request carries its image or
+audio embeddings in ``Request.extras``, and they enter the state only
+through the admission prefill: such a request never takes the chunked
+wave admission (under ``chunked_prefill`` it prefills the smallest
+bucket, the rest catching up through waves), its admission group is
+keyed by the extras' keys and shapes, and the extras are stacked per
+group.  The vlm's image occupies positions [0, num_image_tokens) of the
+slot's pages before the prompt (``_prefix``).  Its chains live in a
+namespace digested from the extras' bytes (``_key_ns``), keyed with -42
+pseudo-tokens for the image positions, so only requests with identical
+extras share, and a vlm match that does not cover the whole image is a
+miss.
+
 MoE capacity (the moe family, ``models.moe``): an expert takes at most
 ``capacity(cfg, N)`` tokens of a call, with N the call's static token
 count: a decode wave's ``max_slots`` rows (idle slots ride along with
@@ -533,18 +546,26 @@ class EdgeServingEngine:
             self.scfg.seed)
         self._rng = np.random.default_rng(self.scfg.seed)
 
+    @property
+    def _prefix(self) -> int:
+        """Positions before the prompt in a slot's pages: the vlm's image
+        tokens."""
+        return self.cfg.num_image_tokens if self.cfg.family == "vlm" else 0
+
     def submit(self, req: Request) -> None:
-        if req.extras:
-            raise NotImplementedError(
-                "requests with extras (VLM images, enc-dec audio) are not "
-                "ported to repro_torch yet (ROADMAP A.9)")
-        limit = self.scfg.max_len - 1
+        """Queue ``req``.  ``req.extras`` carries the stub frontends'
+        embeddings, one request's row each (no batch axis): the vlm's
+        ``image_embeds`` (num_image_tokens, image_embed_dim) and the
+        encdec's ``audio_embeds`` (encoder_seq, d_model), as numpy
+        arrays, as in JAX; the image takes ``num_image_tokens`` of the
+        ``max_len`` budget."""
+        limit = self.scfg.max_len - 1 - self._prefix
         if req.saved_state is None:
             if len(req.prompt) > limit:
                 raise ValueError(
                     f"prompt length {len(req.prompt)} exceeds max_len "
                     f"budget {limit} (max_len={self.scfg.max_len})")
-            worst = len(req.prompt) + req.max_new_tokens
+            worst = self._prefix + len(req.prompt) + req.max_new_tokens
         else:
             st = req.saved_state
             pend = st.get("pending")
@@ -598,14 +619,35 @@ class EdgeServingEngine:
         return sample_from_logits(logits, temp, top_k, self._rng)
 
     # -- prefix-cache keys ---------------------------------------------
+    def _key_ns(self, req: Request) -> int:
+        """Namespace of a request's chains: 0 without extras, else a
+        digest of its non-token inputs (sha1 over the sorted keys and
+        each extra's bytes, the JAX engine's), so requests whose K/V
+        depends on an image or audio share only with identical ones.
+        Memoized on the request: its extras do not change, and
+        ``_publish_frontiers`` asks once per page crossing."""
+        ns = getattr(req, "_ns_digest", None)
+        if ns is not None:
+            return ns
+        if not req.extras:
+            ns = 0
+        else:
+            h = hashlib.sha1()
+            for k in sorted(req.extras):
+                h.update(k.encode())
+                h.update(np.ascontiguousarray(req.extras[k]).tobytes())
+            ns = int.from_bytes(h.digest()[:8], "little") & (2 ** 63 - 1)
+        req._ns_digest = ns
+        return ns
+
     def _key_tokens(self, req: Request) -> np.ndarray:
         """The token sequence whose positions map 1:1 onto the slot's
-        pages: the prompt, then the tokens generated and not yet folded
-        into it (the caller takes the KV-valid prefix).  Chains live in
-        the cache's namespace 0: a request's K/V depends on its tokens
-        alone, since ``submit`` refuses extras (A.9), whose digest would
-        namespace them in JAX."""
-        parts = [np.asarray(req.prompt, np.int64)]
+        pages: -42 pseudo-tokens for the vlm's image positions (the
+        namespace pins the image), the prompt, then the tokens generated
+        and not yet folded into it (the caller takes the KV-valid
+        prefix)."""
+        parts = [np.full((self._prefix,), -42, np.int64),
+                 np.asarray(req.prompt, np.int64)]
         folded = getattr(req, "_folded_generated", 0)
         if len(req.generated) > folded:
             parts.append(np.asarray(req.generated[folded:], np.int64))
@@ -613,16 +655,26 @@ class EdgeServingEngine:
 
     def _lookup(self, req: Request) -> None:
         """Radix lookup for a fresh request: pin (incref) the longest
-        usable shared chain — token-granular, possibly ending mid-page,
-        possibly still being decoded by another slot — and keep it on the
-        request for the admission pass.  Capped one token short of the
-        prompt: the suffix prefill must produce the admission logits."""
+        usable shared chain of its namespace — token-granular, possibly
+        ending mid-page, possibly still being decoded by another slot —
+        and keep it on the request for the admission pass.  Capped one
+        token short of the prompt (the suffix prefill must produce the
+        admission logits); a vlm match shorter than the image prefix is
+        a miss (a text-only suffix prefill cannot start inside the
+        image), and its hit is rolled back."""
         self._release_ctx(req)          # drop any stale acquisition
         if not self.sharable or req.saved_state is not None:
             return
-        key = np.asarray(req.prompt, np.int64)
-        req._ctx_blocks, req._ctx_len = self.prefix_cache.match(
-            key, max_tokens=len(key) - 1)
+        key = np.concatenate([np.full((self._prefix,), -42, np.int64),
+                              np.asarray(req.prompt, np.int64)])
+        blocks, n = self.prefix_cache.match(
+            key, namespace=self._key_ns(req), max_tokens=len(key) - 1)
+        if n and n < self._prefix:
+            self.pool.free(blocks)
+            self.prefix_cache.unrecord_hit(
+                len(blocks), n, (n // self.block_size) * self.block_size)
+            blocks, n = [], 0
+        req._ctx_blocks, req._ctx_len = blocks, n
 
     def _release_ctx(self, req: Request) -> None:
         """Drop a pinned but unused chain (the request waits for the next
@@ -637,10 +689,14 @@ class EdgeServingEngine:
         req._ctx_blocks, req._ctx_len = [], 0
 
     # -- paged-pool bookkeeping ----------------------------------------
-    def _first_span(self, suffix_len: int) -> int:
+    def _first_span(self, req: Request, suffix_len: int) -> int:
         """Tokens a request's FIRST admission step covers: the bucketed
-        prefill normally; under chunked_prefill the first wave span."""
+        prefill normally; under chunked_prefill the first wave span, but
+        a request with extras still prefills (its image or audio enters
+        only there), at most the smallest bucket."""
         if self.chunked:
+            if req.extras:
+                return min(suffix_len, self.scfg.prefill_buckets[0])
             return min(suffix_len, self.K if self.extend_ok else 1)
         return min(suffix_len, self.scfg.prefill_buckets[-1])
 
@@ -658,8 +714,13 @@ class EdgeServingEngine:
             return max(0, blocks_for_tokens(
                 int(req.saved_state["pos"]) + 1, bs) - held)
         L = getattr(req, "_ctx_len", 0)
-        n1 = self._first_span(len(req.prompt) - L)
-        return blocks_for_tokens(L + n1 + 1, bs) - L // bs
+        if L:
+            # a hit's L covers the image prefix and L - prefix prompt
+            # tokens
+            n1 = self._first_span(req, len(req.prompt) - (L - self._prefix))
+            return blocks_for_tokens(L + n1 + 1, bs) - L // bs
+        n1 = self._first_span(req, len(req.prompt))
+        return blocks_for_tokens(self._prefix + n1 + 1, bs)
 
     def _reserve(self, n: int) -> bool:
         """Make ``n`` pool pages allocatable, evicting LRU prefix-cache
@@ -730,7 +791,8 @@ class EdgeServingEngine:
             self._set_table(slot, list(getattr(req, "_ctx_blocks", None)
                                        or []))
         req._ctx_blocks, req._ctx_len = [], 0
-        suffix = np.asarray(req.prompt, np.int32)[L:]
+        # (never a request with extras: those prefill their first span)
+        suffix = np.asarray(req.prompt, np.int32)[max(0, L - self._prefix):]
         if self.spec is not None:
             # the draft prefills the full prompt (it never chunks), so
             # the slot is draft-complete once its prompt is consumed
@@ -750,7 +812,8 @@ class EdgeServingEngine:
 
     def _admit_batch(self) -> None:
         """Admit queued requests into free slots in rank order, batching
-        prefill per (bucket, context width) group — one call per group.
+        prefill per (bucket, extras signature, context width) group — one
+        call per group.
         Capacity-aware: a request is taken only if the pool, counting
         pages evictable now, can cover its suffix pages + first decode
         write; a fresh request is looked up in the prefix cache first (a
@@ -783,32 +846,40 @@ class EdgeServingEngine:
             taken.append((req, free.pop(0)))
         self.queue = kept
 
-        fresh: dict[tuple, list] = {}   # (bucket, n_ctx) -> [(req, slot)]
+        # (bucket, extras signature, n_ctx) -> [(req, slot)]
+        fresh: dict[tuple, list] = {}
         for req, slot in taken:
             if req.saved_state is not None:
                 self._admit_resumed(req, slot)
-            elif self.chunked:
+            elif self.chunked and not req.extras:
                 self._admit_wave(req, slot)
             else:
                 L = getattr(req, "_ctx_len", 0)
-                n1 = self._first_span(len(req.prompt) - L)
+                n1 = self._first_span(
+                    req, len(req.prompt) - max(0, L - self._prefix))
+                sig = tuple(sorted((k, np.shape(v))
+                                   for k, v in req.extras.items()))
                 # hit rows read and write through one full table over
                 # [0, L + n1), pow2-bucketed so mixed depths share a call
                 n_ctx = (self._pow2(blocks_for_tokens(L + n1,
                                                       self.block_size))
                          if L else 0)
-                fresh.setdefault((self._bucket(n1), n_ctx), []).append(
-                    (req, slot))
-        for (bucket, n_ctx), group in fresh.items():
-            self._admit_group(bucket, n_ctx, group)
+                fresh.setdefault((self._bucket(n1), sig, n_ctx),
+                                 []).append((req, slot))
+        for (bucket, sig, n_ctx), group in fresh.items():
+            self._admit_group(bucket, sig, n_ctx, group)
 
-    def _admit_group(self, bucket: int, n_ctx: int, group) -> None:
+    def _admit_group(self, bucket: int, extras_sig: tuple, n_ctx: int,
+                     group) -> None:
         """One fused admission call: batched (suffix-)prefill that writes
         prompt K/V straight into the slots' pages (without pages, each
-        row's state into its slot's cache rows).  ``n_ctx`` > 0 means
-        every row is a prefix-cache hit admitted at its chain's end,
-        which may be mid-page: that page is forked here so the suffix
-        write never lands in a page the cache or a reader still holds."""
+        row's state into its slot's cache rows).  Rows share the extras
+        signature (keys and shapes), stacked into the batch.  ``n_ctx``
+        > 0 means every row is a prefix-cache hit admitted at its chain's
+        end, which may be mid-page: that page is forked here so the
+        suffix write never lands in a page the cache or a reader still
+        holds.  A cold vlm row writes its image prefix and text from
+        position 0."""
         bs = self.block_size
         if self.paged:
             # a row whose pages cannot be covered even after eviction (a
@@ -853,14 +924,15 @@ class EdgeServingEngine:
         true_len = np.zeros((m,), np.int32)
         ctx_len = np.zeros((m,), np.int32)
         # hit rows: one full table per row from logical block 0; cold
-        # rows: the write span's table
-        n_wblk = n_ctx or (blocks_for_tokens(bucket, bs) if self.paged
-                           else 0)
+        # rows: the write span's table, the vlm's image prefix included
+        n_wblk = n_ctx or (blocks_for_tokens(self._prefix + bucket, bs)
+                           if self.paged else 0)
         tables = np.full((m, n_wblk), -1, np.int32)
         suffixes = []
         for i, (req, slot) in enumerate(group):
             L = getattr(req, "_ctx_len", 0)
-            suffix = np.asarray(req.prompt, np.int32)[L:]
+            suffix = np.asarray(req.prompt, np.int32)[
+                max(0, L - self._prefix):]
             suffixes.append(suffix)
             n1 = min(len(suffix), bucket)
             # pad value is irrelevant (true_len masks it) — repeat last tok
@@ -884,10 +956,13 @@ class EdgeServingEngine:
             # flash_attention (the dense twin passes neither)
             kw = dict(use_kernel=self._kernel_prefill,
                       use_flash=self._kernel_prefill)
+        batch = {"tokens": torch.from_numpy(prompts).to(dev)}
+        for k, _ in extras_sig:
+            batch[k] = torch.from_numpy(np.stack(
+                [np.asarray(r.extras[k]) for r, _ in group])).to(dev)
         with self._span("prefill_dispatch", bucket=bucket, rows=m):
             logits, self.cache = M.prefill_paged(
-                self.cfg, self.params,
-                {"tokens": torch.from_numpy(prompts).to(dev)},
+                self.cfg, self.params, batch,
                 self.scfg.max_len, self.cache,
                 slots=torch.tensor([s for _, s in group], dtype=torch.int32,
                                    device=dev),
@@ -918,7 +993,7 @@ class EdgeServingEngine:
                     # its pages hold a valid chain: index it
                     if self.paged:
                         self._retire_chain(req, self.slot_blocks[slot],
-                                           L + n1)
+                                           (L or self._prefix) + n1)
                         self._set_table(slot, [])
                     req.done = True
                     self.completed.append(req)
@@ -926,7 +1001,7 @@ class EdgeServingEngine:
                                  n_generated=len(req.generated))
                     self._slot_end(slot)
                     continue
-            self.pos[slot] = L + n1
+            self.pos[slot] = (L or self._prefix) + n1
             if remainder.size:
                 # long prompt: catch up through extend waves
                 self.pending[slot] = remainder[1:]
@@ -1406,7 +1481,8 @@ class EdgeServingEngine:
                 continue                      # reclaim-rebuilt slot mid-fold
             blocks = self.slot_blocks[s][:n_blk]
             self.pool.share(blocks)
-            dups = self.prefix_cache.insert(key[:frontier], blocks)
+            dups = self.prefix_cache.insert(key[:frontier], blocks,
+                                            namespace=self._key_ns(req))
             self.pool.free(dups)
             self.slot_published[s] = frontier
             self.published_frontiers += 1
@@ -1423,7 +1499,8 @@ class EdgeServingEngine:
             return
         key = self._key_tokens(req)[:n_valid]
         nb = blocks_for_tokens(n_valid, self.block_size)
-        leftovers = self.prefix_cache.insert(key, blocks[:nb])
+        leftovers = self.prefix_cache.insert(key, blocks[:nb],
+                                             namespace=self._key_ns(req))
         self.pool.free(list(leftovers) + list(blocks[nb:]))
 
     def _finish(self, slot: int, req: Request) -> None:

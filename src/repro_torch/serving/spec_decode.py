@@ -29,8 +29,9 @@ early-exit head, sharing its embeddings and stacked trunk by reference.
 
 Differences from the JAX module: the draft cache is updated in place,
 and ``SpecDecoder`` routes its forward calls through ``_prefill`` and
-``_decode`` (a caller may wrap them to count them).  Only token-only
-dense drafts are ported: the engine refuses requests with extras.
+``_decode`` (a caller may wrap them to count them).  A vlm or encdec
+draft prefills from the requests' own extras (the same family's image
+or audio embeddings), a vlm draft's image prefix before the prompt.
 """
 from __future__ import annotations
 
@@ -196,7 +197,8 @@ class SpecDecoder:
     over FULL prompts, and the per-round proposal loop.
 
     ``draft_pos[slot]`` counts the cache positions holding committed
-    context (prompt plus emitted tokens; the engine's pending
+    context (a vlm draft's own image prefix, the prompt and the emitted
+    tokens; the engine's pending
     ``tokens[slot]`` is not yet written on either side).  One round
     writes the whole verify feed; ``advance(slot, n_acc + 1)`` moves the
     frontier past the fed tokens that became context, and rejected
@@ -219,9 +221,16 @@ class SpecDecoder:
     @property
     def prefix(self) -> int:
         """Positions before the prompt in the draft's cache: the image
-        tokens of a vlm draft, which the port does not serve yet (A.9.2),
-        so 0."""
-        return 0
+        tokens of a vlm draft."""
+        return (self.cfg.num_image_tokens if self.cfg.family == "vlm"
+                else 0)
+
+    def _batch_keys(self) -> tuple:
+        """The request extras the draft prefills from (a same-family
+        draft of the vlm or encdec family; ``validate_spec`` refuses a
+        cross-family one)."""
+        key = M.EXTRAS_KEY.get(self.cfg.family)
+        return () if key is None else (key,)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -237,19 +246,21 @@ class SpecDecoder:
         return (greedy.cpu().numpy(),
                 logits.cpu().numpy() if need_logits else None)
 
-    def _prefill(self, tokens, true_len):
-        """Draft prefill of ``m`` right-padded prompt rows: a dense
-        m-row cache sized ``max_len``."""
-        _, rows = M.prefill(self.cfg, self.params, {"tokens": tokens},
+    def _prefill(self, tokens, true_len, extras):
+        """Draft prefill of ``m`` right-padded prompt rows and their
+        stacked ``extras``: a dense m-row cache sized ``max_len``."""
+        _, rows = M.prefill(self.cfg, self.params,
+                            {"tokens": tokens, **extras},
                             self.max_len, true_len=true_len)
         return rows
 
     # -- admission ------------------------------------------------------
     def admit_group(self, reqs, slots) -> None:
         """Batched draft prefill of the FULL prompts of one admission
-        group, inserted row-wise at ``slots``.  Prompts are padded (with
-        their last token) to a shared power-of-two bucket; ``true_len``
-        keeps the padding out of the cache."""
+        group, inserted row-wise at ``slots``, a vlm draft's image
+        prefix first.  Prompts are padded (with their last token) to a
+        shared power-of-two bucket; ``true_len`` keeps the padding out of
+        the cache."""
         from repro_torch.serving.engine import extract_slot, insert_slot
         m = len(reqs)
         n_max = max(len(r.prompt) for r in reqs)
@@ -262,11 +273,15 @@ class SpecDecoder:
             prompts[i, :len(p)] = p
             prompts[i, len(p):] = p[-1]
             true_len[i] = len(p)
-        rows = self._prefill(self._tensor(prompts), self._tensor(true_len))
+        extras = {k: self._tensor(np.stack([np.asarray(r.extras[k])
+                                            for r in reqs]))
+                  for k in self._batch_keys()}
+        rows = self._prefill(self._tensor(prompts), self._tensor(true_len),
+                             extras)
         for i, slot in enumerate(slots):
             insert_slot(self.cache, extract_slot(rows, i, self.axes), slot,
                         self.axes)
-            self.draft_pos[slot] = int(true_len[i])
+            self.draft_pos[slot] = self.prefix + int(true_len[i])
 
     # -- proposals ------------------------------------------------------
     def propose(self, spec_slots, seeds, temps, topks, gamma: int, rng):

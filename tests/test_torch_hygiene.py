@@ -218,7 +218,48 @@ def test_moe_family_is_ported():
     stubs = [n for n in names
              if getattr(getattr(moe, n), "roadmap_item", None) is not None]
     assert stubs == []
-    assert model._FAMILIES["moe"] is moe and "moe" not in model._FAMILY_ITEMS
+    assert model._FAMILIES["moe"] is moe
     cites = [str(p.relative_to(ROOT)) for p in SOURCES
              if "A.9.1" in p.read_text()]
+    assert cites == []
+
+
+def test_vlm_encdec_families_are_ported():
+    """A.9.2's vlm and A.9.3's encdec families are the port's own:
+    ``models.vlm`` and ``models.encdec`` hold every public name of their
+    JAX modules working, the layer functions the encdec family brought
+    are no stand-ins, the model API dispatches to both (no family is
+    left to refuse), the engine takes requests with extras, and no
+    source of the port cites A.9.2 or A.9.3 as unported."""
+    import numpy as np
+    from repro.models import encdec as jax_encdec
+    from repro.models import vlm as jax_vlm
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import encdec, layers, model, vlm
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    stubs = []
+    for jax_mod, mod in ((jax_vlm, vlm), (jax_encdec, encdec)):
+        names = _public_names(jax_mod)
+        assert {"init_params", "prefill_paged", "extend"} <= set(names)
+        stubs += [n for n in names
+                  if getattr(getattr(mod, n), "roadmap_item", None)
+                  is not None]
+    stubs += [n for n in ("gelu_mlp", "init_gelu_mlp", "sinusoidal_positions")
+              if getattr(getattr(layers, n), "roadmap_item", None)
+              is not None]
+    assert stubs == []
+    assert model._FAMILIES["vlm"] is vlm and model._FAMILIES["encdec"] is encdec
+    assert not getattr(model, "_FAMILY_ITEMS", None)
+    cfg = get_smoke_config("internvl2-76b")
+    import torch
+    eng = EdgeServingEngine(cfg, model.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"), ServeConfig(),
+        device="cpu")
+    eng.submit(Request(uid=0, prompt=np.arange(4, dtype=np.int32),
+                       extras={"image_embeds": np.zeros(
+                           (cfg.num_image_tokens, cfg.image_embed_dim),
+                           np.float32)}))
+    assert len(eng.queue) == 1
+    cites = [str(p.relative_to(ROOT)) for p in SOURCES
+             if "A.9.2" in p.read_text() or "A.9.3" in p.read_text()]
     assert cites == []

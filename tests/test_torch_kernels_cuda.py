@@ -269,6 +269,26 @@ def test_kernel_granite_moe_shape(device, dtype, q_dtype):
     assert torch.equal(out, pa.paged_attention(*args, **kw))
 
 
+@pytest.mark.parametrize("dtype,q_dtype", PAGES, ids=PAGE_IDS)
+@pytest.mark.parametrize("name,H,K,hd", [("internvl2", 64, 8, 128),
+                                         ("whisper", 8, 8, 64)],
+                         ids=["internvl2-G8", "whisper-G1"])
+def test_kernel_vlm_and_encdec_shapes(device, dtype, q_dtype, name, H, K,
+                                      hd):
+    """internvl2-76b's layers (H=64 over K=8: G = 8 at hd 128) and
+    whisper-base's decoder (MHA: G = 1 at hd 64, each row alone in its
+    tile), 64-page tables (max_len 1024), ragged rows, one over the
+    whole table."""
+    args, scales = _case(device, dtype, q_dtype, B=4, H=H, K=K, hd=hd,
+                         nB=272, n_blk=64, seed=29,
+                         lengths=[1024, 17, 530, 273])
+    kw = dict(scale=hd ** -0.5, **scales)
+    out = pa.paged_attention(*args, **kw)
+    torch.testing.assert_close(out.float(), _plain(args, **kw),
+                               **TOL[q_dtype])
+    assert torch.equal(out, pa.paged_attention(*args, **kw))
+
+
 # ---------------------------------------------------------------------------
 # paged_extend_attention
 # ---------------------------------------------------------------------------
@@ -408,13 +428,17 @@ def test_extend_kernel_takes_rows_past_the_first_versions_limit(device):
 
 # (name, B, S, H, K, hd, n_blk): the widths an int8 catch-up wave may have
 # at gemma3-1b's global layers (the first version refused S >= 22) and at
-# phi3's (S >= 41), a row count one past a 64-row tile (G = 1), and
-# granite-moe-1b-a400m's served chunks (G = 2, hd 64)
+# phi3's (S >= 41), a row count one past a 64-row tile (G = 1),
+# granite-moe-1b-a400m's served chunks (G = 2, hd 64), internvl2-76b's
+# verify and catch-up waves (G = 8 at hd 128: 40 and 128 rows) and
+# whisper-base's catch-up (G = 1 at hd 64)
 EXTEND_WIDTHS = [("gemma", 4, S, 4, 1, 256, 128) for S in (16, 21, 22, 64,
                                                          512)] \
     + [("phi3", 4, S, 40, 10, 128, 32) for S in (41, 64)] \
     + [("tile+1", 2, 65, 4, 4, 128, 16), ("tile+4", 2, 17, 8, 2, 64, 16)] \
-    + [("granite", 4, S, 16, 8, 64, 128) for S in (16, 64)]
+    + [("granite", 4, S, 16, 8, 64, 128) for S in (16, 64)] \
+    + [("internvl2", 4, S, 64, 8, 128, 64) for S in (5, 16)] \
+    + [("whisper", 4, 16, 8, 8, 64, 64)]
 
 
 @pytest.mark.parametrize("name,B,S,H,K,hd,n_blk", EXTEND_WIDTHS,
@@ -608,6 +632,26 @@ def test_quant_matmul_prefill_shapes(device, M, K, N, x_dtype):
     torch.cuda.synchronize()
     exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
     torch.testing.assert_close(out.float(), exp, **QM_TOL[x_dtype])
+
+
+# internvl2-76b's int8 draft projections (K, N): K = 8192 and 28672
+QM_VLM = [(8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192)]
+
+
+@pytest.mark.parametrize("K,N", QM_VLM, ids=[f"{k}x{n}" for k, n in QM_VLM])
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 64, 768])
+def test_quant_matmul_vlm_draft_shapes(device, M, K, N):
+    """Both kernels at internvl2-76b's projections, the GEMV at the
+    decode rows and the M > 8 kernel at a draft admission's (768 = one
+    row of 256 image and 512 text positions), K split as the plans
+    say."""
+    x, wq, scale = _qm_case(device, M, K, N, torch.bfloat16, seed=M + K)
+    out = qm.quant_matmul(x, wq, scale, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    exp = ref.quant_matmul_ref(x, wq, scale, out_dtype=torch.float32)
+    torch.testing.assert_close(out, exp, **QM_TOL[torch.float32])
+    assert torch.equal(out, qm.quant_matmul(x, wq, scale,
+                                            out_dtype=torch.float32))
 
 
 # per tile of the M > 8 kernel, shapes its plan maps to that tile on a

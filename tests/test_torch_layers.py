@@ -555,7 +555,9 @@ def test_attention_decode_dense(cfgs):
 def test_attention_decode_local_ring_raises():
     """The local ring branch is ported: the 12-entry cache read as a
     ring (write at ``pos % 12``, slots inside gemma's window) gives the
-    JAX output and cache; cross attention still raises (A.9.3)."""
+    JAX output and cache.  The name is older than the encdec port: the
+    cross-attention branch, which raised before it, now gives the JAX
+    output over 12 entries and leaves the cache untouched."""
     jcfg, cfg = GEMMA
     rng = _rng(41)
     cache, pos = _dense_state(rng, cfg)
@@ -569,9 +571,16 @@ def test_attention_decode_local_ring_raises():
     _close(out, jout)
     for k in ("k", "v", "slots"):
         _close(mine[k], jcache[k])
-    with pytest.raises(NotImplementedError, match="A.9.3"):
-        L.attention_decode(cfg, _t(p), _t(x), mine, torch.from_numpy(pos),
-                           is_global=False, cross_kv=(mine["k"], mine["v"]))
+    before = {k: v.clone() for k, v in mine.items()}
+    out, ret = L.attention_decode(cfg, _t(p), _t(x), mine,
+                                  torch.from_numpy(pos), is_global=False,
+                                  cross_kv=(mine["k"], mine["v"]))
+    jout, _ = JL.attention_decode(jcfg, _j(p), _j(x), jcache,
+                                  jnp.asarray(pos), is_global=False,
+                                  cross_kv=(jcache["k"], jcache["v"]))
+    _close(out, jout)
+    assert ret is mine
+    assert all(torch.equal(mine[k], before[k]) for k in mine)
 
 
 # ---------------------------------------------------------------------------

@@ -245,11 +245,14 @@ def test_init_params_matches_jax_layout(models):
 @pytest.mark.parametrize("arch", ["gemma3-1b", "whisper-base",
                                   "granite-moe-1b-a400m"])
 def test_unported_configs_raise(arch):
-    """Unported families raise at ``init_params``; gemma's local:global
-    pattern trains, evaluates and serves through the paged engine, and
-    (ported since, A.4) admits into the dense twin's strips and rings
-    (``write_tables=None``); the moe family (ported since, A.9.1) builds
-    its params and admits into the page pool."""
+    """Once the unported families' raise at ``init_params``; all are
+    ported now.  Gemma's local:global pattern trains, evaluates and
+    serves through the paged engine, and (ported since, A.4) admits into
+    the dense twin's strips and rings (``write_tables=None``); the moe
+    family (ported since, A.9.1) builds its params and admits into the
+    page pool; whisper (the encdec family, ported since, A.9.3) builds
+    its params and admits a row with its audio: self K/V into the pool,
+    cross K/V into the row's slot."""
     cfg = get_smoke_config(arch)
     if cfg.family == "dense":
         params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -269,8 +272,19 @@ def test_unported_configs_raise(arch):
         assert logits.shape == (1, 1, cfg.vocab_size)
         assert bool(cache["moe_layers"]["k"][:, 2, :4].abs().sum() > 0)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    cache = M.init_paged_cache(cfg, 2, 32, 4, 8, device="cpu")
+    audio = torch.randn((1, cfg.encoder_seq, cfg.d_model),
+                        generator=torch.Generator().manual_seed(1))
+    logits, _ = M.prefill_paged(
+        cfg, params, {"tokens": torch.zeros((1, 4), dtype=torch.int32),
+                      "audio_embeds": audio},
+        32, cache, slots=torch.ones((1,), dtype=torch.int32),
+        write_tables=torch.tensor([[2]], dtype=torch.int32))
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert bool(cache["self"]["k"][:, 2, :4].abs().sum() > 0)
+    assert bool(cache["cross_k"][:, 1].abs().sum() > 0)
+    assert float(cache["cross_k"][:, 0].abs().sum()) == 0.0
 
 
 def test_capability_flags_match_jax():

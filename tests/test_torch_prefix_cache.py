@@ -451,9 +451,11 @@ def test_published_pages_survive_writer_rollback(models):
 
 @pytest.mark.parametrize("arch", ["phi3-medium-14b", "gemma3-1b",
                                   "mamba2-370m", "zamba2-7b",
-                                  "granite-moe-1b-a400m", "kimi-k2-1t-a32b"])
+                                  "granite-moe-1b-a400m", "kimi-k2-1t-a32b",
+                                  "internvl2-76b", "whisper-base"])
 def test_serve_config_defaults_serve_every_family(arch):
-    """``ServeConfig()`` constructs and serves each ported family; the
+    """``ServeConfig()`` constructs and serves each ported family (the
+    vlm and encdec requests with one image or audio between them); the
     cache is armed exactly where ``model.prefix_sharable``; the tracer's
     fields, ported last, construct too."""
     cfg = get_smoke_config(arch)
@@ -465,9 +467,17 @@ def test_serve_config_defaults_serve_every_family(arch):
     assert (eng.prefix_cache is not None) == M.prefix_sharable(cfg)
     rng = np.random.default_rng(0)
     sys_prompt = rng.integers(0, cfg.vocab_size, 20, dtype=np.int32)
+    extras = {}
+    if cfg.family == "vlm":
+        extras["image_embeds"] = rng.normal(
+            0, 0.1, (cfg.num_image_tokens, cfg.image_embed_dim)
+        ).astype(np.float32)
+    if cfg.family == "encdec":
+        extras["audio_embeds"] = rng.normal(
+            0, 0.1, (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
     reqs = [Request(uid=u, prompt=np.concatenate(
         [sys_prompt, rng.integers(0, cfg.vocab_size, 3, dtype=np.int32)]),
-        max_new_tokens=3) for u in range(2)]
+        max_new_tokens=3, extras=dict(extras)) for u in range(2)]
     _drain(eng, reqs[:1])
     assert len(_drain(eng, reqs[1:])) == 2
     st = eng.stats()
