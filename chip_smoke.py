@@ -8,7 +8,8 @@ Phases, one JSON line each; any failure raises and the script exits
 non-zero without printing a result:
 
 1. env      — torch / CUDA versions, the card, ``nvidia-smi`` name and
-              power limit; TF32 switched off for matmuls and cuDNN.
+              power limit, the idle card's power draw (5 readings before
+              any work); TF32 switched off for matmuls and cuDNN.
 2. build    — ``nvcc`` builds every kernel library from the sources in
               the checkout (one process per source, all at once).
 3. kernels  — each kernel against its plain PyTorch version on the card
@@ -344,6 +345,49 @@ non-zero without printing a result:
               prefix-cache engine on an int8 pool on the card meets the
               JAX matrix's int8 gate against them.
 
+The hub's phases (the EdgeAI-Hub core and the federated round), in
+the order they run among the above:
+
+39. split   — after ``serve_traced``, on its phi3-medium-14b weights:
+              ``choose_split`` for each non-hub device of
+              ``default_home()`` at 4 x 256 tokens (printed), then
+              ``split_forward`` at each distinct chosen cut, the middle
+              cut 20 and the ends 0 and 40 on 4 x 256 seeded tokens: the
+              ends equal ``T.forward`` within 2**-8 x max |logit|, the
+              middle cuts within the JAX test's 0.05 x (max + 1) at 8
+              bits and 4 bits further off, the payload ``wire_bytes``;
+              head, wire and tail device ms at the middle cut.  No kernel
+              launches (the plain attention, as in JAX).
+40. early_exit — the same weights with exit heads after layers 9, 19
+              and 29: ``serve_early_exit`` at threshold 0.0 runs 10
+              layers (0.75 of the FLOPs saved) and at 1.1 all 40, the
+              last entry of ``forward_with_exits`` equals ``T.forward``,
+              ``exit_loss`` finite; wall ms of the eager pass against the
+              pass that never exits.
+41. federated — after ``model_train``: gemma3-1b at full size, float32
+              weights from seed 0, through ``EdgeAIHub.federated_round``
+              on alice's personal data: 4 clients offered, 2 kept by the
+              trust zones, 2 local SGD steps each on 2 x 2 x 256 tokens,
+              clip 1.0, DP noise 0.01, SecAgg; the same round without
+              noise equals the unmasked round within 1e-6, every clipped
+              delta's norm <= 1, the noise's std sigma within 1%; the
+              held-out CE before and after through ``flash_attention``
+              (26 launches a forward); local step ms, round s, peak GB.
+42. hub     — after ``serve_async``: ``EdgeAIHub.create(policy="edf")``
+              deploys ``serve_gemma``'s weights and serves its traffic
+              through ``hub.serve`` (tokens equal ``serve_gemma``'s,
+              ``paged_attention`` == 4 x decode waves), then the
+              federated round's params cast to bf16 on an int8 pool
+              (both paged reads); the orchestrator's days of
+              ``tests/test_system.py`` and ``examples/edge_hub_serving.py``
+              with the vacuum failing (QoE reports); the shared-context
+              space trained 150 SGD steps on the card, fused accuracy
+              above each single view's.
+43. reference_hub — last: the phi3 smoke config's ``split_forward`` and
+              ``serve_early_exit``, the gemma3-1b smoke config's
+              ``fed_round`` (no noise), the context logits, card against
+              CPU at float32; the day's report equal to ``hub``'s.
+
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -611,6 +655,20 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def idle_power_w(samples: int = 5) -> list:
+    """``nvidia-smi``'s power.draw (W), read ``samples`` times in a row
+    before the script has put any work on the card: the idle card's
+    draw, which the hub's entry in ``core.perf_model`` states."""
+    out = []
+    for _ in range(samples):
+        res = subprocess.run(
+            ["nvidia-smi", "--query-gpu=power.draw",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True)
+        out.append(float(res.stdout.strip().splitlines()[0]))
+    return out
 
 
 def ptxas_report(log: Path, contains: str) -> dict:
@@ -4789,6 +4847,637 @@ def serve_async_phase(torch, kernels, serve, eng0, cfg, gemma_tokens,
             "launches": launches_all}
 
 
+# ---------------------------------------------------------------------------
+# the hub's phases: split computing, early exit, the federated round, the
+# hub deploying and serving, and the card against the CPU at smoke size
+# ---------------------------------------------------------------------------
+
+# split computing and early exit on the serve phases' phi3-medium-14b
+# weights (bf16), at one inference batch of the hub's devices
+SPLIT_BATCH, SPLIT_SEQ = 4, 256
+# the JAX test's criterion for a cut mid-stack at 8 bits: max |split -
+# full| over max |full| + 1
+SPLIT_MID_REL = 0.05
+# a cut at 0 or at the last layer runs the same ops as ``T.forward`` (no
+# wire): equal within one bf16 rounding step of max |logit|
+SPLIT_END_REL = 2 ** -8
+EXIT_LAYERS = (9, 19, 29)
+# the federated round: gemma3-1b at full size, float32 weights as
+# ``train`` trains them; four clients offered, alice's personal data
+FED_ARCH = "gemma3-1b"
+FED_CLIENTS = ("alice-phone", "bob-phone", "living-room-tv",
+               "bob-old-phone")
+FED_ELIGIBLE = ["alice-phone", "living-room-tv"]    # tests/test_system.py
+FED_BATCHES = (2, 2, 256)        # batches a client, rows, tokens
+FED_KW = dict(local_steps=2, dp_clip=1.0, dp_noise_multiplier=0.01,
+              secure_aggregation=True)
+# the SecAgg round against the unmasked round, both without noise: the
+# N(0, 1) masks are added and taken away in float32 (rounding ~1e-7 at
+# |mask| < 8) before the two clients' sum is halved
+FED_MASK_ATOL = 1e-6
+FED_NOISE_REL = 0.01             # the added noise's std against sigma
+FED_EVAL = (2, 2048)             # the held-out batch, rows x tokens
+# the shared-context space (examples/shared_context.py's sizes): a
+# camera and a microphone observe one of 4 events through the same
+# prototypes in training and test, each view alone ambiguous
+CONTEXT = dict(sensors={"cam": 32, "mic": 16}, shared=24, classes=4,
+               train=512, test=256, steps=150, lr=0.1, noise=2.5)
+# card against CPU at smoke size, float32 (TF32 off): the same float32
+# math in another order
+HUB_REF_REL = 1e-4
+NEAR_TIE = 1e-4
+# the days of tests/test_system.py and examples/edge_hub_serving.py:
+# (streams, deadline s), (gallery batches, batch, arrival step s)
+HUB_DAYS = {"test_system": ((8, 0.25), (1, 16, 0.0)),
+            "edge_hub_serving": ((12, 0.2), (4, 32, 0.1))}
+
+
+def _tokens(torch, vocab, rows, seq, dev, seed=1):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, vocab, (rows, seq), generator=gen, device=dev)
+
+
+def _wall_ms(torch, fn, reps: int = 3) -> float:
+    """Median wall ms of ``fn()`` to a synchronised end (after one
+    warm-up call)."""
+    fn()
+    _sync(torch)
+    out = []
+    for _ in range(reps):
+        t0 = _clock_ms()
+        fn()
+        _sync(torch)
+        out.append(_clock_ms() - t0)
+    return sorted(out)[len(out) // 2]
+
+
+def split_phase(torch, kernels, params, cfg, dev="cuda"):
+    """Split computing on the serve phases' weights: for each non-hub
+    device of ``default_home()``, ``choose_split`` at SPLIT_BATCH x
+    SPLIT_SEQ (the decision printed); ``split_forward`` on seeded tokens
+    at each distinct chosen cut, at the middle cut and at both ends: the
+    ends equal ``T.forward`` within SPLIT_END_REL x max |logit|, a middle
+    cut keeps the JAX test's criterion (SPLIT_MID_REL) at 8 bits and 4
+    bits gives a larger error, the payload is ``wire_bytes``.  No kernel
+    launches (the halves run the plain attention, as in JAX).  Times the
+    head, the wire (quantize + dequantize) and the tail at the middle
+    cut."""
+    import dataclasses
+    from repro_torch.core import split as SP
+    from repro_torch.core.hub import default_home
+    from repro_torch.models import transformer as T
+    reg = default_home()
+    hub = reg.get("hub")
+    decisions = {}
+    for name in reg.names():
+        if name == "hub":
+            continue
+        h = reg.get(name)
+        decisions[name] = dataclasses.asdict(SP.choose_split(
+            cfg, h.spec, hub.spec, h.link, SPLIT_BATCH, SPLIT_SEQ))
+    n = cfg.num_layers
+    mid = n // 2
+    cuts = sorted({d["split"] for d in decisions.values()} | {0, mid, n})
+    toks = _tokens(torch, cfg.vocab_size, SPLIT_BATCH, SPLIT_SEQ, dev)
+    wire = SP.wire_bytes((SPLIT_BATCH, SPLIT_SEQ, cfg.d_model), 8)
+    _zero(kernels)
+    res = {"arch": cfg.name, "depth": n, "d_model": cfg.d_model,
+           "batch": SPLIT_BATCH, "seq": SPLIT_SEQ, "decisions": decisions,
+           "cuts": cuts, "wire_bytes_8bit": wire,
+           "end_tolerance": f"{SPLIT_END_REL} x max |logit|",
+           "mid_tolerance": f"{SPLIT_MID_REL} x (max |logit| + 1), 8 bits"}
+    with torch.no_grad():
+        full = T.forward(cfg, params, toks)
+        top = float(full.abs().max())
+        errs = {}
+        for cut in cuts:
+            out, pay = SP.split_forward(cfg, params, toks, cut, bits=8)
+            err = float((out - full).abs().max())
+            errs[cut] = err
+            end = cut in (0, n)
+            if pay != (0.0 if end else wire) or not bool(
+                    torch.isfinite(out).all()):
+                raise AssertionError(f"split: cut {cut} payload {pay} "
+                                     f"(wire {wire}) or non-finite logits")
+            if (end and err > SPLIT_END_REL * top) or (
+                    not end and err > SPLIT_MID_REL * (top + 1.0)):
+                raise AssertionError(f"split: cut {cut} differs from "
+                                     f"T.forward by {err} (max {top})")
+            del out
+        err4 = float((SP.split_forward(cfg, params, toks, mid, bits=4)[0]
+                      - full).abs().max())
+        if not err4 > errs[mid]:
+            raise AssertionError(f"split: 4 bits {err4} not above 8 bits "
+                                 f"{errs[mid]} at cut {mid}")
+        del full
+        x = SP.head_forward(cfg, params, toks, mid)
+
+        def wire_fn():
+            q, s = SP.quantize_activations(x.float(), 8)
+            return SP.dequantize_activations(q, s, cfg.activation_dtype)
+        times = {
+            "head_ms": cuda_ms(torch, lambda i: SP.head_forward(
+                cfg, params, toks, mid), iters=3, warmup=2),
+            "wire_ms": cuda_ms(torch, lambda i: wire_fn(), iters=20,
+                               warmup=2),
+            "tail_ms": cuda_ms(torch, lambda i: SP.tail_forward(
+                cfg, params, x, mid), iters=3, warmup=2)}
+    launches = _counts(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"split: kernels launched {launches}")
+    res.update({"max_abs_logit": top, "max_abs_err_8bit": errs,
+                "max_abs_err_4bit_mid": err4, "mid_cut": mid,
+                "device_ms_mid_cut": times, "launches": launches})
+    return res
+
+
+def early_exit_phase(torch, kernels, params, cfg, dev="cuda"):
+    """Early exit on the serve phases' weights with exit heads after
+    EXIT_LAYERS: ``serve_early_exit`` at threshold 0.0 leaves every row
+    at the first exit (expected layers EXIT_LAYERS[0] + 1) and at 1.1 at
+    none (all layers, nothing saved); the last entry of
+    ``forward_with_exits`` equals ``T.forward`` within SPLIT_END_REL x
+    max |logit|; ``exit_loss`` is finite.  The eager pass's wall ms
+    against the pass that never exits shows the batch skip (one host
+    sync a layer).  No kernel launches."""
+    from repro_torch.core import earlyexit as EE
+    from repro_torch.models import transformer as T
+    exits = EXIT_LAYERS
+    heads = EE.init_exit_heads(cfg, exits, device=dev)
+    toks = _tokens(torch, cfg.vocab_size, SPLIT_BATCH, SPLIT_SEQ, dev)
+    n = cfg.num_layers
+    _zero(kernels)
+    with torch.no_grad():
+        outs = EE.forward_with_exits(cfg, params, heads, toks)
+        full = T.forward(cfg, params, toks)
+        top = float(full.abs().max())
+        d_last = float((outs[-1][1] - full).abs().max())
+        layers = [i for i, _ in outs]
+        del outs, full
+        if layers != list(exits) + [n - 1] or d_last > SPLIT_END_REL * top:
+            raise AssertionError(f"early_exit: exits {layers}, last entry "
+                                 f"off T.forward by {d_last} (max {top})")
+        loss = float(EE.exit_loss(cfg, params, heads,
+                                  {"tokens": toks, "targets": toks}))
+        reps = {}
+        for th in (0.0, 1.1):
+            r = EE.serve_early_exit(cfg, params, heads, toks, threshold=th)
+            reps[th] = {"expected_layers": r.expected_layers,
+                        "flops_saved_frac": r.flops_saved_frac,
+                        "exit_layer": r.exit_layer.tolist(),
+                        "predictions_shape": list(r.predictions.shape)}
+        want = {0.0: (exits[0] + 1, 1 - (exits[0] + 1) / n), 1.1: (n, 0.0)}
+        for th, (layers_, saved) in want.items():
+            got = reps[th]
+            if got["expected_layers"] != layers_ or abs(
+                    got["flops_saved_frac"] - saved) > 1e-12:
+                raise AssertionError(f"early_exit: threshold {th}: {got}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"early_exit: exit_loss {loss}")
+        eager = _wall_ms(torch, lambda: EE.serve_early_exit(
+            cfg, params, heads, toks, threshold=0.0))
+        never = _wall_ms(torch, lambda: EE.serve_early_exit(
+            cfg, params, heads, toks, threshold=1.1))
+    launches = _counts(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"early_exit: kernels launched {launches}")
+    return {"arch": cfg.name, "depth": n, "exit_layers": list(exits),
+            "batch": SPLIT_BATCH, "seq": SPLIT_SEQ,
+            "reports": {str(k): v for k, v in reps.items()},
+            "exit_loss": loss, "last_exit_vs_forward": d_last,
+            "max_abs_logit": top, "wall_ms_eager": eager,
+            "wall_ms_never": never, "eager_over_never": eager / never,
+            "launches": launches}
+
+
+def _fed_data(cfg, dev):
+    from repro_torch.configs import InputShape
+    from repro_torch.data import DataConfig, data_iterator
+    n_b, rows, seq = FED_BATCHES
+    shape = InputShape("fl", seq, rows, "train")
+    data = {}
+    for i, name in enumerate(FED_CLIENTS):
+        it = data_iterator(cfg, shape, DataConfig(seed=i), device=dev)
+        data[name] = [next(it) for _ in range(n_b)]
+    return data
+
+
+def _heldout_ce(torch, M, cfg, params, dev):
+    from repro_torch.data import DataConfig, synthetic_tokens
+    rows, seq = FED_EVAL
+    toks = torch.from_numpy(synthetic_tokens(DataConfig(seed=99),
+                                             cfg.vocab_size, rows, seq,
+                                             0)).to(dev)
+    with torch.no_grad():
+        return float(M.loss_fn(cfg, params, {"tokens": toks[:, :-1],
+                                             "targets": toks[:, 1:]},
+                               use_flash=True)[1]["ce"])
+
+
+def _tree_diff_stats(torch, a, b):
+    """(max |a - b|, mean, std) over every leaf, in float64 sums."""
+    from repro_torch.training import optimizer as O
+    n, s, ss, top = 0, 0.0, 0.0, 0.0
+    for x, y in zip(O.tree_leaves(a), O.tree_leaves(b)):
+        d = (x.float() - y.float()).double()
+        n += d.numel()
+        s += float(d.sum())
+        ss += float((d * d).sum())
+        top = max(top, float(d.abs().max()))
+    mean = s / n
+    return top, mean, math.sqrt(max(ss / n - mean * mean, 0.0))
+
+
+def federated_phase(torch, kernels, M, dev="cuda", scale="full"):
+    """The trust-zone-gated federated round on gemma3-1b (float32 weights
+    from seed 0, as ``train`` trains them) through
+    ``EdgeAIHub.federated_round``: alice's personal data offered to four
+    clients, ``filter_devices`` keeps FED_ELIGIBLE; FedAvg + clipping +
+    SecAgg + DP noise (FED_KW), each client 2 local SGD steps on its 2
+    batches.  The same round without noise, and without SecAgg and
+    noise: the masks cancel on the card (FED_MASK_ATOL); every client's
+    clipped delta has global norm <= dp_clip; the added noise's std is
+    sigma within FED_NOISE_REL.  The held-out CE before and after is
+    scored through ``flash_attention`` (a launch a layer a forward); the
+    rounds launch no kernel.  Returns (cfg, the round's params,
+    fields)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core import trustzones as tz
+    from repro_torch.core.hub import EdgeAIHub
+    from repro_torch.training import federated as fed
+    from repro_torch.training import optimizer as O
+    cfg = (get_config if scale == "full" else get_smoke_config)(FED_ARCH)
+    on_card = dev != "cpu"
+    if on_card:
+        _sync(torch)
+        torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    data = _fed_data(cfg, dev)
+    hub = EdgeAIHub.create()
+    item = tz.DataItem("alice-voice", "personal", "alice")
+    devices = {n: (hub.registry.get(n).zone, hub.registry.get(n).owner)
+               for n in FED_CLIENTS}
+    eligible = tz.filter_devices(item, devices)
+    if eligible != FED_ELIGIBLE:
+        raise AssertionError(f"federated: eligible clients {eligible}")
+    steps_ms, clip_norms = [], []
+    sgd_step, clip = fed._sgd_step, fed.clip_update
+
+    def timed_step(*a, **k):
+        _sync(torch)
+        t0 = _clock_ms()
+        out = sgd_step(*a, **k)
+        _sync(torch)
+        steps_ms.append(_clock_ms() - t0)
+        return out
+
+    def recorded_clip(*a, **k):
+        out = clip(*a, **k)
+        clip_norms.append(float(O.global_norm(out)))
+        return out
+
+    _zero(kernels)
+    rounds, round_s = {}, {}
+    fed._sgd_step, fed.clip_update = timed_step, recorded_clip
+    try:
+        for name, kw in (("dp_secagg", FED_KW),
+                         ("secagg", dict(FED_KW, dp_noise_multiplier=0.0)),
+                         ("plain", dict(FED_KW, dp_noise_multiplier=0.0,
+                                        secure_aggregation=False))):
+            t0 = _clock_ms()
+            rounds[name] = hub.federated_round(cfg, fed.FedConfig(**kw),
+                                               params, data, item)
+            _sync(torch)
+            round_s[name] = (_clock_ms() - t0) / 1e3
+    finally:
+        fed._sgd_step, fed.clip_update = sgd_step, clip
+    launches = _counts(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"federated: kernels launched in a round "
+                             f"{launches}")
+    infos = {k: v[1] for k, v in rounds.items()}
+    if any(i["clients"] != [0, 1] for i in infos.values()):
+        raise AssertionError(f"federated: clients {infos}")
+    if max(clip_norms) > FED_KW["dp_clip"] * (1 + 1e-5):
+        raise AssertionError(f"federated: clipped norms {clip_norms}")
+    mask_err = _tree_diff_stats(torch, rounds["secagg"][0],
+                                rounds["plain"][0])[0]
+    if mask_err > FED_MASK_ATOL:
+        raise AssertionError(f"federated: the SecAgg round is {mask_err} "
+                             f"off the unmasked round")
+    sigma = FED_KW["dp_noise_multiplier"] * FED_KW["dp_clip"] / 2
+    _, noise_mean, noise_std = _tree_diff_stats(
+        torch, rounds["dp_secagg"][0], rounds["secagg"][0])
+    if abs(noise_std / sigma - 1) > FED_NOISE_REL:
+        raise AssertionError(f"federated: noise std {noise_std}, sigma "
+                             f"{sigma}")
+    new, secagg = rounds["dp_secagg"][0], rounds["secagg"][0]
+    changed = sum(not torch.equal(a, b) for a, b in zip(
+        O.tree_leaves(params), O.tree_leaves(new)))
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del rounds
+    _zero(kernels)
+    ce = {"before": _heldout_ce(torch, M, cfg, params, dev),
+          "after_dp_secagg": _heldout_ce(torch, M, cfg, new, dev),
+          "after_secagg_no_noise": _heldout_ce(torch, M, cfg, secagg, dev)}
+    score = _counts(kernels)
+    expect = dict.fromkeys(kernels, 0)
+    expect["flash_attention"] = cfg.num_layers * 3
+    if score != expect or not all(math.isfinite(v) for v in ce.values()):
+        raise AssertionError(f"federated: held-out scoring launches "
+                             f"{score} (expected {expect}), CE {ce}")
+    fields = {
+        "arch": cfg.name, "depth": cfg.num_layers, "depth_cut": False,
+        "params": M.count_params(new), "param_dtype": cfg.param_dtype,
+        "clients_offered": list(FED_CLIENTS), "clients_kept": eligible,
+        "batches_rows_tokens": FED_BATCHES, "config": FED_KW,
+        "update_norms": {k: v["update_norm"] for k, v in infos.items()},
+        "clipped_norms": clip_norms, "secagg_vs_plain_max_abs": mask_err,
+        "mask_atol": FED_MASK_ATOL, "sigma": sigma,
+        "noise_std": noise_std, "noise_mean": noise_mean,
+        "leaves_changed": changed, "heldout_ce": ce,
+        "heldout_rows_x_tokens": FED_EVAL,
+        "local_step_ms": steps_ms, "round_s": round_s,
+        "peak_mem_gb": peak, "launches": score}
+    return cfg, new, fields
+
+
+def _hub_drive(torch, kernels, serve, hub, name, cfg, int8: bool):
+    """GEMMA_TRAFFIC through ``hub.serve(name, ...)`` and the engine's
+    steps, every kernel count zeroed just before and read just after:
+    ``paged_attention`` == global layers x decode waves, and on an int8
+    pool ``paged_extend_attention`` == global layers x extend waves."""
+    eng = hub.engines[name]
+    n_global = cfg.pattern_blocks()[0]
+    reqs = serve.make_requests(cfg, *GEMMA_TRAFFIC, eng.scfg.policy)
+    _sync(torch)
+    _zero(kernels)
+    t0 = serve.default_clock()
+    for r in reqs:
+        hub.serve(name, r)
+    while eng.queue or eng.active.any():
+        eng.step()
+    _sync(torch)
+    elapsed = serve.default_clock() - t0
+    launches = _counts(kernels)
+    expect = dict.fromkeys(kernels, 0)
+    expect["paged_attention"] = n_global * eng.decode_waves
+    if int8:
+        expect["paged_extend_attention"] = n_global * eng.extend_waves
+    needs = ("paged_attention",) + (("paged_extend_attention",)
+                                    if int8 else ())
+    if launches != expect or any(launches[k] == 0 for k in needs):
+        raise AssertionError(f"hub: {name}: launches {launches} (expected "
+                             f"{expect}, none 0 of {needs})")
+    _check_pool(eng, f"hub {name}")
+    tokens = {r.uid: list(r.generated) for r in eng.completed}
+    n_tok = sum(len(t) for t in tokens.values())
+    return tokens, {
+        "requests": len(tokens), "tokens": n_tok, "steps": eng.steps,
+        "decode_waves": eng.decode_waves, "extend_waves": eng.extend_waves,
+        "elapsed_s": elapsed, "tok_per_s": n_tok / elapsed,
+        "ms_per_step": elapsed * 1e3 / eng.steps, "launches": launches}
+
+
+def _hub_day(full, streams, gallery):
+    """A day of the orchestrator: stream frames from the TV (priority 5,
+    0.05 s apart) and gallery photo batches from alice's phone, then the
+    vacuum drops out.  Returns (QoE report, the moved uids)."""
+    from repro_torch.core import trustzones as tz
+    from repro_torch.core.hub import EdgeAIHub
+    from repro_torch.core.orchestrator import TaskSpec
+    hub = EdgeAIHub.create(policy="edf")
+    n_s, dl_s = streams
+    n_g, batch_g, step_g = gallery
+    for i in range(n_s):
+        hub.submit(TaskSpec(kind="stream", model=full, batch=1, seq=256,
+                            priority=5, deadline_rel=dl_s, arrival=i * 0.05,
+                            source_device="living-room-tv"))
+    for i in range(n_g):
+        hub.submit(TaskSpec(
+            kind="inference", model=full, batch=batch_g, seq=1024,
+            priority=0, deadline_rel=30.0, arrival=i * step_g,
+            source_device="alice-phone",
+            data=tz.DataItem("gallery", "household", "alice")))
+    moved = hub.orchestrator.fail_device("vacuum")
+    return hub.run(), moved
+
+
+def _context_data(torch, n, gen, protos):
+    c = CONTEXT
+    labels = torch.randint(0, c["classes"], (n,), generator=gen,
+                           device=gen.device)
+    views = {k: protos[k][labels] + c["noise"] * torch.randn(
+        (n, d), generator=gen, device=gen.device)
+        for k, d in c["sensors"].items()}
+    return views, labels
+
+
+def context_phase(torch, dev="cuda"):
+    """The shared-context space trained for CONTEXT["steps"] SGD steps on
+    the card: a camera and a microphone see one of CONTEXT["classes"]
+    events through prototypes drawn once from a seed (training and test
+    events alike), each view alone ambiguous; the fused accuracy on the
+    test events must beat each single view's.  A second task's head
+    shares the trunk."""
+    from repro_torch.core import context as CX
+    from repro_torch.training import optimizer as O
+    c = CONTEXT
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = CX.init_context_space(gen, c["sensors"], c["shared"],
+                                   c["classes"], device=dev)
+    CX.add_task_head(params, "intent", c["classes"])
+    CX.add_task_head(params, "intrusion", c["classes"])
+    data_gen = torch.Generator(device=dev).manual_seed(1)
+    protos = {k: torch.randn((c["classes"], d), generator=data_gen,
+                             device=dev)
+              for k, d in c["sensors"].items()}
+    views, labels = _context_data(torch, c["train"], data_gen, protos)
+    tviews, tlabels = _context_data(torch, c["test"], data_gen, protos)
+    static = {k: params[k] for k in ("_key", "shared_dim", "hidden")}
+    q = {k: v for k, v in params.items() if k not in static}
+    losses = []
+    t0 = _clock_ms()
+    for _ in range(c["steps"]):
+        leaves = [x.detach().requires_grad_() for x in O.tree_leaves(q)]
+        loss = CX.context_loss({**O.tree_unflatten(q, leaves), **static},
+                               "intent", views, labels)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        with torch.no_grad():
+            q = O.sgd_update(q, O.tree_unflatten(q, grads), c["lr"])
+        losses.append(float(loss.detach()))
+    train_ms = _clock_ms() - t0
+    params = {**q, **static}
+
+    def acc(sub):
+        with torch.no_grad():
+            logits = CX.multiview_logits(params, "intent",
+                                         {k: tviews[k] for k in sub})
+        return float((logits.argmax(-1) == tlabels).float().mean())
+    res = {"fused": acc(("cam", "mic")), "cam_only": acc(("cam",)),
+           "mic_only": acc(("mic",))}
+    if not res["fused"] > max(res["cam_only"], res["mic_only"]):
+        raise AssertionError(f"context: fused accuracy {res}")
+    with torch.no_grad():
+        second = CX.multiview_logits(params, "intrusion", tviews)
+    return {"sizes": c, "accuracy": res,
+            "loss_first_last": [losses[0], losses[-1]],
+            "train_ms": train_ms, "second_task_logits": list(second.shape),
+            "device": str(second.device)}
+
+
+def hub_phase(torch, kernels, serve, eng0, cfg, gemma_tokens, fed_params,
+              dev="cuda"):
+    """The hub's story on the card: ``EdgeAIHub.create(policy="edf")``
+    deploys ``serve_gemma``'s weights as "assistant" at its settings
+    (bf16 pool, kernel reads) and serves GEMMA_TRAFFIC through
+    ``hub.serve``: tokens equal ``serve_gemma``'s.  The federated
+    round's params, cast to the serving dtype, are deployed as
+    "personal" on an int8 pool and serve the same traffic through both
+    paged reads.  Then the orchestrator's days (HUB_DAYS, the vacuum
+    failing) and the shared-context space (``context_phase``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.hub import EdgeAIHub
+    from repro_torch.serving import ServeConfig
+    hub = EdgeAIHub.create(policy="edf")
+    hub.deploy_model("assistant", cfg, eng0.params, ServeConfig(
+        prefix_cache=False, use_pallas_paged=True, **GEMMA_SERVE),
+        device=dev)
+    tokens, assistant = _hub_drive(torch, kernels, serve, hub, "assistant",
+                                   cfg, False)
+    if tokens != gemma_tokens:
+        raise AssertionError("hub: the assistant's tokens differ from "
+                             "serve_gemma's")
+    launches = dict(assistant["launches"])
+    hub.deploy_model("personal", cfg, serve._cast_like(fed_params,
+                                                       eng0.params),
+                     ServeConfig(prefix_cache=False, use_pallas_paged=True,
+                                 quant_kv="int8", **GEMMA_SERVE),
+                     device=dev)
+    ptokens, personal = _hub_drive(torch, kernels, serve, hub, "personal",
+                                   cfg, True)
+    for k, v in personal["launches"].items():
+        launches[k] += v
+    first, lcp, total = _int8_gate(ptokens, tokens)
+    personal["vs_assistant"] = {"first_equal": first, "lcp": lcp,
+                                "tokens": total}
+    full = get_config(FED_ARCH)
+    days = {}
+    for name, (streams, gallery) in HUB_DAYS.items():
+        t0 = _clock_ms()
+        report, moved = _hub_day(full, streams, gallery)
+        days[name] = {"qoe": report, "moved": moved,
+                      "host_ms": _clock_ms() - t0}
+    day = days["test_system"]["qoe"]
+    if day["completed"] != 9 or day["miss_rate"] > 0.25:
+        raise AssertionError(f"hub: test_system's day {day}")
+    del hub
+    return {"arch": cfg.name, "assistant": assistant,
+            "assistant_tokens_equal_serve_gemma": True,
+            "personal": personal, "days": days,
+            "context": context_phase(torch, dev), "launches": launches}
+
+
+def reference_hub(torch, M, get_smoke_config, days, dev="cuda"):
+    """The hub's pieces at smoke size, card against CPU at float32 (TF32
+    off): ``split_forward`` logits at every cut of the phi3 smoke config
+    within HUB_REF_REL x max; ``serve_early_exit``'s reports (exit layers
+    and expected layers equal, predictions equal but at near-ties: top-2
+    margins under NEAR_TIE on the CPU); ``fed_round`` without noise on
+    the gemma3-1b smoke config (SecAgg on: each device draws its own
+    masks, which cancel) within HUB_REF_REL x max |param| +
+    FED_MASK_ATOL; the context space's logits within HUB_REF_REL x max;
+    the orchestrator's day report equal to the ``hub`` phase's."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.core import context as CX
+    from repro_torch.core import earlyexit as EE
+    from repro_torch.core import split as SP
+    from repro_torch.data import DataConfig, data_iterator
+    from repro_torch.training import federated as fed
+    from repro_torch.training import optimizer as Opt
+    res = {"tolerance": f"{HUB_REF_REL} x max |value|"}
+    cfg = get_smoke_config(ARCH).replace(dtype="float32")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (4, 16),
+                         generator=torch.Generator().manual_seed(1))
+    card_p, card_t = _to(params, dev), toks.to(dev)
+    worst = 0.0
+    with torch.no_grad():
+        for cut in range(cfg.num_layers + 1):
+            a = SP.split_forward(cfg, params, toks, cut)[0]
+            b = SP.split_forward(cfg, card_p, card_t, cut)[0].cpu()
+            worst = max(worst, float((a - b).abs().max())
+                        / float(a.abs().max()))
+    if worst > HUB_REF_REL:
+        raise AssertionError(f"reference_hub: split logits {worst}")
+    res["split_rel_err"] = worst
+    heads = EE.init_exit_heads(cfg, (0,), device="cpu")
+    card_h = {"exits": [_to(h, dev) for h in heads["exits"]],
+              "exit_layers": heads["exit_layers"]}
+    with torch.no_grad():
+        outs = EE.forward_with_exits(cfg, params, heads, toks)
+    conf = torch.softmax(outs[0][1], -1).amax(-1).mean(-1).sort().values
+    top2 = [lg.topk(2, -1).values for _, lg in outs]
+    near = torch.stack([v[..., 0] - v[..., 1] for v in top2]).amin(0) \
+        < NEAR_TIE
+    ee = {}
+    for th in (0.0, 1.1, float(conf[1] + conf[2]) / 2):
+        a = EE.serve_early_exit(cfg, params, heads, toks, th)
+        b = EE.serve_early_exit(cfg, card_p, card_h, card_t, th)
+        bad = a.predictions != b.predictions.cpu()
+        if not torch.equal(a.exit_layer, b.exit_layer.cpu()) \
+                or a.expected_layers != b.expected_layers \
+                or bool((bad & ~near).any()):
+            raise AssertionError(f"reference_hub: early exit at {th}")
+        ee[str(th)] = {"expected_layers": b.expected_layers,
+                       "predictions_differ": int(bad.sum())}
+    res["early_exit"] = ee
+    fcfg = get_smoke_config(FED_ARCH).replace(dtype="float32")
+    fp = M.init_params(fcfg, torch.Generator().manual_seed(0), "cpu")
+    shape = InputShape("fl", 32, 4, "train")
+    rounds = {}
+    for leg, leg_dev in (("cpu", "cpu"), ("card", dev)):
+        data = {c: [next(data_iterator(fcfg, shape, DataConfig(seed=c),
+                                       device=leg_dev))] for c in range(2)}
+        rounds[leg] = fed.fed_round(fcfg, fed.FedConfig(
+            local_steps=1, local_lr=0.3, dp_clip=1.0,
+            secure_aggregation=True), _to(fp, leg_dev), data, 0)[0]
+    worst = 0.0
+    for a, b in zip(Opt.tree_leaves(rounds["cpu"]),
+                    Opt.tree_leaves(rounds["card"])):
+        err = float((a - b.cpu()).abs().max())
+        if err > HUB_REF_REL * float(a.abs().max()) + FED_MASK_ATOL:
+            raise AssertionError(f"reference_hub: fed_round {err}")
+        worst = max(worst, err)
+    res["fed_round_max_abs_err"] = worst
+    c = CONTEXT
+    cp = CX.init_context_space(torch.Generator().manual_seed(0),
+                               c["sensors"], c["shared"], c["classes"],
+                               device="cpu")
+    CX.add_task_head(cp, "intent", c["classes"])
+    card_cp = {"proj": _to(cp["proj"], dev), "heads": _to(cp["heads"], dev),
+               "trunk_w": cp["trunk_w"].to(dev)}
+    gen = torch.Generator().manual_seed(2)
+    views = {k: torch.randn(64, d, generator=gen)
+             for k, d in c["sensors"].items()}
+    a = CX.multiview_logits(cp, "intent", views)
+    b = CX.multiview_logits(card_cp, "intent", {
+        k: v.to(dev) for k, v in views.items()}).cpu()
+    err = float((a - b).abs().max()) / float(a.abs().max())
+    if err > HUB_REF_REL:
+        raise AssertionError(f"reference_hub: context logits {err}")
+    res["context_rel_err"] = err
+    streams, gallery = HUB_DAYS["test_system"]
+    report, _ = _hub_day(get_config(FED_ARCH), streams, gallery)
+    if report != days["test_system"]["qoe"]:
+        raise AssertionError("reference_hub: the day's report moved")
+    res["day_report_equal"] = True
+    return res
+
+
 def _to(tree, dev):
     """A copy of ``tree`` on ``dev`` whose leaves are new tensor objects
     (``detach``), so flags set on them leave ``tree`` as it was."""
@@ -4818,9 +5507,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
+    idle_w = idle_power_w()
     kind = torch.cuda.get_device_name(0)
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
-         device=kind, nvidia_smi=smi, python=sys.version.split()[0])
+         device=kind, nvidia_smi=smi, idle_power_draw_w=idle_w,
+         python=sys.version.split()[0])
 
     t0 = clock()
     libs = build.build_all()
@@ -4897,9 +5588,17 @@ def main() -> int:
     # both drives' launches, each checked equal to serve's
     for name, n in fields["launches"].items():
         launches[name] += n
+    emit("serve_traced", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    emit("split", **split_phase(torch, kernels, params, cfg),
+         seconds=clock() - t0)
+
+    t0 = clock()
+    emit("early_exit", **early_exit_phase(torch, kernels, params, cfg),
+         seconds=clock() - t0)
     del params
     _release(torch)
-    emit("serve_traced", seconds=clock() - t0, **fields)
 
     t0 = clock()
     eng_ssm, cfg_ssm, fields = serve_ssm_phase(torch, kernels, serve, M)
@@ -4926,6 +5625,13 @@ def main() -> int:
     emit("model_train", seconds=clock() - t0, **fields)
 
     t0 = clock()
+    _, fed_params, fields = federated_phase(torch, kernels, M)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    _release(torch)
+    emit("federated", seconds=clock() - t0, **fields)
+
+    t0 = clock()
     eng_g, cfg_g, fields = serve_gemma_phase(torch, kernels, serve, M)
     for name, n in fields["launches"].items():
         launches[name] += n
@@ -4949,9 +5655,17 @@ def main() -> int:
                                gemma_tokens)
     for name, n in fields["launches"].items():
         launches[name] += n
-    del eng_g
-    _release(torch)
     emit("serve_async", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = hub_phase(torch, kernels, serve, eng_g, cfg_g, gemma_tokens,
+                       fed_params)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    hub_days = fields["days"]
+    del eng_g, fed_params
+    _release(torch)
+    emit("hub", seconds=clock() - t0, **fields)
 
     t0 = clock()
     eng_h, cfg_h, fields = serve_hybrid_phase(torch, kernels, serve, M)
@@ -5065,6 +5779,10 @@ def main() -> int:
     emit("reference_shared", **reference_shared(
         torch, M, get_smoke_config, kernels), seconds=clock() - t0)
 
+    t0 = clock()
+    emit("reference_hub", **reference_hub(torch, M, get_smoke_config,
+                                          hub_days), seconds=clock() - t0)
+
     emit("done", seconds=clock() - t_start)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5072,8 +5790,9 @@ def main() -> int:
     for name, row in rows.items():
         # main-path launches: the serve phases (the gemma int8 drive at
         # catch chunk 64, both serve_shared legs, the traced drive, both
-        # serve_async legs and its CLI run included) and model_train,
-        # each counted from 0
+        # serve_async legs and its CLI run included), model_train, the
+        # federated round's held-out scoring and the hub's two
+        # deployments, each counted from 0
         row["launches"] = launches[name]
     print(json.dumps({"kernels": [{k: row[k] for k in keys}
                                   for row in rows.values()]}))

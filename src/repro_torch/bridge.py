@@ -44,29 +44,42 @@ def tensor_to_array(t: torch.Tensor) -> np.ndarray:
 
 
 def tree_to_numpy(tree):
-    """A tree of tensors (nested dicts) as numpy arrays: the inverse of
-    ``params_from_numpy``.  bfloat16 leaves come back as their ``uint16``
-    bit patterns (``tensor_to_array``)."""
+    """A tree of tensors (nested dicts, lists and tuples) as numpy arrays:
+    the inverse of ``params_from_numpy``.  bfloat16 leaves come back as
+    their ``uint16`` bit patterns (``tensor_to_array``); Python ints
+    stay as they are."""
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    if isinstance(tree, int):
+        return tree
     return tensor_to_array(tree)
 
 
 def params_from_numpy(tree, device: DeviceLike = None,
                       dtype: Optional[torch.dtype] = None):
-    """Map a numpy tree (nested dicts) onto torch tensors on ``device``
-    (default ``cuda``): parameter trees, superblock trunks included, and
-    optimizer states (an int32 ``step`` scalar keeps its shape ``()``,
-    8-bit moments are {"q" int8, "scale"} dict leaves).  ``dtype``
-    recasts floating leaves, except those the reference keeps in float32
-    (``models.layers.FLOAT32_LEAVES``: norm scales and biases, ``A_log``,
-    ``D``, ``dt_bias``, the scale beside int8 values); integer leaves
-    keep their type."""
+    """Map a numpy tree (nested dicts, lists and tuples) onto torch
+    tensors on ``device`` (default ``cuda``): parameter trees, superblock
+    trunks included, optimizer states (an int32 ``step`` scalar keeps its
+    shape ``()``, 8-bit moments are {"q" int8, "scale"} dict leaves),
+    early-exit heads (a list of head dicts beside a tuple of ints) and the
+    shared-context space (its ints cross as ints; the caller drops the
+    JAX PRNG key it holds under ``_key`` and gives the port a
+    ``torch.Generator`` there).  Python ints pass through unchanged.
+    ``dtype`` recasts floating leaves, except those the reference keeps
+    in float32 (``models.layers.FLOAT32_LEAVES``: norm scales and biases,
+    ``A_log``, ``D``, ``dt_bias``, the scale beside int8 values); integer
+    leaves keep their type."""
     dev = resolve_device(device)
 
     def walk(node, key=None):
         if isinstance(node, dict):
             return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v) for v in node)
+        if isinstance(node, int):
+            return node
         t = array_to_tensor(np.asarray(node))
         if dtype is not None and t.is_floating_point() \
                 and key not in FLOAT32_LEAVES:

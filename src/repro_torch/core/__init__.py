@@ -1,9 +1,26 @@
-"""Hub core of the port (this slice: the admission/wave scheduler
-helpers the serving engine uses)."""
+"""The EdgeAI-Hub core of the port (PyTorch port of ``repro.core``): the
+performance model, network, trust zones, device registry, placement,
+scheduler, orchestrator, split computing, early exit, shared context and
+the hub facade."""
+from repro_torch.core import (
+    context,
+    earlyexit,
+    network,
+    orchestrator,
+    perf_model,
+    placement,
+    resource,
+    scheduler,
+    split,
+    trustzones,
+)
+from repro_torch.core.hub import EdgeAIHub, default_home
+from repro_torch.core.orchestrator import Orchestrator, TaskSpec
 from repro_torch.core.scheduler import AITask, EdgeScheduler
-from repro_torch.unported import not_ported
 
-EdgeAIHub = not_ported("repro.core.EdgeAIHub", "A.10 (core)")
-default_home = not_ported("repro.core.default_home", "A.10 (core)")
-Orchestrator = not_ported("repro.core.Orchestrator", "A.10 (core)")
-TaskSpec = not_ported("repro.core.TaskSpec", "A.10 (core)")
+__all__ = [
+    "AITask", "EdgeAIHub", "EdgeScheduler", "Orchestrator", "TaskSpec",
+    "context", "default_home", "earlyexit", "network", "orchestrator",
+    "perf_model", "placement", "resource", "scheduler", "split",
+    "trustzones",
+]

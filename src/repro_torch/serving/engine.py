@@ -187,7 +187,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.scheduler import admission_rank, plan_wave
 from repro_torch.devices import DeviceLike, resolve_device, tensor_device
 from repro_torch.models import model as M
 from repro_torch.serving.kv_pool import KVBlockPool, PoolExhausted, \
@@ -201,6 +200,9 @@ from repro_torch.serving.spec_decode import (SpecDecoder, accept_greedy,
                                              make_self_draft,
                                              sample_from_logits,
                                              validate_spec)
+# NOTE: repro_torch.core.scheduler is imported lazily in _rank and
+# _apply_budget — core/__init__ pulls in hub.py, which imports this
+# module back (as in the JAX engine).
 from repro_torch.serving.telemetry import SLOT_TID0, MetricsRegistry, Tracer
 
 
@@ -600,6 +602,7 @@ class EdgeServingEngine:
         self.queue.append(req)
 
     def _rank(self, req: Request):
+        from repro_torch.core.scheduler import admission_rank
         return admission_rank(self.scfg.policy, priority=req.priority,
                               arrival=req.arrival, deadline=req.deadline,
                               uid=req.uid)
@@ -1152,6 +1155,7 @@ class EdgeServingEngine:
         (``core.scheduler.plan_wave``; every slot keeps width >= 1)."""
         if self.scfg.wave_tokens is None or not plan:
             return plan
+        from repro_torch.core.scheduler import plan_wave
         entries = []
         for s, (mode, want) in plan.items():
             r = self.slot_req[s]

@@ -99,3 +99,53 @@ def test_bridge_defaults_to_cuda():
         pytest.skip("this host has CUDA: the default device is valid")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bridge.params_from_numpy({"w": np.ones(2, np.float32)})
+
+
+def _jax_to_numpy(tree):
+    """A JAX tree's arrays as numpy, its Python ints left as ints."""
+    return jax.tree.map(lambda a: np.asarray(a) if isinstance(a, jax.Array)
+                        else a, tree)
+
+
+def test_exit_heads_cross_with_their_list_and_tuple():
+    from repro.core import earlyexit as JEE
+    cfg = jax_get_smoke_config("phi3-medium-14b")
+    heads = JEE.init_exit_heads(cfg, jax.random.PRNGKey(0), [0, 1])
+    tree = bridge.params_from_numpy(_jax_to_numpy(heads), device="cpu")
+    assert isinstance(tree["exits"], list) and len(tree["exits"]) == 2
+    assert tree["exit_layers"] == (0, 1)
+    assert type(tree["exit_layers"]) is tuple
+    assert all(type(i) is int for i in tree["exit_layers"])
+    assert tree["exits"][1]["ln"]["scale"].dtype == torch.float32
+    back = bridge.tree_to_numpy(tree)
+    assert back["exit_layers"] == (0, 1) and isinstance(back["exits"], list)
+    for a, b in zip(back["exits"], heads["exits"]):
+        np.testing.assert_array_equal(a["ln"]["scale"],
+                                      np.asarray(b["ln"]["scale"]))
+    # a recast keeps the ints and the float32 norm scales
+    cast = bridge.params_from_numpy(back, device="cpu", dtype=torch.bfloat16)
+    assert cast["exit_layers"] == (0, 1)
+    assert cast["exits"][0]["ln"]["scale"].dtype == torch.float32
+
+
+def test_context_space_crosses_without_its_jax_key():
+    """The shared-context space holds a JAX PRNG key under ``_key``: the
+    caller drops it and gives the port a ``torch.Generator`` there; the
+    space's ints cross as ints."""
+    from repro.core import context as JCX
+    from repro_torch.core import context as CX
+    jp = JCX.init_context_space(jax.random.PRNGKey(0), {"cam": 8, "mic": 4},
+                                6, 3, hidden=5)
+    JCX.add_task_head(jp, "intent", 3)
+    tree = bridge.params_from_numpy(
+        _jax_to_numpy({k: v for k, v in jp.items() if k != "_key"}),
+        device="cpu")
+    assert (tree["shared_dim"], tree["hidden"]) == (6, 5)
+    assert type(tree["hidden"]) is int
+    assert sorted(tree["proj"]) == ["cam", "mic"]
+    back = bridge.tree_to_numpy(tree)
+    assert back["hidden"] == 5 and back["heads"]["intent"].shape == (5, 3)
+    np.testing.assert_array_equal(back["trunk_w"], np.asarray(jp["trunk_w"]))
+    tree["_key"] = torch.Generator().manual_seed(0)
+    CX.add_task_head(tree, "intrusion", 2)
+    assert tuple(tree["heads"]["intrusion"].shape) == (5, 2)

@@ -57,7 +57,18 @@ def test_importing_every_module_loads_no_jax():
             "repro_torch.training.trainer",
             "repro_torch.training.checkpoint",
             "repro_torch.data.pipeline",
-            "repro_torch.launch.train"} <= swept
+            "repro_torch.launch.train",
+            "repro_torch.core.perf_model",
+            "repro_torch.core.network",
+            "repro_torch.core.trustzones",
+            "repro_torch.core.resource",
+            "repro_torch.core.placement",
+            "repro_torch.core.scheduler",
+            "repro_torch.core.split",
+            "repro_torch.core.orchestrator",
+            "repro_torch.core.context",
+            "repro_torch.core.hub",
+            "repro_torch.training.federated"} <= swept
 
 
 def test_no_source_imports_jax_or_repro():
@@ -263,3 +274,45 @@ def test_vlm_encdec_families_are_ported():
     cites = [str(p.relative_to(ROOT)) for p in SOURCES
              if "A.9.2" in p.read_text() or "A.9.3" in p.read_text()]
     assert cites == []
+
+
+HUB_MODULES = ("core", "core.perf_model", "core.network", "core.trustzones",
+               "core.resource", "core.placement", "core.scheduler",
+               "core.split", "core.orchestrator", "core.earlyexit",
+               "core.context", "core.hub", "training.federated")
+
+
+@pytest.mark.parametrize("name", HUB_MODULES)
+def test_hub_core_is_ported(name):
+    """A.10's hub core and federated round are the port's own: every
+    public name of the JAX module is there and none is a stand-in of
+    ``unported.not_ported``."""
+    jax_mod = importlib.import_module("repro." + name)
+    port = importlib.import_module("repro_torch." + name)
+    names = _public_names(jax_mod)
+    assert names
+    stubs = [n for n in names
+             if getattr(getattr(port, n, None), "roadmap_item", None)
+             is not None or not hasattr(port, n)]
+    assert stubs == []
+    stubs = [n for n in vars(port)
+             if getattr(getattr(port, n), "roadmap_item", None) is not None]
+    assert stubs == []
+
+
+def test_port_perf_model_states_no_tpu_figure():
+    """The port's performance model carries the H100's figures: no
+    number of its module constants or of its hub entry is one of the
+    JAX catalogue's TPU figures."""
+    from repro.core import perf_model as jax_pm
+    from repro_torch.core import perf_model as pm
+    tpu = {jax_pm.PEAK_FLOPS_BF16, jax_pm.HBM_BW, 197e12, 819e9, 16e9}
+    consts = {k: v for k, v in vars(pm).items()
+              if k.isupper() and isinstance(v, (int, float))}
+    assert {"PEAK_FLOPS_BF16", "HBM_BW", "ICI_BW"} <= set(consts)
+    hub = pm.DEVICE_CATALOGUE["edgeai-hub"]
+    figures = list(consts.values()) + [hub.peak_flops, hub.mem_bw,
+                                       hub.memory_bytes, hub.peak_power]
+    assert not tpu & set(figures)
+    text = (PKG / "core" / "perf_model.py").read_text()
+    assert "H100" in text and not re.search(r"TPU|v5e|197e12|819e9", text)
