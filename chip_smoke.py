@@ -388,6 +388,41 @@ the order they run among the above:
               ``fed_round`` (no noise), the context logits, card against
               CPU at float32; the day's report equal to ``hub``'s.
 
+The long-sequence phases (the blockwise branch of ``attention_fwd`` and
+the remat policies), in the order they run among the above:
+
+44. long_attention — after ``kernels``, on an empty card: one global
+              attention layer of gemma3-1b (4 heads over 1 of 256) and of
+              phi3-medium-14b (40 over 10 of 128) at S = 8192, and
+              gemma's at 32768, bf16, B = 1: ``attention_fwd`` walks the
+              blockwise branch and agrees with ``use_flash=True``; the
+              core through ``_blockwise_causal_attention``,
+              ``flash_attention`` and the plain masked softmax (where
+              2.5 of its float32 score tensors fit) on the same q, k, v
+              within 2**-6 x max |out| of the kernel; a walk without the
+              rescale shown to fail; device ms, peak GB above the inputs
+              and the causal bound of each.
+45. long_prefill — the eleventh main path, after ``early_exit`` on its
+              phi3-medium-14b weights: one 8192-token prompt through the
+              paged engine with buckets (16, 32, 64, 128, 8192), 32
+              greedy tokens, ``use_pallas_paged``: the admission prefill
+              walks the blockwise branch, ``paged_attention`` launches ==
+              40 x decode waves at contexts to 8224, the first token is
+              ``model.apply(use_flash=True)``'s last-row argmax (margin
+              printed); TTFT and ms a decode step.  gemma3-1b's
+              ``model.prefill`` at 32768 tokens through the blockwise
+              branch against the use_flash route (float32 last logits
+              within 1e-4 x max |logit|; bf16 times); prefill_32k's batch
+              of 32 reckoned against the card.  The ``kernels`` phase
+              holds and times ``paged_attention`` at the 8224 context.
+46. train_remat — after ``model_train``, from the train phase's state:
+              one gemma3-1b step at S = 8192, B = 1 under each policy
+              (``nothing_saveable``, ``full``,
+              ``dots_with_no_batch_dims_saveable``, ``dots_saveable``,
+              then ``none`` and ``everything_saveable`` at 8192 where the
+              reckoning fits, else at 4096 beside ``full``): loss, grad
+              norm, step ms, peak GB; losses at one length equal.
+
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
@@ -1125,6 +1160,18 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
                                128 ** -0.5, dev)
     del q, kp, vp
 
+    # one row at long_prefill's last context: an 8192-token prompt and
+    # its 32 new tokens (515 pages), 8 pools (340 MB)
+    ctx = LONG_PROMPT + LONG_NEW
+    q, kp, vp, bt, ln, _ = _paged_inputs(
+        torch, torch.bfloat16, layers=8, B=1,
+        n_blk=LONG_SERVE["max_len"] // 16, lengths=[ctx], seed=43, dev=dev)
+    held("bfloat16", f"long_prefill 1 x {ctx}", q, kp[0], vp[0], bt, ln,
+         scale=128 ** -0.5)
+    timed_long_prefill = _decode_times(torch, pa, ref, timer, q, kp, vp,
+                                       bt, ln, 128 ** -0.5, dev)
+    del q, kp, vp
+
     # the serving path's shapes: bf16 pages, 4 slots with the serve
     # phase's prompt+generation lengths, one pool per layer (40 pools,
     # 420 MB) cycled per call so L2 holds no layer's pages
@@ -1149,7 +1196,8 @@ def check_paged_attention(torch, pa, ref, timer, dev="cuda"):
         "plan_serve": plan._asdict(),
         "broken_merge_without_last_split_err": boundary,
         "extras_broken_merge_err": extras_broken,
-        "timed": {"serve": row, "long": timed_long, "gemma3": timed_gemma,
+        "timed": {"serve": row, "long": timed_long,
+                  "long_prefill": timed_long_prefill, "gemma3": timed_gemma,
                   "gemma3_served": timed_served,
                   "granite_moe_served": timed_moe,
                   "extras_served": timed_extras},
@@ -5478,6 +5526,473 @@ def reference_hub(torch, M, get_smoke_config, days, dev="cuda"):
     return res
 
 
+# ---------------------------------------------------------------------------
+# long sequences: blockwise attention, an 8192-token prompt, remat policies
+# ---------------------------------------------------------------------------
+
+# one global attention layer each (B = 1): gemma3-1b (4 heads over 1 of
+# 256) at S = 8192 and at prefill_32k's 32768, phi3-medium-14b (40 over
+# 10 of 128) at 8192; the plain masked softmax runs where its float32
+# score tensor, its masked copy and the softmax (at most two at once)
+# fit beside what the card already holds
+LONG_ATTN = (("gemma3-1b", 8192), ("phi3-medium-14b", 8192),
+             ("gemma3-1b", 32768))
+# blockwise (and plain) against flash_attention, bf16: each route rounds
+# the probabilities to bf16 before the p.v product (2**-9 relative each)
+# and its output to bf16 (2**-9 each); four bf16 steps cover them with
+# room, while a dropped rescale or a wrong mask moves rows by a large
+# share of max |out|
+LONG_REL = 2 ** -6
+LONG_PLAIN_COPIES = 2.5          # score-sized float32 tensors of the plain
+LONG_MEM_SHARE = 0.9             # of the card's memory a route may reach
+# phi3-medium-14b serving one 8192-token prompt through an 8192 bucket:
+# 32 greedy tokens, contexts to 8224 (515 pages of 16 a layer)
+LONG_PROMPT, LONG_NEW = 8192, 32
+LONG_SERVE = dict(max_slots=1, max_len=8240, policy="fifo",
+                  prefill_buckets=(16, 32, 64, 128, 8192),
+                  prefix_cache=False, use_pallas_paged=True)
+# gemma3-1b's model.prefill at prefill_32k's length, B = 1: last logits
+# through the blockwise branch against the use_flash route at float32
+# activations (the same float32 math summed in another order), within
+# LOGIT_F32_REL x max |logit|
+LONG_PREFILL_GEMMA = 32768
+# prefill_32k's own batch of 32 reckoned: per row, the 22 local layers'
+# float32 scores (32768 / 512 windows x 4 heads x 512 x 1024) and their
+# masked copy and softmax, and the MLP's three (32768, 6912) bf16
+# intermediates
+PREFILL_32K_ROWS = 32
+# gemma3-1b train steps at S = 8192, B = 1 (4 global layers blockwise, 22
+# local layers chunked), one per JAX remat policy, from the train phase's
+# state; the policies that keep every activation run at the shorter
+# length when the reckoning says they do not fit
+REMAT_SEQ, REMAT_SEQ_SHORT = 8192, 4096
+REMAT_SAVE_ALL = ("none", "everything_saveable")
+REMAT_RECOMPUTE = ("nothing_saveable", "full",
+                   "dots_with_no_batch_dims_saveable", "dots_saveable")
+# losses across policies: equal bit for bit where cuBLAS runs the same
+# algorithms in every step; else within one bf16 rounding of the loss
+REMAT_LOSS_REL = 2 ** -8
+
+
+def _blockwise_no_rescale(torch, L, qg, k, v, scale, softcap, chunk):
+    """A broken blockwise walk: the running accumulator and denominator
+    are not rescaled (alpha = 1) when a later chunk raises the max."""
+    B, S, K, G, hd = qg.shape
+    n = S // chunk
+    rel = torch.arange(chunk, device=qg.device)
+    outs = []
+    for qi in range(n):
+        q = qg[:, qi * chunk:(qi + 1) * chunk].permute(0, 2, 3, 1, 4) \
+            .reshape(B, K, G * chunk, hd).float()
+        m = torch.full((B, K, G, chunk), L.NEG_INF, device=qg.device)
+        l = torch.zeros((B, K, G, chunk), device=qg.device)
+        acc = torch.zeros((B, K, G, chunk, hd), device=qg.device)
+        for kj in range(qi + 1):
+            s = torch.matmul(q, k[:, kj * chunk:(kj + 1) * chunk].permute(
+                0, 2, 3, 1).float()).view(B, K, G, chunk, chunk) * scale
+            s = L._softcap(s, softcap)
+            vis = (kj * chunk + rel)[None, :] <= (qi * chunk + rel)[:, None]
+            s = torch.where(vis, s, L.NEG_INF)
+            m = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(vis, torch.exp(s - m[..., None]), 0.0)
+            l = l + p.sum(dim=-1)
+            acc = acc + torch.matmul(
+                p.view(B, K, G * chunk, chunk),
+                v[:, kj * chunk:(kj + 1) * chunk].permute(0, 2, 1, 3)
+                .float()).view(B, K, G, chunk, hd)
+        outs.append((acc / l[..., None]).to(qg.dtype)
+                    .permute(0, 3, 1, 2, 4))
+    return torch.cat(outs, dim=1)
+
+
+def _peak_gb(torch, fn):
+    """(result of fn(), device GB it allocated at its peak above what
+    was allocated before it)."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def long_attention_phase(torch, kernels, timer=None, dev="cuda"):
+    """One global attention layer at full width, B = 1, S = 8192 and
+    32768: ``attention_fwd`` takes the blockwise branch
+    (``_blockwise_inner`` walked once) and agrees with
+    ``attention_fwd(use_flash=True)``; the attention core through
+    ``_blockwise_causal_attention``, ``flash_attention`` and (where it
+    fits) the plain masked softmax on the same q, k, v, each against the
+    kernel within LONG_REL x max |out| (``_flash_inputs``' peaked q, k,
+    v); a walk without the rescale shown to fail; device ms (calls back
+    to back), peak GB above the inputs and the bound of each.  Kernel
+    launches here compare; none is counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    timer = timer or cuda_ms
+    on_card = dev != "cpu"
+    walked = []
+    inner = L._blockwise_inner
+
+    def counted(*a, **kw):
+        walked.append(a[0].shape[1])
+        return inner(*a, **kw)
+    out = {"tolerance": f"{LONG_REL} x max |out| of flash_attention",
+           "layers": []}
+    for arch, S in LONG_ATTN:
+        cfg = get_config(arch)
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        scale = cfg.attn_scale if cfg.attn_scale is not None else hd ** -0.5
+        cap = cfg.attn_logit_softcap
+        gen = torch.Generator(device=dev).manual_seed(S + H)
+        p = L.init_attention(cfg, gen, dtype=torch.bfloat16, device=dev)
+        x = torch.randn((1, S, cfg.d_model), generator=gen, device=dev,
+                        dtype=torch.float32).to(torch.bfloat16)
+        pos = torch.arange(S, dtype=torch.int32, device=dev)[None]
+        row = {"arch": arch, "S": S, "H": H, "K": K, "hd": hd}
+        with torch.no_grad():
+            L._blockwise_inner = counted
+            try:
+                o_bw = L.attention_fwd(cfg, p, x, pos, is_global=True)[0]
+            finally:
+                L._blockwise_inner = inner
+            o_fl = L.attention_fwd(cfg, p, x, pos, is_global=True,
+                                   use_flash=True)[0]
+            if walked[-1:] != [S]:
+                raise AssertionError(f"long_attention {arch} S={S}: "
+                                     f"attention_fwd did not walk the "
+                                     f"blockwise branch ({walked})")
+            top = float(o_fl.float().abs().max())
+            row["attention_fwd_err"] = float((o_bw.float() - o_fl.float())
+                                             .abs().max())
+            if row["attention_fwd_err"] > LONG_REL * top:
+                raise AssertionError(f"long_attention {arch} S={S}: "
+                                     f"attention_fwd blockwise vs flash "
+                                     f"{row['attention_fwd_err']} (max {top})")
+            del o_bw, o_fl
+            # the cores on _flash_inputs' peaked q, k, v: a key seen or
+            # missed, or a rescale left out, moves rows far past LONG_REL
+            q, k, v = _flash_inputs(torch, 1, S, S, H, K, hd,
+                                    torch.bfloat16, seed=S + K, dev=dev)
+            qg = q.view(1, S, K, H // K, hd)
+            routes = {
+                "blockwise": lambda: L._blockwise_causal_attention(
+                    qg, k, v, scale, cap).reshape(1, S, H, hd),
+                "flash_attention": lambda: ops.flash_attention(
+                    q, k, v, scale=scale, window=0, softcap=cap)}
+            score_bytes = H * S * S * 4
+            total = (torch.cuda.get_device_properties(0).total_memory
+                     if on_card else float("inf"))
+            resident = torch.cuda.memory_allocated() if on_card else 0
+            row["plain_reckoned_gb"] = (LONG_PLAIN_COPIES * score_bytes
+                                        + resident) / 1e9
+            if LONG_PLAIN_COPIES * score_bytes + resident \
+                    <= LONG_MEM_SHARE * total:
+                routes["plain"] = lambda: L.attention_weights_and_out(
+                    qg, k, v, L.causal_mask(S, S, device=dev)[None, None,
+                                                                None],
+                    scale=scale, softcap=cap).reshape(1, S, H, hd)
+            iters = 3 if S > 8192 else 10
+            got = {}
+            for name, fn in routes.items():
+                if on_card:
+                    got[name], peak = _peak_gb(torch, fn)
+                else:
+                    got[name], peak = fn(), None
+                row[name] = {"peak_gb": peak,
+                             "ms": timer(torch, lambda i, fn=fn: fn(),
+                                         iters=iters, warmup=2)}
+            want = got["flash_attention"].float()
+            top = float(want.abs().max())
+            for name in got:
+                err = float((got[name].float() - want).abs().max())
+                row[name]["max_abs_err"] = err
+                if err > LONG_REL * top:
+                    raise AssertionError(f"long_attention {arch} S={S}: "
+                                         f"{name} vs flash_attention {err} "
+                                         f"(max {top})")
+            row["max_abs_out"] = top
+            if "plain" not in routes:
+                row["plain"] = (f"not run: reckoned "
+                                f"{row['plain_reckoned_gb']:.1f} GB over "
+                                f"{LONG_MEM_SHARE} x the card's memory")
+            if arch == "gemma3-1b" and S == 8192:
+                broken = _blockwise_no_rescale(torch, L, qg, k, v, scale,
+                                               cap, L.BLOCKWISE_CHUNK)
+                row["broken_no_rescale_err"] = float(
+                    (broken.reshape(1, S, H, hd).float() - want).abs().max())
+                if row["broken_no_rescale_err"] <= LONG_REL * top:
+                    raise AssertionError(f"long_attention: a walk without "
+                                         f"the rescale passes "
+                                         f"({row['broken_no_rescale_err']})")
+            del got, want, q, k, v, qg, routes
+        bound, by, ops_n = _flash_bound(1, S, S, H, K, hd, 0, 2, "bfloat16")
+        row.update(bound_ms=bound, bound_by=by, causal_ops=ops_n)
+        out["layers"].append(row)
+        del p, x
+        if on_card:
+            _release(torch)
+    return out
+
+
+def _logit_margin(logits):
+    top2 = logits.float().topk(2).values
+    return float(top2[0] - top2[1])
+
+
+def long_prefill_phase(torch, kernels, serve, M, params, cfg, dev="cuda",
+                       gemma_scale="full"):
+    """The eleventh main path: phi3-medium-14b (the serve phases'
+    weights) serving one 8192-token prompt through the paged engine with
+    an 8192 prefill bucket: the admission prefill walks the blockwise
+    branch in every layer, 32 greedy tokens decode through
+    ``paged_attention`` at contexts to 8224 (launches == 40 x decode
+    waves, counted from 0), the first token is the argmax of
+    ``model.apply(use_flash=True)``'s last row (the margin printed); TTFT
+    and ms a decode step.  Then gemma3-1b's ``model.prefill`` at 32768
+    tokens, B = 1, through the blockwise branch against the use_flash
+    route: float32 last logits within LOGIT_F32_REL x max |logit|, bf16
+    times; prefill_32k's batch of 32 reckoned against the card."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    clock = serve.default_clock
+    on_card = dev != "cpu"
+    gen = torch.Generator(device="cpu").manual_seed(27)
+    prompt = torch.randint(0, cfg.vocab_size, (LONG_PROMPT,),
+                           generator=gen).numpy().astype("int32")
+    eng = EdgeServingEngine(cfg, params, ServeConfig(**LONG_SERVE),
+                            device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    req = Request(uid=0, prompt=prompt, max_new_tokens=LONG_NEW)
+    _zero(kernels)
+    eng.submit(req)
+    t0 = clock()
+    while not req.generated:
+        eng.step()
+    _sync(torch)
+    ttft_ms = (clock() - t0) * 1e3
+    steps = []
+    while not req.done:
+        t1 = clock()
+        eng.step()
+        _sync(torch)
+        steps.append((clock() - t1) * 1e3)
+    launches = _counts(kernels)
+    expect = dict.fromkeys(kernels, 0)
+    expect["paged_attention"] = cfg.num_layers * eng.decode_waves
+    if launches != expect or not launches["paged_attention"] \
+            or len(req.generated) != LONG_NEW:
+        raise AssertionError(f"long_prefill: launches {launches} for "
+                             f"{eng.decode_waves} decode waves (expected "
+                             f"{expect}); {len(req.generated)} tokens")
+    _check_pool(eng, "long_prefill")
+    peak = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+    del eng
+    if on_card:
+        _release(torch)
+    with torch.no_grad():
+        logits = M.apply(cfg, params, {"tokens": torch.from_numpy(
+            prompt[None]).to(dev)}, use_flash=True)[0][0, -1]
+    first = int(logits.argmax())
+    margin = _logit_margin(logits)
+    if req.generated[0] != first:
+        raise AssertionError(f"long_prefill: first token {req.generated[0]}"
+                             f" against the use_flash route's {first} "
+                             f"(margin {margin})")
+    res = {"arch": cfg.name, "depth": cfg.num_layers, "prompt": LONG_PROMPT,
+           "new_tokens": LONG_NEW, "serve": LONG_SERVE,
+           "ttft_ms": ttft_ms, "decode_ms_per_step": sum(steps) / len(steps),
+           "decode_steps": len(steps), "decode_waves": expect[
+               "paged_attention"] // cfg.num_layers,
+           "launches": launches, "peak_mem_gb": peak,
+           "first_token": first, "first_token_logit_margin": margin,
+           "tokens": list(req.generated)}
+
+    # gemma3-1b's prefill at prefill_32k's length
+    gcfg = (get_config if gemma_scale == "full" else get_smoke_config)(
+        "gemma3-1b")
+    gcfg = gcfg.replace(param_dtype=gcfg.dtype)
+    gparams = M.init_params(gcfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    S = LONG_PREFILL_GEMMA
+    toks = _tokens(torch, gcfg.vocab_size, 1, S, dev, seed=32)
+    prefill = {}
+    with torch.no_grad():
+        for dtype in ("float32", "bfloat16"):
+            c = gcfg.replace(dtype=dtype)
+            for flash in (False, True):
+                t0 = clock()
+                lg = M.prefill(c, gparams, {"tokens": toks}, S,
+                               use_flash=flash)[0]
+                _sync(torch)
+                prefill[(dtype, flash)] = (lg.float()[0, -1],
+                                           (clock() - t0) * 1e3)
+    (bw, bw_ms), (fl, fl_ms) = prefill[("float32", False)], \
+        prefill[("float32", True)]
+    top = float(fl.abs().max())
+    err = float((bw - fl).abs().max())
+    if err > LOGIT_F32_REL * top or not bool(torch.isfinite(bw).all()):
+        raise AssertionError(f"long_prefill: gemma3-1b S={S} blockwise "
+                             f"last logits {err} from the use_flash "
+                             f"route's (max {top})")
+    hb, hf = prefill[("bfloat16", False)][0], prefill[("bfloat16", True)][0]
+    # prefill_32k's batch: the local layers' scores, their masked copy
+    # and softmax in float32, and the MLP's three bf16 intermediates
+    W = gcfg.local_window
+    row_bytes = (3 * (S // W) * gcfg.num_heads * W * 2 * W * 4
+                 + 3 * S * gcfg.d_ff * 2)
+    total = (torch.cuda.get_device_properties(0).total_memory if on_card
+             else float("inf"))
+    reckoned = PREFILL_32K_ROWS * row_bytes + (
+        torch.cuda.memory_allocated() if on_card else 0)
+    batch_ms = None
+    if reckoned <= LONG_MEM_SHARE * total:
+        rows = toks.expand(PREFILL_32K_ROWS, S)
+        with torch.no_grad():
+            t0 = clock()
+            M.prefill(gcfg, gparams, {"tokens": rows}, S)
+            _sync(torch)
+            batch_ms = (clock() - t0) * 1e3
+    res["gemma_prefill"] = {
+        "S": S, "B": 1, "f32_last_logits_err": err, "f32_max_logit": top,
+        "f32_tolerance": f"{LOGIT_F32_REL} x max |logit|",
+        "f32_ms_blockwise": bw_ms, "f32_ms_flash": fl_ms,
+        "bf16_ms_blockwise": prefill[("bfloat16", False)][1],
+        "bf16_ms_flash": prefill[("bfloat16", True)][1],
+        "bf16_last_logits_err": float((hb - hf).abs().max()),
+        "bf16_argmax_equal": int(hb.argmax()) == int(hf.argmax()),
+        "prefill_32k_batch": PREFILL_32K_ROWS,
+        "prefill_32k_reckoned_gb": reckoned / 1e9,
+        "prefill_32k_bf16_ms": batch_ms if batch_ms is not None else (
+            f"not run: reckoned {reckoned / 1e9:.0f} GB over "
+            f"{LONG_MEM_SHARE} x {total / 1e9:.0f} GB")}
+    del gparams, prefill
+    return res
+
+
+def _saved_bytes(torch, fn, exclude) -> int:
+    """Bytes of the distinct storages autograd saves for the backward
+    of ``fn()`` (those of ``exclude``, the weights, left out)."""
+    seen = {}
+
+    def pack(t):
+        s = t.untyped_storage()
+        if s.data_ptr() not in exclude:
+            seen[s.data_ptr()] = s.nbytes()
+        return t
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    del out
+    return sum(seen.values())
+
+
+def train_remat_phase(torch, kernels, M, cfg, state, dev="cuda"):
+    """One gemma3-1b train step at S = 8192, B = 1 under each JAX remat
+    policy from the train phase's state (float32 weights and AdamW
+    moments, bf16 activations; the 4 global layers blockwise, the 22
+    local layers chunked): loss, grad norm, step ms and peak GB.  The
+    policies that keep every activation run at REMAT_SEQ_SHORT beside
+    ``full`` when the reckoning (``nothing_saveable``'s measured peak
+    plus the bytes autograd saves for one local and one global layer,
+    times their counts) says they do not fit.  The losses at one length
+    are equal (bit for bit, or within REMAT_LOSS_REL, the script says
+    which).  No kernel launches (no kernel has a backward)."""
+    from repro_torch.data import DataConfig, synthetic_tokens
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as O
+    from repro_torch.training import trainer as TR
+    clock = _clock_ms
+    on_card = dev != "cpu"
+    ocfg = O.OptimizerConfig(learning_rate=1e-3, warmup_steps=1,
+                             total_steps=3)
+
+    def batch(S):
+        t = torch.from_numpy(synthetic_tokens(DataConfig(seed=3, branching=4),
+                                              cfg.vocab_size, 1, S, 0))
+        t = t.to(dev)
+        return {"tokens": t[:, :-1], "targets": t[:, 1:]}
+
+    def step(policy, S):
+        fn = TR.make_train_step(cfg, TR.TrainConfig(
+            optimizer=ocfg, microbatches=1, remat=policy))
+        b = batch(S)
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = clock()
+        new, m = fn(state, b)
+        _sync(torch)
+        ms = clock() - t0
+        res = {"policy": policy, "seq": S, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "step_ms": ms,
+               "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                               if on_card else None)}
+        del new, m
+        if on_card:
+            _release(torch)
+        return res
+
+    _zero(kernels)
+    runs = [step(p, REMAT_SEQ) for p in REMAT_RECOMPUTE]
+    # the reckoning for the policies that keep every activation
+    order = _trunk_order(cfg, state["params"]["trunk"])
+    weights = {t.untyped_storage().data_ptr()
+               for t in O.tree_leaves(state["params"])}
+    b = batch(REMAT_SEQ)
+    x = L.embed(cfg, state["params"]["embed"], b["tokens"])
+    pos = torch.arange(REMAT_SEQ, dtype=torch.int32, device=dev)[None]
+    per = {}
+    for lp, is_global in order:
+        if is_global not in per:
+            per[is_global] = _saved_bytes(torch, lambda: T.block_fwd(
+                cfg, lp, x, pos, is_global=is_global), weights)
+    n_global = sum(g for _, g in order)
+    keep_all = per[True] * n_global + per[False] * (len(order) - n_global)
+    ns_peak = runs[0]["peak_mem_gb"] or 0.0
+    reckoned = ns_peak + keep_all / 1e9
+    total = (torch.cuda.get_device_properties(0).total_memory / 1e9
+             if on_card else float("inf"))
+    fits = reckoned <= LONG_MEM_SHARE * total
+    del x, b
+    S_all = REMAT_SEQ if fits else REMAT_SEQ_SHORT
+    runs += [step(p, S_all) for p in REMAT_SAVE_ALL]
+    if not fits:
+        runs.append(step("full", S_all))
+    launches = _counts(kernels)
+    if any(launches.values()):
+        raise AssertionError(f"train_remat: kernel launches {launches}")
+    agree = {}
+    for S in sorted({r["seq"] for r in runs}):
+        losses = [r["loss"] for r in runs if r["seq"] == S]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_remat: non-finite loss {runs}")
+        exact = len(set(losses)) == 1
+        spread = max(losses) - min(losses)
+        if spread > REMAT_LOSS_REL * abs(losses[0]):
+            raise AssertionError(f"train_remat: losses at S={S} differ by "
+                                 f"{spread}: {runs}")
+        agree[S] = "bitwise equal" if exact else (
+            f"within {REMAT_LOSS_REL} relative (spread {spread})")
+    return {"arch": cfg.name, "rows": 1, "runs": runs,
+            "losses_agree": agree, "launches": launches,
+            "keep_all_reckoned_gb": reckoned,
+            "keep_all_reckoning": (f"nothing_saveable's peak {ns_peak:.2f} GB"
+                                   f" + saved bytes per layer (global "
+                                   f"{per[True] / 1e9:.3f} GB x {n_global}, "
+                                   f"local {per[False] / 1e9:.3f} GB x "
+                                   f"{len(order) - n_global})"),
+            "keep_all_seq": S_all,
+            "keep_all_note": ("none and everything_saveable ran at "
+                              f"S={S_all}" + ("" if fits else
+                                              ": the reckoning is over "
+                                              f"{LONG_MEM_SHARE} x the "
+                                              "card's memory"))}
+
+
 def _to(tree, dev):
     """A copy of ``tree`` on ``dev`` whose leaves are new tensor objects
     (``detach``), so flags set on them leave ``tree`` as it was."""
@@ -5536,6 +6051,11 @@ def main() -> int:
         rows[name], details[name] = check(torch, kernels[name], ref, cuda_ms)
     emit("kernels", seconds=clock() - t0,
          **{n: dict(rows[n], **details[n]) for n in rows})
+
+    t0 = clock()
+    emit("long_attention", **long_attention_phase(torch, kernels),
+         seconds=clock() - t0)
+    _release(torch)
 
     t0 = clock()
     eng, cfg, fields = serve_phase(torch, kernels, serve)
@@ -5597,6 +6117,12 @@ def main() -> int:
     t0 = clock()
     emit("early_exit", **early_exit_phase(torch, kernels, params, cfg),
          seconds=clock() - t0)
+
+    t0 = clock()
+    fields = long_prefill_phase(torch, kernels, serve, M, params, cfg)
+    for name, n in fields["launches"].items():
+        launches[name] += n
+    emit("long_prefill", seconds=clock() - t0, **fields)
     del params
     _release(torch)
 
@@ -5620,9 +6146,14 @@ def main() -> int:
     fields = model_train_phase(torch, kernels, M, cfg_tr, state["params"])
     for name, n in fields["launches"].items():
         launches[name] += n
-    del state
     _release(torch)
     emit("model_train", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = train_remat_phase(torch, kernels, M, cfg_tr, state)
+    del state
+    _release(torch)
+    emit("train_remat", seconds=clock() - t0, **fields)
 
     t0 = clock()
     _, fed_params, fields = federated_phase(torch, kernels, M)

@@ -28,8 +28,10 @@ Conventions
   output) and the encoder's non-causal self-attention run through
   ``attention_weights_and_out`` with no mask, as JAX computes them
   outside any Pallas kernel.
-* Not ported yet, raising ``NotImplementedError``: the long-sequence
-  (blockwise) prefill branch.
+* Long causal sequences (S >= 8192, S and T multiples of 1024) take the
+  blockwise online-softmax walk of ``_blockwise_causal_attention``, as
+  in JAX; only its sequence-parallel knob ``SEQ_PARALLEL_ATTN``, set by
+  the launch layer, raises ``NotImplementedError`` (ROADMAP A.11).
 """
 from __future__ import annotations
 
@@ -380,6 +382,12 @@ def _project_seq(cfg: ModelConfig, params, x, positions, *,
 BLOCKWISE_THRESHOLD = 8192
 BLOCKWISE_CHUNK = 1024
 
+# Sequence-parallel blockwise attention (process-scoped, set by the launch
+# layer's specs in JAX): (n_shards, a sharding of the (B, shard, S/shard,
+# K, G, hd) query layout) or None.  The port has no sharding yet, so
+# ``_blockwise_causal_attention`` refuses a set value.
+SEQ_PARALLEL_ATTN = None
+
 
 def attention_fwd(cfg: ModelConfig, params, x, positions, *,
                   is_global: bool, kv_x=None, causal: bool = True,
@@ -394,9 +402,9 @@ def attention_fwd(cfg: ModelConfig, params, x, positions, *,
     tensors, its plain version on CPU tensors; neither has a backward).
     Otherwise local (sliding-window) layers take the chunked O(S*W) path
     when S > 2W and S % W == 0, and the rest the plain masked softmax.
+    Causal global attention with S >= 8192 and S, T multiples of
+    ``BLOCKWISE_CHUNK`` takes ``_blockwise_causal_attention``.
     Returns (out (B,S,d), k, v) — k/v returned for cache construction.
-    The JAX function's blockwise branch (S >= 8192) raises
-    ``NotImplementedError`` here.
     """
     B, S, d = x.shape
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -424,8 +432,9 @@ def attention_fwd(cfg: ModelConfig, params, x, positions, *,
                                        cfg.attn_logit_softcap)
     elif S >= BLOCKWISE_THRESHOLD and S % BLOCKWISE_CHUNK == 0 \
             and T % BLOCKWISE_CHUNK == 0:
-        raise _not_ported("blockwise long-sequence prefill",
-                          "A.2 (_blockwise_causal_attention)")
+        out = _blockwise_causal_attention(qg, k, v, scale,
+                                          cfg.attn_logit_softcap,
+                                          chunk=BLOCKWISE_CHUNK)
     else:
         m = (window_mask(S, T, window, device=x.device) if window
              else causal_mask(S, T, device=x.device))
@@ -474,6 +483,91 @@ def _chunked_local_attention(qg, k, v, window, scale, softcap):
                        v2.permute(0, 1, 3, 2, 4))   # (B, C, K, G*W, hd)
     return out.view(B, C, K, G, W, hd).permute(0, 1, 4, 2, 3, 5) \
         .reshape(B, S, K, G, hd)
+
+
+def _blockwise_causal_attention(qg, k, v, scale, softcap,
+                                chunk: int = BLOCKWISE_CHUNK):
+    """Memory-efficient causal attention over (q, kv) chunk pairs with a
+    running (max, denominator, accumulator): the flash algorithm in plain
+    PyTorch, O(S * chunk) live scores instead of O(S * T).
+
+    qg: (B, S, K, G, hd); k, v: (B, T, K, hd).  The JAX function's
+    sequence-parallel split (``SEQ_PARALLEL_ATTN``) needs the launch
+    layer's sharding and raises here."""
+    if SEQ_PARALLEL_ATTN is not None:
+        raise _not_ported("sequence-parallel blockwise attention "
+                          "(layers.SEQ_PARALLEL_ATTN)",
+                          "A.11 (launch / multi-device)")
+    return _blockwise_inner(qg, k, v, scale, softcap, chunk)
+
+
+def _blockwise_inner(qg, k, v, scale, softcap, chunk, q_offset=0):
+    """The walk of ``_blockwise_causal_attention`` for queries at
+    positions ``q_offset + i`` (a shard of a longer sequence) against
+    every key of k, v.  S and T are multiples of ``chunk``.
+
+    For each query chunk the kv chunks are walked in order, carrying
+    m (running max), l (denominator) and a float32 accumulator:
+    scores are float32 products of float32 operands, times ``scale``,
+    softcapped, ``NEG_INF`` where ``kpos > qpos``; ``p = exp(s - m_new)``
+    (0 where masked), ``alpha = exp(m - m_new)``, and p is rounded to v's
+    dtype before the float32 p.v product, as JAX casts it before its
+    float32-accumulated einsum.  The output is ``acc / max(l, 1e-30)``
+    in qg's dtype.
+
+    Unlike JAX, kv chunks wholly above the diagonal are skipped, and the
+    mask is applied only to the chunks it cuts.  Skipping changes no bit:
+    kv chunk 0 is always walked first and holds a visible key for every
+    query (positions start at 0), so m is finite after it; a wholly
+    masked chunk then has max ``NEG_INF`` < m, so m_new = m, alpha =
+    exp(0) = 1 and p = 0, and l and acc come out exactly as they went in.
+    That halves the work of a causal walk.  Where every key of a chunk
+    is visible the mask selects every score, so leaving it out changes
+    nothing either.
+    """
+    B, S, K, G, hd = qg.shape
+    T = k.shape[1]
+    nq, nk = S // chunk, T // chunk
+    kt = k.permute(0, 2, 3, 1).float()           # (B, K, hd, T)
+    vt = v.permute(0, 2, 1, 3).float()           # (B, K, T, hd)
+    rel = torch.arange(chunk, device=qg.device)
+    outs = []
+    for qi in range(nq):
+        q0 = q_offset + qi * chunk               # the chunk's first query
+        # (B, K, G*chunk, hd): the G heads of a group stacked on the rows
+        q = qg[:, qi * chunk:(qi + 1) * chunk].permute(0, 2, 3, 1, 4) \
+            .reshape(B, K, G * chunk, hd).float()
+        m = torch.full((B, K, G, chunk), NEG_INF, dtype=torch.float32,
+                       device=qg.device)
+        l = torch.zeros((B, K, G, chunk), dtype=torch.float32,
+                        device=qg.device)
+        acc = torch.zeros((B, K, G, chunk, hd), dtype=torch.float32,
+                          device=qg.device)
+        for kj in range(nk):
+            k0 = kj * chunk
+            if k0 > q0 + chunk - 1:              # wholly above the diagonal
+                break
+            s = torch.matmul(q, kt[..., k0:k0 + chunk]) \
+                .view(B, K, G, chunk, chunk) * scale
+            s = _softcap(s, softcap)
+            vis = None
+            if k0 + chunk - 1 > q0:              # the diagonal cuts it
+                vis = (k0 + rel)[None, :] <= (q0 + rel)[:, None]
+                s = torch.where(vis, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            if vis is not None:
+                p = torch.where(vis, p, 0.0)
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            pv = torch.matmul(p.to(v.dtype).float()
+                              .view(B, K, G * chunk, chunk),
+                              vt[:, :, k0:k0 + chunk])
+            acc = acc * alpha[..., None] + pv.view(B, K, G, chunk, hd)
+            m = m_new
+        out = (acc / torch.clamp_min(l, 1e-30)[..., None]).to(qg.dtype)
+        outs.append(out.permute(0, 3, 1, 2, 4))  # (B, chunk, K, G, hd)
+    return torch.cat(outs, dim=1)
 
 
 def _decode_project(cfg: ModelConfig, params, x, pos, *, is_global: bool):

@@ -126,13 +126,18 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, use_kernel: bool = False):
     Lmat = torch.where(mask[None, None, :, :, None], torch.exp(seg), 0.0)
     scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     xdt = xc.float() * dtc[..., None]
-    y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * Lmat,
-                           xdt)
+    # JAX's three-operand einsums contract in two dot_generals, the first
+    # a batched outer product; each is one product here too, so the same
+    # values exist to be saved under the ``dots`` remat policies
+    sL = torch.matmul(scores[..., None, None],
+                      Lmat[..., None, :])[..., 0, :]         # (b,nc,Q,Q,h)
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", sL, xdt)
 
     # ---- chunk-final states
     decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)      # (b,nc,Q,h)
-    states = torch.einsum("bcjn,bcjhp->bchpn", Bc,
-                          xdt * decay_to_end[..., None])
+    dx = torch.matmul(decay_to_end[..., None, None],
+                      xdt[..., None, :])[..., 0, :]          # (b,nc,Q,h,p)
+    states = torch.einsum("bcjn,bcjhp->bchpn", Bc, dx)
 
     # ---- inter-chunk recurrence (the lax.scan over chunks)
     chunk_decay = torch.exp(cums[:, :, -1, :])               # (b,nc,h)
@@ -144,8 +149,9 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, use_kernel: bool = False):
         carry = carry * chunk_decay[:, c, :, None, None] + states[:, c]
     prev = torch.stack(prev, dim=1)                         # (b,nc,h,p,n)
 
-    y_inter = torch.einsum("bcin,bchpn->bcihp", Cc, prev) \
-        * torch.exp(cums)[..., None]
+    Ce = torch.matmul(torch.exp(cums)[..., None],
+                      Cc[..., None, :])                      # (b,nc,Q,h,n)
+    y_inter = torch.einsum("bcihn,bchpn->bcihp", Ce, prev)
     y = (y_intra + y_inter).reshape(b, l, h, p)[:, :orig_l]
     return y.to(x.dtype), carry
 

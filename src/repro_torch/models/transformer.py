@@ -21,6 +21,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils._python_dispatch import (
+    TorchDispatchMode, _get_current_dispatch_mode_stack)
+from torch.utils._pytree import tree_leaves
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
@@ -217,23 +220,174 @@ def block_prefill_paged(cfg: ModelConfig, p: Params, x, positions, pages,
 # full-sequence forward (train / evaluation without cache)
 # ---------------------------------------------------------------------------
 
+_aten = torch.ops.aten
+# aten products of a JAX dot_general without batch dimensions (the
+# projections through ``layers.weight_einsum``, the router) and with them
+# (attention scores and p.v over (B, K), the experts' products over E,
+# the ssm's chunked einsums)
+_UNBATCHED = (_aten.mm, _aten.addmm)
+_BATCHED = (_aten.bmm, _aten.baddbmm)
+# the names ``jax.checkpoint_policies`` takes without arguments (and
+# ``"full"``, a policy-free ``jax.checkpoint``) -> the products whose
+# outputs the backward may keep: None keeps every residual (no recompute)
+REMAT_POLICIES = {
+    "everything_saveable": None,
+    "full": (),
+    "nothing_saveable": (),
+    "dots_saveable": _UNBATCHED + _BATCHED,
+    "checkpoint_dots": _UNBATCHED + _BATCHED,
+    "dots_with_no_batch_dims_saveable": _UNBATCHED,
+    "checkpoint_dots_with_no_batch_dims": _UNBATCHED,
+}
+# the names of ``jax.checkpoint_policies`` that build a policy from
+# arguments: as a policy JAX calls them with an equation's parameters,
+# and they raise TypeError at the first traced step
+REMAT_FACTORIES = ("save_only_these_names", "save_any_names_but_these",
+                   "save_anything_except_these_names",
+                   "save_and_offload_only_these_names",
+                   "save_from_both_policies",
+                   "offload_dot_with_no_batch_dims")
+
+
 def _maybe_remat(fn, policy: Optional[str]):
     """``fn`` recomputed in the backward pass under ``policy``, the JAX
-    ``TrainConfig.remat`` name: ``None`` / ``"none"`` keep every
-    activation; ``"full"`` and ``"nothing_saveable"`` save only the
-    block's inputs and recompute the rest (``torch.utils.checkpoint``,
-    non-reentrant).  Any other JAX checkpoint policy raises rather than
-    silently saving something else."""
+    ``TrainConfig.remat`` name (``torch.utils.checkpoint``,
+    non-reentrant).  ``None`` / ``"none"`` and ``"everything_saveable"``
+    keep every activation; ``"full"`` and ``"nothing_saveable"`` keep
+    only the region's inputs; the ``dots`` names keep the products of
+    ``REMAT_POLICIES`` that the backward reads (``_KeptProducts``).  A
+    factory name raises ``TypeError`` and an unknown name
+    ``AttributeError``, as ``jax.checkpoint`` and ``getattr`` do."""
     if not policy or policy == "none":
         return fn
-    if policy not in ("full", "nothing_saveable"):
-        raise NotImplementedError(
-            f"remat policy {policy!r} is not ported to repro_torch (it "
-            f"takes None, 'none', 'full' and 'nothing_saveable')")
+    if policy in REMAT_FACTORIES:
+        raise TypeError(f"remat policy {policy!r} of jax.checkpoint_policies "
+                        f"builds a policy from arguments and is not one")
+    if policy not in REMAT_POLICIES:
+        raise AttributeError(f"jax.checkpoint_policies has no attribute "
+                             f"{policy!r}")
+    saveable = REMAT_POLICIES[policy]
+    if saveable is None:
+        return fn
+    if not saveable:
+        def recomputed(*args):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return recomputed
 
-    def recomputed(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
-    return recomputed
+    def selective(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_KeptProducts(saveable).contexts)
+    return selective
+
+
+class _KeptProducts:
+    """One call of a region under a ``dots`` policy, kept as
+    ``jax.checkpoint`` keeps it: the backward reads the tensors autograd
+    saves, each is recomputed from the nearest saveable products
+    upstream of it (or the region's inputs), and only those products are
+    kept from the forward.  A product that no saved tensor needs, such
+    as an MLP's down projection added to the residual stream, is not
+    kept.  A region nested in another hands its kept products to the
+    outer one too, as a nested ``jax.checkpoint``'s residuals are the
+    outer one's.
+
+    The forward runs under ``_Forward``, which records every op (the
+    records of its inputs' producers, and the index of a saveable
+    product) and marks, when autograd saves a tensor, the products it
+    is recomputed from; the recompute runs under ``_Replay``, which
+    hands each kept product back in place of its product."""
+
+    def __init__(self, saveable):
+        self.saveable = saveable
+        self.kept = []          # saveable outputs in call order, or None
+        self.needed = set()
+        self.made_by = {}       # id(tensor) -> (product index, inputs)
+        self.outer = []         # the outer region's record of each product
+
+    def contexts(self):
+        return _Forward(self), _Replay(self)
+
+    def need(self, rec):
+        seen, todo = set(), [rec]
+        while todo:
+            rec = todo.pop()
+            if rec is None or id(rec) in seen:
+                continue
+            seen.add(id(rec))
+            if rec[0] is not None:
+                self.needed.add(rec[0])
+            else:
+                todo.extend(rec[1])
+
+
+class _Forward(TorchDispatchMode):
+    def __init__(self, region: _KeptProducts):
+        super().__init__()
+        self.region = region
+
+    def __enter__(self):
+        region = self.region
+        # the forward of the region this one runs in, if any
+        self.enclosing = next(
+            (m.region for m in reversed(_get_current_dispatch_mode_stack())
+             if isinstance(m, _Forward)), None)
+        pack, unpack = torch._C._autograd._top_saved_tensors_default_hooks(
+            False)
+
+        def marked(t):
+            region.need(region.made_by.get(id(t)))
+            return pack(t)
+        self.hooks = torch.autograd.graph.saved_tensors_hooks(marked, unpack)
+        super().__enter__()
+        self.hooks.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.hooks.__exit__(*exc)
+        super().__exit__(*exc)
+        region = self.region
+        for i in range(len(region.kept)):
+            if i not in region.needed:
+                region.kept[i] = None
+            elif self.enclosing is not None:
+                self.enclosing.need(region.outer[i])
+        region.made_by, region.outer = {}, []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        region = self.region
+        product = None
+        if func.overloadpacket in region.saveable:
+            product = len(region.kept)
+            region.kept.append(out.detach())
+            region.outer.append(None if self.enclosing is None
+                                else self.enclosing.made_by.get(id(out)))
+        rec = (product, [region.made_by.get(id(t))
+                         for t in tree_leaves((args, kwargs))
+                         if isinstance(t, torch.Tensor)])
+        for t in tree_leaves(out):
+            region.made_by[id(t)] = rec
+        return out
+
+
+class _Replay(TorchDispatchMode):
+    def __init__(self, region: _KeptProducts):
+        super().__init__()
+        self.region = region
+
+    def __enter__(self):
+        self.n = 0
+        return super().__enter__()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kept = self.region.kept
+        if func.overloadpacket in self.region.saveable:
+            i, self.n = self.n, self.n + 1
+            if i < len(kept) and kept[i] is not None:
+                out, kept[i] = kept[i], None     # handed back once
+                return out
+        return func(*args, **(kwargs or {}))
 
 
 def trunk_fwd(cfg: ModelConfig, trunk: Params, x, positions, *,

@@ -276,6 +276,35 @@ def test_vlm_encdec_families_are_ported():
     assert cites == []
 
 
+def test_long_attention_and_remat_are_ported():
+    """A.2's blockwise long-sequence attention and A.3's remat policies
+    are the port's own: ``layers`` holds ``_blockwise_inner``,
+    ``_blockwise_causal_attention`` and the ``SEQ_PARALLEL_ATTN`` knob
+    (unset), ``transformer._maybe_remat`` takes every policy name
+    ``jax.checkpoint_policies`` takes without arguments, no source of the
+    port cites A.2 or A.3, and the launch layer's stand-ins still raise
+    with A.11."""
+    import jax
+    from repro_torch import launch
+    from repro_torch.models import layers, transformer
+    assert callable(layers._blockwise_inner)
+    assert callable(layers._blockwise_causal_attention)
+    assert layers.SEQ_PARALLEL_ATTN is None
+    names = {n for n in dir(jax.checkpoint_policies) if not n.startswith("_")}
+    assert names == (set(transformer.REMAT_POLICIES) - {"full"}) | set(
+        transformer.REMAT_FACTORIES)
+    for name in transformer.REMAT_POLICIES:
+        assert callable(transformer._maybe_remat(lambda h: h, name))
+    cites = [str(p.relative_to(ROOT)) for p in SOURCES
+             if re.search(r"\bA\.[23]\b", p.read_text())]
+    assert cites == []
+    for name in ("make_local_mesh", "make_production_mesh"):
+        stub = getattr(launch, name)
+        assert stub.roadmap_item.startswith("A.11")
+        with pytest.raises(NotImplementedError, match="A.11"):
+            stub()
+
+
 HUB_MODULES = ("core", "core.perf_model", "core.network", "core.trustzones",
                "core.resource", "core.placement", "core.scheduler",
                "core.split", "core.orchestrator", "core.earlyexit",

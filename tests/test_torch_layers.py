@@ -173,15 +173,18 @@ def test_attention_fwd_plain_branch(cfgs, is_global):
         _close(a, b, rtol=1e-5, atol=1e-4)
 
 
-def test_attention_fwd_unported_branches_raise():
-    """The blockwise long-sequence branch (S >= 8192) is the one left;
-    the chunked local and ``use_flash`` branches are ported
-    (tests/test_torch_training.py)."""
+def test_attention_fwd_unported_branches_raise(monkeypatch):
+    """The blockwise long-sequence branch (S >= 8192) is ported
+    (tests/test_torch_blockwise.py), as are the chunked local and
+    ``use_flash`` branches (tests/test_torch_training.py); only its
+    sequence-parallel split is left: a set ``SEQ_PARALLEL_ATTN`` raises,
+    citing the launch layer's item."""
     _, cfg = GEMMA
     p = _t(_attn_params(_rng(7), cfg, qk_norm=True))
     x = torch.zeros((1, 8192, cfg.d_model))
     pos = torch.arange(8192)[None]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    monkeypatch.setattr(L, "SEQ_PARALLEL_ATTN", (2, None))
+    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
         L.attention_fwd(cfg, p, x, pos, is_global=True)
 
 
