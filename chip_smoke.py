@@ -114,7 +114,9 @@ non-zero without printing a result:
               strips per slot (no pool, no prefix cache): every request
               finishes, no kernel launches (as in JAX), and the tokens
               meet the int8 gate against ``serve``'s.
-9. serve_shared — the eighth main path: the same model at
+9. serve_shared — the eighth main path: the same model, its first
+              SHARED_DEPTH = 20 of 40 layers (the one depth cut of an
+              earlier path, for the script's time), at
               ``ServeConfig``'s defaults (the radix prefix cache on),
               ``use_pallas_paged=True``, max_len 512, on a bf16 and on an
               int8 pool; 8 household users on one 205-token system prompt
@@ -122,7 +124,7 @@ non-zero without printing a result:
               own tokens, 32 new each; user 0 alone to its first token,
               then users 1-7.  7 hits and 1 miss, hits past the page
               boundary with a copy-on-write fork, ``paged_attention`` ==
-              40 x decode waves (and ``paged_extend_attention`` == 40 x
+              20 x decode waves (and ``paged_extend_attention`` == 20 x
               extend waves on int8 pages), no page leaked, the hit rows'
               tokens held by the int8 gate to a cold engine's (on int8
               pages: first tokens equal, and they drift from the cold
@@ -172,11 +174,17 @@ non-zero without printing a result:
 14. train    — the fifth main path: gemma3-1b at full width and depth
               (26 layers, float32 weights from a seeded generator, ~1.0e9
               parameters) trained 3 steps through ``launch.train``'s
-              flags, state and step: 4 x 4096 bigram tokens a step in 2
+              flags, state and step, which is ``specs.build_train``'s on
+              the one-card mesh (``mesh.make_local_mesh``: NCCL, world
+              size 1; one device, so plain tensors): 4 x 4096 bigram
+              tokens a step in 2
               micro-batches, remat ``nothing_saveable``, float32 AdamW
               moments; ms and tokens/s per step, peak memory, one step's
-              device idle share; losses finite; no kernel launches (the
-              plain attention runs under autograd).
+              device idle share; one extra ``trainer.make_train_step``
+              step from the same state and first batch with loss, grad
+              norm and new state bit for bit the built step's, and its
+              ms; losses finite; no kernel launches (the plain attention
+              runs under autograd).
 15. model_train — on the trained weights, ``loss_fn(use_flash=True)``
               against ``loss_fn(use_flash=False)`` on 2 x 4096 tokens:
               at float32 the CE within 1e-5 relative and the logits
@@ -422,6 +430,30 @@ the remat policies), in the order they run among the above:
               then ``none`` and ``everything_saveable`` at 8192 where the
               reckoning fits, else at 4096 beside ``full``): loss, grad
               norm, step ms, peak GB; losses at one length equal.
+47. launch_serve — after ``long_prefill``, on its phi3-medium-14b
+              weights and the one-card mesh: ``specs.build_prefill`` at
+              2 x 4096 and ``specs.build_serve``'s decode step at 4 rows
+              of a 4096 cache (position 1024), each against
+              ``model.prefill`` / ``model.decode_step`` called directly:
+              logits, cache and greedy tokens bit for bit equal; device
+              ms and peak GB each way; the decode step's wall ms each way
+              and on DTensors over the same mesh (DTensor's host cost;
+              logits bit for bit), interleaved; and ``roofline.analyze``
+              of each built step's own ``hlo_analysis.Trace`` beside its
+              device ms.  No kernel launches.
+48. launch   — after ``train_remat``, on its state: the
+              ``SEQ_PARALLEL_ATTN`` knob set by hand to 2 and 4 shards on
+              gemma3-1b's first global layer at S = 8192 against the
+              unset walk (bit for bit, else within 2**-6 x max |out|;
+              the shard offsets recorded), the roofline of the built
+              train step from its own trace beside the train phase's
+              device ms, the built step against the same step on
+              DTensors over the mesh (loss and grad norm bit for bit,
+              wall ms each way, interleaved), and phi3-medium-14b's
+              param specs on the (16,
+              16) production mesh against ``LAUNCH_GOLDEN_SPECS`` with a
+              rule table that moves wq's first candidate shown to miss
+              them.
 
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
@@ -432,6 +464,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -620,6 +653,7 @@ HYBRID_TRAFFIC = (8, 16, 1000, 32)            # requests, prompts, new
 SHARED_SERVE = dict(max_len=512, use_pallas_paged=True)
 SHARED_SYS, SHARED_PERSONA, SHARED_TAIL = 205, 5, (8, 200)
 SHARED_USERS, SHARED_NEW = 8, 32
+SHARED_DEPTH = 20                           # of phi3's 40 layers
 SHARED_STORE = ROOT / "build" / "serve_shared_store.npz"
 # the ninth path: granite-moe-1b-a400m (24 layers of 32 experts, top 8,
 # capacity factor 1.25) at GEMMA_SERVE's settings and traffic: prompts
@@ -2371,10 +2405,13 @@ def serve_shared_phase(torch, kernels, serve, M, params, cfg, dev="cuda"):
     fresh engine from it and serves user 1 once more: one hit, the live
     re-serve's tokens exactly.  Returns the phase fields; ``launches`` sum
     the two legs' prefix-cache runs."""
-    import os
     from repro_torch.serving import EdgeServingEngine, Request, ServeConfig
+    full = cfg.num_layers
+    cfg, params = _depth_cut(cfg, params, SHARED_DEPTH)
     L = cfg.num_layers
-    fields = {"arch": cfg.name, "depth": L, "users": SHARED_USERS,
+    fields = {"arch": cfg.name, "depth": L,
+              "depth_cut": f"{L} of {full} layers (the script's time)",
+              "users": SHARED_USERS,
               "system_prompt_tokens": SHARED_SYS,
               "persona_tokens": SHARED_PERSONA,
               "own_tokens": list(SHARED_TAIL), "new_tokens": SHARED_NEW,
@@ -2781,6 +2818,15 @@ def _tree(fn, tree):
             for k, v in tree.items()}
 
 
+def _depth_cut(cfg, params, n: int):
+    """The first ``n`` trunk layers of the stacked trunk, as views (no
+    copy), with everything else by reference."""
+    cut = dict(params)
+    cut["trunk"] = {"layers": _tree(lambda t: t[:n],
+                                    params["trunk"]["layers"])}
+    return cfg.replace(num_layers=n), cut
+
+
 def make_draft(cfg, params, n: int):
     """The explicit draft of the speculative phases: the verify model's
     first ``n`` trunk layers, copied out of the stacked trunk, its
@@ -3045,13 +3091,27 @@ def reference_ssm(torch, serve_mod, get_smoke_config, kernels, dev="cuda"):
             "ssm_longest_prompt_past_bucket_64": longest > 64}
 
 
+def _tree_equal(torch, a, b) -> bool:
+    from torch.utils._pytree import tree_flatten
+    (la, sa), (lb, sb) = tree_flatten(a), tree_flatten(b)
+    return sa == sb and all(torch.equal(x.detach(), y.detach())
+                            for x, y in zip(la, lb))
+
+
 def train_phase(torch, kernels, train, M, argv=TRAIN_ARGV, dev="cuda"):
     """Drive the fifth main path's training half: gemma3-1b at full width
     and depth through ``repro_torch.launch.train``'s own flags, state and
-    step (bigram data, AdamW, remat ``nothing_saveable``), timing each
-    step to a synchronised end.  The step runs the plain attention under
-    autograd (no kernel has a backward), so every kernel count stays 0.
-    Returns (cfg, state, phase fields)."""
+    step — ``specs.build_train``'s step on the one-card mesh of
+    ``mesh.make_local_mesh`` (NCCL, world size 1; its tensors stay plain,
+    every placement being whole), as the CLI runs it (bigram data, AdamW,
+    remat ``nothing_saveable``) — timing each step to a synchronised
+    end.  One extra step of
+    ``trainer.make_train_step`` on plain tensors from the same initial
+    state and first batch gives loss, grad norm and new state bit for bit
+    equal to the built step's, and its time.  The step runs the plain
+    attention under autograd (no kernel has a backward), so every kernel
+    count stays 0.  Returns (cfg, state as plain tensors, phase fields)."""
+    from repro_torch.training import trainer as TR
     clock = train.default_clock
     args = train.parse_args([*argv, "--device", dev])
     on_card = dev != "cpu"
@@ -3059,17 +3119,34 @@ def train_phase(torch, kernels, train, M, argv=TRAIN_ARGV, dev="cuda"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     t0 = clock()
-    cfg, state, step, it = train.build(args)
+    cfg, state, built, it = train.build(args)
     init_s = clock() - t0
     _zero(kernels)
     steps = []
     for i in range(args.steps):
         batch = next(it)
         t0 = clock()
-        state, m = step(state, batch)
+        state0, (state, m) = state, built.fn(state, batch)
         _sync(torch)
         steps.append({"step": i, "ms": (clock() - t0) * 1e3,
                       **{k: float(v) for k, v in m.items()}})
+        if i:
+            continue
+        # the direct step from the same state and batch
+        direct = TR.make_train_step(cfg, train.train_config(args))
+        t0 = clock()
+        direct_state, dm = direct(state0, batch)
+        _sync(torch)
+        direct_ms = (clock() - t0) * 1e3
+        metrics_equal = {k: float(dm[k]) == steps[0][k] for k in dm}
+        state_equal = _tree_equal(torch, direct_state, state)
+        del direct_state
+        if not (all(metrics_equal.values()) and state_equal):
+            raise AssertionError(
+                f"train: build_train's step is not bit for bit "
+                f"make_train_step's: metrics {metrics_equal}, state equal "
+                f"{state_equal}")
+    del state0
     launches = _counts(kernels)
     if any(launches.values()):
         raise AssertionError(f"train: kernels launched in a training step: "
@@ -3083,7 +3160,12 @@ def train_phase(torch, kernels, train, M, argv=TRAIN_ARGV, dev="cuda"):
         "arch": cfg.name, "depth": cfg.num_layers, "depth_cut": False,
         "d_model": cfg.d_model, "params": M.count_params(state["params"]),
         "flags": vars(args), "init_s": init_s,
+        "step_route": "specs.build_train on make_local_mesh (world size "
+                      "1, plain tensors)",
         "steps": steps, "tokens_per_step": tokens,
+        "direct_step_ms": direct_ms,
+        "direct_step_equal": {"metrics": metrics_equal,
+                              "state": state_equal},
         "ms_per_step_after_first": sum(later) / len(later),
         "tokens_per_s": tokens / (sum(later) / len(later) / 1e3),
         "launches": launches,
@@ -3091,7 +3173,7 @@ def train_phase(torch, kernels, train, M, argv=TRAIN_ARGV, dev="cuda"):
                         if on_card else None)}
     batch = next(it)
     fields["step_profile"] = _device_profile(torch,
-                                             lambda: step(state, batch))
+                                             lambda: built.fn(state, batch))
     return cfg, state, fields
 
 
@@ -4945,6 +5027,23 @@ def _tokens(torch, vocab, rows, seq, dev, seed=1):
     return torch.randint(0, vocab, (rows, seq), generator=gen, device=dev)
 
 
+def _wall_ms_each(torch, fns: dict, rounds: int) -> dict:
+    """Median wall ms of each of ``fns`` ({name: fn}) to a synchronised
+    end, the calls interleaved round by round (after one warm-up call
+    each), so drifts of the host's speed fall on every one alike."""
+    for fn in fns.values():
+        fn()
+    _sync(torch)
+    out = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t0 = _clock_ms()
+            fn()
+            _sync(torch)
+            out[name].append(_clock_ms() - t0)
+    return {name: sorted(v)[len(v) // 2] for name, v in out.items()}
+
+
 def _wall_ms(torch, fn, reps: int = 3) -> float:
     """Median wall ms of ``fn()`` to a synchronised end (after one
     warm-up call)."""
@@ -5574,6 +5673,41 @@ REMAT_RECOMPUTE = ("nothing_saveable", "full",
 REMAT_LOSS_REL = 2 ** -8
 
 
+# ---------------------------------------------------------------------------
+# the launch layer: specs' builders on the one-card mesh, the knob, rules
+# ---------------------------------------------------------------------------
+
+# phi3-medium-14b through build_prefill at 2 x 4096 (the plain attention's
+# float32 scores are 2 x 40 x 4096**2 x 4 B = 5.4 GB a layer) and through
+# build_serve at 4 rows of a 4096 cache, decoding at position 1024 of a
+# prompt prefilled directly
+LAUNCH_PREFILL = (2, 4096)                  # rows, prompt tokens
+LAUNCH_DECODE = (4, 4096, 1024)             # rows, cache length, position
+LAUNCH_HOST_REPS = 10                       # decode steps timed each way
+LAUNCH_TRAIN_ROUNDS = 1                     # train steps timed each way
+# the knob on gemma3-1b's first global layer at S = 8192, B = 1
+LAUNCH_KNOB_SEQ = 8192
+LAUNCH_KNOB_SHARDS = (2, 4)
+# phi3-medium-14b's param specs on the (16, 16) production mesh without
+# fsdp, as the JAX package's rules give them (tests/test_torch_launch.py
+# holds this table to repro.launch.sharding.param_pspecs); a rule table
+# with wq's first candidate moved to head_dim must miss it
+LAUNCH_GOLDEN_SPECS = {
+    "embed/table": ("model", None),
+    "final_norm/scale": (),
+    "trunk/layers/attn/wk": (None, None, None, "model"),
+    "trunk/layers/attn/wo": (None, None, None, "model"),
+    "trunk/layers/attn/wq": (None, "model", None, None),
+    "trunk/layers/attn/wv": (None, None, None, "model"),
+    "trunk/layers/ln1/scale": (None, None),
+    "trunk/layers/ln2/scale": (None, None),
+    "trunk/layers/mlp/w_down": (None, "model", None),
+    "trunk/layers/mlp/w_gate": (None, None, "model"),
+    "trunk/layers/mlp/w_up": (None, None, "model"),
+    "unembed/w": (None, "model"),
+}
+
+
 def _blockwise_no_rescale(torch, L, qg, k, v, scale, softcap, chunk):
     """A broken blockwise walk: the running accumulator and denominator
     are not rescaled (alpha = 1) when a later chunk raises the max."""
@@ -5993,6 +6127,312 @@ def train_remat_phase(torch, kernels, M, cfg, state, dev="cuda"):
                                               "card's memory"))}
 
 
+def _peak(torch, fn, on_card: bool):
+    """``_peak_gb`` on the card; (fn(), None) elsewhere."""
+    return _peak_gb(torch, fn) if on_card else (fn(), None)
+
+
+def _on_dtensors(sh, mesh, shardings, args):
+    """``args`` laid out as DTensors on ``mesh`` by ``shardings`` even
+    where the mesh has one device (``sharding.place`` keeps those plain):
+    the route whose host cost the one-device bypass saves."""
+    return tuple(sh.distribute(a, mesh, s) for a, s in zip(args, shardings))
+
+
+def _roofline_of(torch, hlo, rl, fn, args, cfg, shape, device_ms) -> dict:
+    """``roofline.analyze`` of one traced call of ``fn(*args)`` on the
+    one-card mesh, beside the step's measured device ms."""
+    with hlo.Trace() as traced:
+        fn(*args)
+    _sync(torch)
+    traced.arg_bytes = hlo.shape_bytes(list(args))
+    r = rl.analyze(traced, arch=cfg.name, shape_name=shape.name,
+                   mesh_name="local (1, 1)", chips=1,
+                   model_flops=rl.model_flops_for(cfg, shape))
+    return {"compute_ms": r.compute_s * 1e3, "memory_ms": r.memory_s * 1e3,
+            "collective_ms": r.collective_s * 1e3,
+            "bottleneck": r.bottleneck, "useful_ratio": r.useful_ratio,
+            "flops": r.hlo_flops_per_chip, "bytes": r.hlo_bytes_per_chip,
+            "collectives": r.coll_counts,
+            "trace_peak_gb": r.temp_bytes_per_chip / 1e9,
+            "measured_device_ms": device_ms}
+
+
+def _busy_ms(torch, fn, on_card: bool):
+    if not on_card:
+        return "not measured"
+    prof = _device_profile(torch, fn)
+    return prof.get("device_busy_ms", prof.get("device_ms"))
+
+
+def launch_serve_phase(torch, kernels, M, params, cfg, dev="cuda",
+                       prefill=LAUNCH_PREFILL, decode=LAUNCH_DECODE):
+    """phi3-medium-14b's serving steps through the launch layer on its
+    ``serve`` weights: ``specs.build_prefill`` at (rows, prompt) =
+    ``prefill`` and ``specs.build_serve`` at ``decode``'s rows and cache
+    length, on ``mesh.make_local_mesh`` (NCCL, world size 1).  The built
+    prefill's last logits and cache, and one built decode step's logits
+    and cache, are bit for bit those of ``model.prefill`` /
+    ``model.decode_step`` called directly on the same inputs, greedy
+    tokens equal.  Device ms and peak GB of each route; the decode step's
+    wall ms each way and on DTensors over the same mesh (``_on_dtensors``:
+    DTensor's host cost, which the one-device mesh's plain tensors do
+    not pay), its logits bit for bit too; the roofline of each built step
+    from its own trace.  No kernel launches (the builders pass no kernel
+    switch, as JAX's)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import make_local_mesh
+    on_card = dev != "cpu"
+    mesh = make_local_mesh(dev)
+    _zero(kernels)
+    fields = {"arch": cfg.name, "mesh": str(mesh)}
+    with torch.no_grad():
+        B, S = prefill
+        shape = InputShape("launch_prefill", S, B, "prefill")
+        built = sp.build_prefill(cfg, shape, mesh)
+        batch = {"tokens": _tokens(torch, cfg.vocab_size, B, S, dev,
+                                   seed=5).int()}
+        (lb, cb), peak_b = _peak(torch, lambda: built.fn(params, batch),
+                                 on_card)
+        (ld, cd), peak_d = _peak(
+            torch, lambda: M.prefill(cfg, params, batch, S), on_card)
+        pre = {"rows": B, "tokens": S,
+               # one layer's float32 scores, reckoned from the shapes
+               "scores_gb_reckoned": B * cfg.num_heads * S * S * 4 / 1e9,
+               "logits_equal": bool(torch.equal(lb, ld)),
+               "cache_equal": _tree_equal(torch, cb, cd),
+               "greedy_equal": bool(torch.equal(lb.argmax(-1),
+                                                ld.argmax(-1))),
+               "peak_gb": {"built": peak_b, "direct": peak_d}}
+        del lb, cb, ld, cd
+        pre["device_ms"] = {
+            "built": _busy_ms(torch, lambda: built.fn(params, batch),
+                              on_card),
+            "direct": _busy_ms(torch, lambda: M.prefill(cfg, params, batch,
+                                                        S), on_card)}
+        pre["roofline"] = _roofline_of(torch, hlo, rl, built.fn,
+                                       (params, batch), cfg, shape,
+                                       pre["device_ms"]["built"])
+        fields["prefill"] = pre
+        if on_card:
+            _release(torch)
+
+        B, T, P = decode
+        shape = InputShape("launch_decode", T, B, "decode")
+        built = sp.build_serve(cfg, shape, mesh)
+        prompt = {"tokens": _tokens(torch, cfg.vocab_size, B, P, dev,
+                                    seed=6).int()}
+        logits0, cache = M.prefill(cfg, params, prompt, T)
+        tok = logits0[:, -1:].argmax(-1).int()
+        pos = torch.full((B,), P, dtype=torch.int32, device=dev)
+        cache_d = tree_map(torch.clone, cache)
+        (lb, cb), peak_b = _peak(
+            torch, lambda: built.fn(params, cache, tok, pos), on_card)
+        (ld, _), peak_d = _peak(
+            torch, lambda: M.decode_step(cfg, params, cache_d, tok, pos),
+            on_card)
+        dec = {"rows": B, "cache_len": T, "position": P,
+               "logits_equal": bool(torch.equal(lb, ld)),
+               "cache_equal": _tree_equal(torch, cb, cache_d),
+               "greedy_equal": bool(torch.equal(lb.argmax(-1),
+                                                ld.argmax(-1))),
+               "peak_gb": {"built": peak_b, "direct": peak_d}}
+        # the same token at the same position again: the same writes
+        step_b = lambda: built.fn(params, cache, tok, pos)  # noqa: E731
+        step_d = lambda: M.decode_step(  # noqa: E731
+            cfg, params, cache_d, tok, pos)
+        dt = _on_dtensors(sh, mesh, built.in_shardings,
+                          (params, tree_map(torch.clone, cache), tok, pos))
+
+        def step_t():
+            with implicit_replication():
+                return M.decode_step(cfg, *dt)
+        dec["dtensor_logits_equal"] = bool(torch.equal(
+            sh.gather(step_t()[0]), ld))
+        del lb, cb, ld
+        dec["wall_ms"] = _wall_ms_each(
+            torch, {"built": step_b, "direct": step_d, "dtensor": step_t},
+            LAUNCH_HOST_REPS)
+        dec["device_ms"] = {"built": _busy_ms(torch, step_b, on_card),
+                            "direct": _busy_ms(torch, step_d, on_card),
+                            "dtensor": _busy_ms(torch, step_t, on_card)}
+        dec["roofline"] = _roofline_of(
+            torch, hlo, rl, built.fn, (params, cache, tok, pos), cfg, shape,
+            dec["device_ms"]["built"])
+        fields["decode"] = dec
+        del cache, cache_d, logits0, dt
+    bad = [f"{k}.{c}" for k in ("prefill", "decode")
+           for c in ("logits_equal", "cache_equal", "greedy_equal")
+           if not fields[k][c]]
+    if not fields["decode"]["dtensor_logits_equal"]:
+        bad.append("decode.dtensor_logits_equal")
+    if bad:
+        raise AssertionError(f"launch_serve: built steps differ from the "
+                             f"direct calls: {bad} {fields}")
+    fields["launches"] = _counts(kernels)
+    if any(fields["launches"].values()):
+        raise AssertionError(f"launch_serve: kernel launches "
+                             f"{fields['launches']}")
+    return fields
+
+
+def _flat_specs(tree) -> dict:
+    from torch.utils._pytree import tree_leaves_with_path
+    return {"/".join(e.key for e in path): tuple(s)
+            for path, s in tree_leaves_with_path(tree)}
+
+
+def launch_specs_check(M, get_config) -> dict:
+    """phi3-medium-14b's param specs on the (16, 16) production mesh
+    (an ``AbstractMesh``: no process group) equal ``LAUNCH_GOLDEN_SPECS``;
+    a rule table with wq's first candidate moved to head_dim is shown to
+    miss it."""
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import abstract_mesh
+    cfg = get_config(ARCH)
+    mesh = abstract_mesh((16, 16), ("data", "model"))
+    shapes = sp.shapes(M.init_params(cfg, None, "meta"))
+    got = _flat_specs(sh.param_pspecs(cfg, mesh, shapes))
+    if got != LAUNCH_GOLDEN_SPECS:
+        raise AssertionError(f"launch: phi3 specs {got} != "
+                             f"{LAUNCH_GOLDEN_SPECS}")
+    rules = sh._PARAM_RULES
+    sh._PARAM_RULES = dict(rules, wq=([(-1, "model"), (-3, "model")],
+                                      rules["wq"][1]))
+    try:
+        broken = _flat_specs(sh.param_pspecs(cfg, mesh, shapes))
+    finally:
+        sh._PARAM_RULES = rules
+    missed = sorted(k for k, v in LAUNCH_GOLDEN_SPECS.items()
+                    if broken[k] != v)
+    if not missed:
+        raise AssertionError("launch: a broken rule table gave the golden "
+                             "specs")
+    return {"phi3_specs_equal_golden": True,
+            "broken_rule_table": "wq's first candidate moved from heads "
+                                 "(-2) to head_dim (-1)",
+            "broken_table_misses": {k: broken[k] for k in missed}}
+
+
+def _dtensor_train_step(torch, sh, TR, built, mesh, cfg, tcfg, state,
+                        batch) -> dict:
+    """One train step of ``built`` (plain tensors on the one-card mesh)
+    and the same step on DTensors over that mesh (``_on_dtensors``):
+    loss and grad norm bit for bit equal, and the median wall ms each way
+    over LAUNCH_TRAIN_ROUNDS interleaved rounds (DTensor's host cost)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    dt = _on_dtensors(sh, mesh, built.in_shardings, (state, batch))
+    step = TR.make_train_step(cfg, tcfg)
+
+    def on_dtensors():
+        with implicit_replication():
+            return step(*dt)
+    mp = built.fn(state, batch)[1]
+    md = sh.gather(on_dtensors()[1])
+    equal = {k: float(mp[k]) == float(md[k]) for k in ("loss", "grad_norm")}
+    if not all(equal.values()):
+        raise AssertionError(f"launch: the train step on DTensors differs "
+                             f"from the plain one: {equal} {mp} {md}")
+    return {"equal": equal, "wall_ms": _wall_ms_each(
+        torch, {"plain": lambda: built.fn(state, batch),
+                "dtensor": on_dtensors}, LAUNCH_TRAIN_ROUNDS)}
+
+
+def launch_phase(torch, kernels, train, M, cfg, state, train_device_ms,
+                 argv=TRAIN_ARGV, dev="cuda", knob_seq=LAUNCH_KNOB_SEQ):
+    """The launch layer on gemma3-1b's trained state (after
+    ``train_remat``): ``layers.SEQ_PARALLEL_ATTN`` set by hand to each of
+    ``LAUNCH_KNOB_SHARDS`` on the first global layer at S = ``knob_seq``
+    against the unset walk (bit for bit, else within LONG_REL x max
+    |out|; the shard offsets seen by ``_blockwise_inner`` recorded); the
+    roofline of ``specs.build_train``'s step at the train phase's shape
+    from its own trace beside ``train_device_ms`` (the device-busy ms of
+    the train phase's profiled step: the same built step and shape, so
+    it is not profiled twice); the same step on DTensors over the mesh
+    (``_dtensor_train_step``: DTensor's host cost); the sharding rules
+    against ``LAUNCH_GOLDEN_SPECS`` with a broken table shown to fail.
+    No kernel launches."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.data import DataConfig, data_iterator
+    from repro_torch.launch import hlo_analysis as hlo
+    from repro_torch.launch import roofline as rl
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import specs as sp
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import layers as L
+    from repro_torch.training import trainer as TR
+    _zero(kernels)
+    lp = next(p for p, g in _trunk_order(cfg, state["params"]["trunk"])
+              if g)["attn"]
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((1, knob_seq, cfg.d_model), generator=gen, device=dev,
+                    dtype=torch.float32).to(cfg.activation_dtype)
+    pos = torch.arange(knob_seq, dtype=torch.int32, device=dev)[None]
+    attend = lambda: L.attention_fwd(  # noqa: E731
+        cfg, lp, x, pos, is_global=True)[0]
+    inner = L._blockwise_inner
+    offsets = []
+
+    def recording(*a, q_offset=0, **k):
+        offsets.append(q_offset)
+        return inner(*a, q_offset=q_offset, **k)
+    knob = []
+    with torch.no_grad():
+        base = attend()
+        base_ms = _wall_ms(torch, attend, 3)
+        bound = LONG_REL * float(base.float().abs().max())
+        for n in LAUNCH_KNOB_SHARDS:
+            L.SEQ_PARALLEL_ATTN = (n, None)
+            L._blockwise_inner = recording
+            try:
+                offsets.clear()
+                out = attend()
+                seen = sorted(set(offsets))
+                L._blockwise_inner = inner
+                ms = _wall_ms(torch, attend, 3)
+            finally:
+                L.SEQ_PARALLEL_ATTN = None
+                L._blockwise_inner = inner
+            diff = float((out.float() - base.float()).abs().max())
+            row = {"shards": n, "q_offsets": seen,
+                   "bitwise_equal": bool(torch.equal(out, base)),
+                   "max_abs_diff": diff, "bound": bound, "ms": ms}
+            knob.append(row)
+            if len(seen) != n or (not row["bitwise_equal"] and diff > bound):
+                raise AssertionError(f"launch: the knob at n={n}: {row}")
+        del base, out, x
+    fields = {"arch": cfg.name,
+              "knob": {"layer": "first global", "seq": knob_seq,
+                       "unset_ms": base_ms, "rows": knob}}
+
+    args = train.parse_args([*argv, "--device", dev])
+    shape = InputShape("cli", args.seq, args.batch, "train")
+    mesh = make_local_mesh(dev)
+    built = sp.build_train(cfg, shape, mesh, train.train_config(args))
+    batch = next(data_iterator(cfg, shape, DataConfig(branching=4),
+                               device=dev))
+    fields["train_step_roofline"] = _roofline_of(
+        torch, hlo, rl, built.fn, (state, batch), cfg, shape,
+        train_device_ms)
+    fields["dtensor_train_step"] = _dtensor_train_step(
+        torch, sh, TR, built, mesh, cfg, train.train_config(args), state,
+        batch)
+    del batch
+    fields["specs"] = launch_specs_check(M, get_config)
+    fields["launches"] = _counts(kernels)
+    if any(fields["launches"].values()):
+        raise AssertionError(f"launch: kernel launches {fields['launches']}")
+    return fields
+
+
 def _to(tree, dev):
     """A copy of ``tree`` on ``dev`` whose leaves are new tensor objects
     (``detach``), so flags set on them leave ``tree`` as it was."""
@@ -6001,6 +6441,13 @@ def _to(tree, dev):
 
 
 def main() -> int:
+    # internvl2's phases hold 60-72 GB of the card's 80; with fixed-size
+    # segments 11.65 GB of them sat free in pieces too small for
+    # model_vlm's 3.91 GB float32 unembedding, and the run failed there.
+    # Growable segments keep the free space whole (read before the first
+    # allocation; switching later did not help).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -6014,6 +6461,7 @@ def main() -> int:
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import serve, train
+    from repro_torch.launch.mesh import close_mesh
     from repro_torch.models import model as M
     from repro_torch.models import ssm
 
@@ -6123,6 +6571,11 @@ def main() -> int:
     for name, n in fields["launches"].items():
         launches[name] += n
     emit("long_prefill", seconds=clock() - t0, **fields)
+    _release(torch)
+
+    t0 = clock()
+    emit("launch_serve", **launch_serve_phase(torch, kernels, M, params, cfg),
+         seconds=clock() - t0)
     del params
     _release(torch)
 
@@ -6140,6 +6593,8 @@ def main() -> int:
 
     t0 = clock()
     cfg_tr, state, fields = train_phase(torch, kernels, train, M)
+    train_busy_ms = fields["step_profile"].get("device_busy_ms",
+                                               "not measured")
     emit("train", seconds=clock() - t0, **fields)
 
     t0 = clock()
@@ -6151,9 +6606,15 @@ def main() -> int:
 
     t0 = clock()
     fields = train_remat_phase(torch, kernels, M, cfg_tr, state)
-    del state
     _release(torch)
     emit("train_remat", seconds=clock() - t0, **fields)
+
+    t0 = clock()
+    fields = launch_phase(torch, kernels, train, M, cfg_tr, state,
+                          train_busy_ms)
+    del state
+    _release(torch)
+    emit("launch", seconds=clock() - t0, **fields)
 
     t0 = clock()
     _, fed_params, fields = federated_phase(torch, kernels, M)
@@ -6314,6 +6775,7 @@ def main() -> int:
     emit("reference_hub", **reference_hub(torch, M, get_smoke_config,
                                           hub_days), seconds=clock() - t0)
 
+    close_mesh()
     emit("done", seconds=clock() - t_start)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

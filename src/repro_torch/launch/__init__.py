@@ -1,7 +1,4 @@
-"""Command-line entry points of the port."""
-from repro_torch.unported import not_ported
+"""Command-line entry points, meshes and step builders of the port."""
+from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
 
-make_local_mesh = not_ported("repro.launch.make_local_mesh",
-                             "A.11 (launch / multi-device)")
-make_production_mesh = not_ported("repro.launch.make_production_mesh",
-                                  "A.11 (launch / multi-device)")
+__all__ = ["make_local_mesh", "make_production_mesh"]

@@ -67,11 +67,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     numbers — bridge JAX weights for parity."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+        generator = L.default_generator(dev)
     kw = dict(dtype=cfg.weight_dtype, device=dev)
     pos = torch.empty((cfg.max_target_positions, cfg.d_model),
                       dtype=torch.float32, device=dev)
-    pos.normal_(generator=generator).mul_(0.02)
+    if not pos.is_meta:
+        pos.normal_(generator=generator).mul_(0.02)
     return {
         "embed": L.init_embedding(cfg, generator, **kw),
         "pos_table": pos.to(cfg.weight_dtype),
@@ -317,8 +318,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
     n = T.broadcast_true_len(true_len, B, tokens.device)
     _, positions = _positions(0, B, S, tokens.device)
     x = _embed(cfg, params, tokens, positions)
-    self_cache = L.init_kv_cache(cfg, B, max_len, stack=(cfg.num_layers,),
-                                 dtype=x.dtype, device=x.device)
+    self_cache = L.on_mesh_of(L.init_kv_cache(
+        cfg, B, max_len, stack=(cfg.num_layers,), dtype=x.dtype,
+        device=x.device), x)
     cks, cvs = [], []
     for i, lp in enumerate(_decoder_layers(cfg, params)):
         x, (k, v, ck, cv) = _dec_block_fwd(cfg, lp, x, positions, enc_out,

@@ -45,8 +45,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     numbers — bridge JAX weights for parity."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
+        generator = L.default_generator(dev)
+    if generator is not None and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     nb, rem = _superblocks(cfg)
     kw = dict(dtype=cfg.weight_dtype, device=dev)
@@ -202,7 +202,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
     x = L.embed(cfg, params["embed"], tokens)
     n = T.broadcast_true_len(true_len, x.shape[0], x.device)
     positions = _positions(x)
-    cache = init_cache(cfg, x.shape[0], max_len, x.device)
+    cache = L.on_mesh_of(init_cache(cfg, x.shape[0], max_len, x.device), x)
     for lp, c, is_attn in walk(cfg, params, cache):
         if is_attn:
             x, (k, v) = T.block_prefill(cfg, lp, x, positions,

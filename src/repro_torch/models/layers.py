@@ -30,8 +30,8 @@ Conventions
   outside any Pallas kernel.
 * Long causal sequences (S >= 8192, S and T multiples of 1024) take the
   blockwise online-softmax walk of ``_blockwise_causal_attention``, as
-  in JAX; only its sequence-parallel knob ``SEQ_PARALLEL_ATTN``, set by
-  the launch layer, raises ``NotImplementedError`` (ROADMAP A.11).
+  in JAX, split over query shards when the launch layer sets
+  ``SEQ_PARALLEL_ATTN``.
 """
 from __future__ import annotations
 
@@ -40,20 +40,26 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
+                                      distribute_tensor)
 
 from repro_torch.configs.base import ModelConfig
 
 NEG_INF = -2.0e38
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
-
-
 # ---------------------------------------------------------------------------
 # initializers (numbers from an explicit torch.Generator)
 # ---------------------------------------------------------------------------
+
+def default_generator(device: torch.device):
+    """Seed 0 on ``device``, or None on the meta device: there the
+    initializers only shape their tensors and draw nothing (the
+    counterpart of ``jax.eval_shape`` of an init)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(0)
+
 
 def _dense_init(gen, shape, stack=(), in_axis_size=None, dtype=torch.float32,
                 device=None):
@@ -64,6 +70,8 @@ def _dense_init(gen, shape, stack=(), in_axis_size=None, dtype=torch.float32,
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     std = 1.0 / math.sqrt(max(fan_in, 1))
     out = torch.empty(full, dtype=dtype, device=device)
+    if out.is_meta:
+        return out
     for part in (out.view(-1, *shape) if stack else out[None]):
         tmp = torch.empty(shape, dtype=torch.float32, device=device)
         torch.nn.init.trunc_normal_(tmp, 0.0, 1.0, -2.0, 2.0, generator=gen)
@@ -193,8 +201,92 @@ def weight_einsum(eq, x, w):
             scale.reshape(nd).float(), out_dtype=x.dtype)
         return out.reshape(*lead, *q.shape[n:])
     kd = math.prod(w.shape[:n])
+    if isinstance(x, DTensor) or isinstance(w, DTensor):
+        # matmul folds x's leading dims into one and the weight's
+        # contracted and output dims into one each
+        x = _merge_ready(_merge_ready(x, 0, len(lead)), len(lead), x.dim())
+        w = _merge_ready(_merge_ready(w, 0, n), n, w.dim())
     out = torch.matmul(x.reshape(*lead, kd), w.to(x.dtype).reshape(kd, -1))
     return out.reshape(*lead, *w.shape[n:])
+
+
+# DTensor layouts.  A step of ``launch.specs`` on a mesh of more than one
+# device runs these functions on DTensors; where DTensor's rules do not
+# follow a reshape or a walk, the helpers below redistribute explicitly.
+# Each call site takes them only after one ``isinstance(..., DTensor)``
+# check, so plain tensors (the one-device mesh, the engines) run as
+# before.
+
+def _relaid(t, fn):
+    """``t`` with the placement p of each mesh dim i replaced by
+    ``fn(i, p)``: a redistribute where one changes."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = [fn(i, p) for i, p in enumerate(t.placements)]
+    if pl == list(t.placements):
+        return t
+    return t.redistribute(t.device_mesh, pl)
+
+
+def _split_ready(t, dim: int, lead: int):
+    """``t`` ready for dim ``dim`` to split into (lead, rest): a shard of
+    that dim over a mesh dim that ``lead`` does not divide (H query heads
+    over 16 devices, grouped as K = 8 kv heads) is gathered first."""
+    return _relaid(t, lambda i, p: Replicate() if isinstance(p, Shard)
+                   and p.dim == dim and lead % t.device_mesh.size(i) else p)
+
+
+def _shardwise(walk):
+    """``walk(qg, k, v, ...)``, an attention walk over qg (B, S, K, G, hd)
+    and k, v (B, T, K, hd) that returns qg's shape, run rank by rank on
+    DTensors: an explicit local map.  Rows (dim 0) and kv heads (dim 2,
+    where K divides the mesh dim) keep their shards, since attention is
+    independent per row and per kv head; any other layout is gathered
+    and partial sums reduced, and q, k and v take the same placements.
+    Each rank walks its local tensors and the output comes back with
+    those placements.  (DTensor's view rules do not follow the walks'
+    chunk-by-chunk slicing and head regrouping on a split dim.)  Plain
+    tensors go straight to ``walk``."""
+    @functools.wraps(walk)
+    def run(qg, k, v, *args, **kw):
+        if not isinstance(qg, DTensor):
+            return walk(qg, k, v, *args, **kw)
+        mesh, K = qg.device_mesh, qg.shape[2]
+        pl = [p if type(p) is Shard and (
+            p.dim == 0 or (p.dim == 2 and K % mesh.size(i) == 0))
+            else Replicate() for i, p in enumerate(qg.placements)]
+        local = [_local_as(t, mesh, pl) for t in (qg, k, v)]
+        out = walk(*local, *args, **kw)
+        return DTensor.from_local(out, mesh, pl, run_check=False,
+                                  shape=qg.shape,
+                                  stride=_contiguous_stride(qg.shape))
+    return run
+
+
+def _local_as(t, mesh, placements):
+    """This rank's part of ``t`` laid out by ``placements`` (a plain
+    ``t`` is taken as the whole tensor, held on every rank)."""
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, placements).to_local()
+    return distribute_tensor(t, mesh, placements,
+                             src_data_rank=None).to_local()
+
+
+def _contiguous_stride(shape) -> tuple:
+    return torch.empty(shape, device="meta").stride()
+
+
+def _merge_ready(t, start: int, stop: int):
+    """``t`` ready for dims [start, stop) to merge into one: a shard of a
+    dim of the group other than its first, or of a first dim that is
+    already a strided shard, would come out of the merge strided, which
+    DTensor's product rules do not take; partial sums would be
+    re-sharded strided.  Each is gathered (reduced) first."""
+    return _relaid(t, lambda i, p: Replicate() if isinstance(p, Partial)
+                   or isinstance(p, Shard) and (
+                       start < p.dim < stop
+                       or (p.dim == start and type(p) is not Shard))
+                   else p)
 
 
 # ---------------------------------------------------------------------------
@@ -382,10 +474,13 @@ def _project_seq(cfg: ModelConfig, params, x, positions, *,
 BLOCKWISE_THRESHOLD = 8192
 BLOCKWISE_CHUNK = 1024
 
-# Sequence-parallel blockwise attention (process-scoped, set by the launch
-# layer's specs in JAX): (n_shards, a sharding of the (B, shard, S/shard,
-# K, G, hd) query layout) or None.  The port has no sharding yet, so
-# ``_blockwise_causal_attention`` refuses a set value.
+# Sequence-parallel blockwise attention (process-scoped, set by
+# ``launch.specs``): (n_shards, layout) or None, ``layout`` a
+# ``launch.sharding.NamedSharding`` of the (B, shard, S/shard, K, G, hd)
+# query layout, or None.  Used when query heads cannot shard over the
+# model axis: each model shard computes its 1/n slice of the query
+# sequence against the whole K/V — no redundant FLOPs and 1/n of the
+# score traffic per chip.
 SEQ_PARALLEL_ATTN = None
 
 
@@ -415,6 +510,8 @@ def attention_fwd(cfg: ModelConfig, params, x, positions, *,
                            kv_x=kv_x)
 
     T = k.shape[1]
+    if isinstance(q, DTensor):
+        q = _split_ready(q, 2, K)
     qg = q.reshape(B, S, K, G, hd)
 
     window = 0 if is_global else cfg.local_window
@@ -442,11 +539,14 @@ def attention_fwd(cfg: ModelConfig, params, x, positions, *,
                                         scale=scale,
                                         softcap=cfg.attn_logit_softcap)
 
-    out = out.reshape(B, S, H, hd)
-    o = weight_einsum("bshq,hqd->bsd", out, params["wo"])
+    if isinstance(out, DTensor):
+        out = _merge_ready(out, 2, 4)
+    o = weight_einsum("bshq,hqd->bsd", out.reshape(B, S, H, hd),
+                      params["wo"])
     return o, k, v
 
 
+@_shardwise
 def _chunked_local_attention(qg, k, v, window, scale, softcap):
     """Sliding-window attention in O(S * 2W): each chunk of W queries
     against its own chunk and the previous one (zeros before chunk 0).
@@ -491,16 +591,56 @@ def _blockwise_causal_attention(qg, k, v, scale, softcap,
     running (max, denominator, accumulator): the flash algorithm in plain
     PyTorch, O(S * chunk) live scores instead of O(S * T).
 
-    qg: (B, S, K, G, hd); k, v: (B, T, K, hd).  The JAX function's
-    sequence-parallel split (``SEQ_PARALLEL_ATTN``) needs the launch
-    layer's sharding and raises here."""
-    if SEQ_PARALLEL_ATTN is not None:
-        raise _not_ported("sequence-parallel blockwise attention "
-                          "(layers.SEQ_PARALLEL_ATTN)",
-                          "A.11 (launch / multi-device)")
+    qg: (B, S, K, G, hd); k, v: (B, T, K, hd).  With
+    ``SEQ_PARALLEL_ATTN = (n, layout)`` set, S % n == 0 and the shard
+    length ``per = S // n`` a multiple of ``chunk``, the queries split
+    into n shards of ``per`` (``_seq_parallel_attention``); otherwise
+    the whole sequence takes one walk, as in JAX."""
+    sp = SEQ_PARALLEL_ATTN
+    if sp is not None:
+        n_sh, layout = sp
+        S = qg.shape[1]
+        per = S // n_sh
+        if S % n_sh == 0 and per % chunk == 0 and per >= chunk:
+            return _seq_parallel_attention(qg, k, v, scale, softcap, chunk,
+                                           n_sh, layout)
     return _blockwise_inner(qg, k, v, scale, softcap, chunk)
 
 
+def _seq_parallel_attention(qg, k, v, scale, softcap, chunk, n_sh, layout):
+    """The walk of ``_blockwise_inner`` on each of ``n_sh`` query shards,
+    shard s at ``q_offset = s * per`` against the whole of k, v.
+
+    Plain tensors walk the shards in turn.  A DTensor (a step of
+    ``launch.specs`` on a mesh) is laid out by ``layout``'s placements
+    first, the shard axis over the model axis, and each rank walks the
+    shards it holds against k, v gathered whole (the explicit
+    redistribute JAX's ``with_sharding_constraint`` implies); the output
+    keeps that layout.  Each query chunk walks the same kv chunks in the
+    same order as the unsplit walk, so the bits are the same."""
+    B, S, K, G, hd = qg.shape
+    per = S // n_sh
+    qs = qg.reshape(B, n_sh, per, K, G, hd)
+    if not isinstance(qs, DTensor) or layout is None:
+        outs = [_blockwise_inner(qs[:, s], k, v, scale, softcap, chunk,
+                                 q_offset=s * per) for s in range(n_sh)]
+        return torch.stack(outs, dim=1).reshape(B, S, K, G, hd)
+
+    mesh, placements = layout.mesh, layout.placements
+    whole = [Replicate()] * mesh.ndim
+    kl, vl = _local_as(k, mesh, whole), _local_as(v, mesh, whole)
+    ql = qs.redistribute(mesh, placements).to_local()
+    first = _shard_offset(n_sh, 1, mesh, placements)
+    outs = [_blockwise_inner(ql[:, j], kl, vl, scale, softcap, chunk,
+                             q_offset=(first + j) * per)
+            for j in range(ql.shape[1])]
+    out = DTensor.from_local(torch.stack(outs, dim=1), mesh, placements,
+                             run_check=False, shape=qs.shape,
+                             stride=_contiguous_stride(qs.shape))
+    return out.reshape(B, S, K, G, hd)
+
+
+@_shardwise
 def _blockwise_inner(qg, k, v, scale, softcap, chunk, q_offset=0):
     """The walk of ``_blockwise_causal_attention`` for queries at
     positions ``q_offset + i`` (a shard of a longer sequence) against
@@ -614,6 +754,76 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, stack=(),
     }
 
 
+def on_mesh_of(tree, ref):
+    """``tree``'s tensors as replicated DTensors over the same storage on
+    ``ref``'s mesh when ``ref`` is a DTensor (a cache a prefill makes
+    inside a step of ``launch.specs`` joins the mesh its activations run
+    on, so the in-place fills can write DTensors into it); otherwise
+    ``tree`` as it is."""
+    if not isinstance(ref, DTensor):
+        return tree
+    mesh = ref.device_mesh
+    whole = [Replicate()] * mesh.ndim
+
+    def wrap(t):
+        if isinstance(t, dict):
+            return {k: wrap(v) for k, v in t.items()}
+        return DTensor.from_local(t, mesh, whole, run_check=False)
+    return wrap(tree)
+
+
+def _shard_offset(length: int, dim: int, mesh, placements) -> int:
+    """Where this rank's part of tensor dim ``dim`` (``length`` long)
+    starts, for DTensor's split: each mesh dim sharding it, in order,
+    cuts what is left into ``torch.chunk`` pieces (from the mesh's own
+    coordinates, so no tensor op runs: none is data-dependent under
+    ``FakeTensorMode``)."""
+    coord = mesh.get_coordinate()
+    start = 0
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard) and p.dim == dim:
+            piece = -(-length // mesh.size(i))
+            start += coord[i] * piece
+            length = max(0, min(piece, length - coord[i] * piece))
+    return start
+
+
+def row_write(dst, at, val) -> None:
+    """``dst[b, at[b]] = val[b]`` for every row b, in place, of a DTensor
+    dst (B, T, ...) (a step of ``launch.specs`` on a mesh); at (B,)
+    int64, val (B, ...).
+
+    It is written shard by shard, an explicit local map: DTensor has no
+    sharding rule for ``index_put_`` in every torch version, and none
+    keeps a sharded destination in place.  ``at`` and ``val`` are laid
+    out as ``dst``'s rows and trailing dims are, each rank writes the
+    rows it holds, and where T is split a rank writes only the positions
+    that fall in its part (a masked write of what was there
+    elsewhere)."""
+    mesh, pl = dst.device_mesh, dst.placements
+
+    def local(t, placements):
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, placements).to_local()
+        return distribute_tensor(t, mesh, placements,
+                                 src_data_rank=None).to_local()
+    # val's dims are dst's without T (dim 1); at's one dim is dst's rows
+    val = local(val, [Shard(p.dim - (p.dim > 1)) if isinstance(p, Shard)
+                      and p.dim != 1 else Replicate() for p in pl])
+    at = local(at, [Shard(0) if isinstance(p, Shard) and p.dim == 0
+                    else Replicate() for p in pl])
+    mine = dst.to_local()
+    rows = torch.arange(mine.shape[0], device=mine.device)
+    T = mine.shape[1]
+    if T == dst.shape[1]:
+        mine[rows, at] = val
+        return
+    li = at - _shard_offset(dst.shape[1], 1, mesh, pl)
+    ok = ((li >= 0) & (li < T)).view(-1, *([1] * (val.dim() - 1)))
+    li = li.clamp(0, T - 1)
+    mine[rows, li] = torch.where(ok, val, mine[rows, li])
+
+
 def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
                      is_global: bool, cross_kv=None):
     """Single-token decode against a dense cache: a global strip or a
@@ -642,9 +852,13 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
         if cfg.use_qk_norm:
             q = rmsnorm(params["q_norm"], q, cfg.norm_eps)
         k, v = cross_kv
+        if isinstance(q, DTensor):
+            q = _split_ready(q, 2, K)
         out = attention_weights_and_out(q.reshape(B, 1, K, G, hd), k, v,
                                         None, scale=scale,
                                         softcap=cfg.attn_logit_softcap)
+        if isinstance(out, DTensor):
+            out = _merge_ready(out, 2, 4)
         o = weight_einsum("bshq,hqd->bsd", out.reshape(B, 1, H, hd),
                           params["wo"])
         return o, cache
@@ -655,21 +869,30 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
 
     kc, vc, slots = cache["k"], cache["v"], cache["slots"]
     T = kc.shape[1]
-    rows = torch.arange(B, device=x.device)
     at = (pos % T).long()
-    kc[rows, at] = knew[:, 0].to(kc.dtype)
-    vc[rows, at] = vnew[:, 0].to(vc.dtype)
-    slots[rows, at] = pos
+    if isinstance(kc, DTensor):
+        row_write(kc, at, knew[:, 0].to(kc.dtype))
+        row_write(vc, at, vnew[:, 0].to(vc.dtype))
+        row_write(slots, at, pos)
+    else:
+        rows = torch.arange(B, device=x.device)
+        kc[rows, at] = knew[:, 0].to(kc.dtype)
+        vc[rows, at] = vnew[:, 0].to(vc.dtype)
+        slots[rows, at] = pos
 
     window = 0 if is_global else cfg.local_window
     valid = (slots >= 0) & (slots <= pos[:, None])
     if window:
         valid &= slots > (pos[:, None] - window)
     mask = valid[:, None, None, None, :]          # (B,1,1,1,T)
+    if isinstance(q, DTensor):
+        q = _split_ready(q, 2, K)
     qg = q.reshape(B, 1, K, G, hd)
     out = attention_weights_and_out(qg, kc.to(x.dtype), vc.to(x.dtype),
                                     mask, scale=scale,
                                     softcap=cfg.attn_logit_softcap)
+    if isinstance(out, DTensor):
+        out = _merge_ready(out, 2, 4)
     o = weight_einsum("bshq,hqd->bsd", out.reshape(B, 1, H, hd),
                       params["wo"])
     return o, cache
@@ -1203,6 +1426,8 @@ def init_embedding(cfg: ModelConfig, gen, dtype=torch.float32, device=None):
     std = cfg.d_model ** -0.5  # keeps tied-unembed logits O(1)
     table = torch.empty((cfg.vocab_size, cfg.d_model), dtype=dtype,
                         device=device)
+    if table.is_meta:
+        return {"table": table}
     rows = max(1, (1 << 26) // max(cfg.d_model, 1))   # ~256 MB f32 chunks
     for part in torch.split(table, rows):
         tmp = torch.empty(part.shape, dtype=torch.float32, device=device)

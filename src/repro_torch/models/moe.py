@@ -130,7 +130,9 @@ def _route(cfg: ModelConfig, router, xf, token_mask=None):
     is_start = torch.cat([torch.ones((1,), dtype=torch.bool,
                                      device=xf.device), es[1:] != es[:-1]])
     seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    pos = torch.empty_like(idx).scatter_(0, order, idx - seg_start)
+    # out of place: on DTensors (a launch.specs step) a plain tensor
+    # cannot take DTensor writes in place
+    pos = torch.empty_like(idx).scatter(0, order, idx - seg_start)
     pos = pos.reshape(N, k)
     return gate, eidx, pos, pos < c, probs
 
@@ -157,7 +159,7 @@ def _inverse(eidx, pos, valid, E: int, c: int, N: int):
     keep = (eidx < E) & valid
     cell = torch.where(keep, eidx * c + pos, E * c)
     inv = torch.full((E * c + 1,), N, dtype=torch.int64, device=eidx.device)
-    inv.scatter_(0, cell.reshape(-1), tok.reshape(-1))
+    inv = inv.scatter(0, cell.reshape(-1), tok.reshape(-1))
     return inv[:E * c].reshape(E, c)
 
 
@@ -235,8 +237,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     numbers — bridge JAX weights for parity."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
+        generator = L.default_generator(dev)
+    if generator is not None and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     norm_init, _ = L.make_norm(cfg)
     kw = dict(dtype=cfg.weight_dtype, device=dev)
@@ -503,8 +505,8 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
     n = T.broadcast_true_len(true_len, B, x.device)
     mask = _token_mask(n, x)
     positions = _positions(x)
-    cache = _stacked(cfg, lambda m: L.init_kv_cache(
-        cfg, B, max_len, stack=(m,), dtype=x.dtype, device=x.device))
+    cache = L.on_mesh_of(_stacked(cfg, lambda m: L.init_kv_cache(
+        cfg, B, max_len, stack=(m,), dtype=x.dtype, device=x.device)), x)
     for lp, c, is_moe in walk(cfg, params, cache):
         if is_moe:
             x, _, (k, v) = moe_block_fwd(cfg, lp, x, positions,

@@ -64,8 +64,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     numbers — bridge JAX weights for parity."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
+        generator = L.default_generator(dev)
+    if generator is not None and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     kw = dict(dtype=cfg.weight_dtype, device=dev)
     return {
@@ -384,7 +384,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
     del max_len
     x = L.embed(cfg, params["embed"], tokens)
     n = broadcast_true_len(true_len, x.shape[0], x.device)
-    cache = init_cache(cfg, x.shape[0], 0, x.device)
+    cache = L.on_mesh_of(init_cache(cfg, x.shape[0], 0, x.device), x)
     for lp, st in zip(_layers(cfg, params["layers"]),
                       _layers(cfg, cache["layers"])):
         x, new = block_fwd(cfg, lp, x, use_kernel=use_kernel, true_len=n)

@@ -80,8 +80,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     the JAX package's numbers — bridge JAX weights for parity."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    if generator.device.type != dev.type:
+        generator = L.default_generator(dev)
+    if generator is not None and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     norm_init, _ = L.make_norm(cfg)
     kw = dict(dtype=cfg.weight_dtype, device=dev)
@@ -686,9 +686,9 @@ def prefill(cfg: ModelConfig, params: Params, tokens, max_len, *,
     n = None if n is None else n + P
     positions = torch.broadcast_to(
         torch.arange(S, dtype=torch.int32, device=x.device), (B, S))
-    cache = _cache(cfg, B, max_len, L.init_kv_cache(
+    cache = L.on_mesh_of(_cache(cfg, B, max_len, L.init_kv_cache(
         cfg, B, max_len, stack=(_n_global(cfg),), dtype=x.dtype,
-        device=x.device), dtype=x.dtype, device=x.device)
+        device=x.device), dtype=x.dtype, device=x.device), x)
     for lp, c, is_global in walk(cfg, params["trunk"], cache):
         x, (k, v) = block_prefill(cfg, lp, x, positions, is_global=is_global,
                                   use_flash=use_flash)

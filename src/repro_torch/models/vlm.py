@@ -32,7 +32,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     numbers — bridge JAX weights for parity."""
     dev = resolve_device(device)
     if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
+        generator = L.default_generator(dev)
     p = T.init_params(cfg, generator, dev)
     kw = dict(dtype=cfg.weight_dtype, device=dev)
     p["projector"] = {

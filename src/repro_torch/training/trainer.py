@@ -76,7 +76,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
     def accumulated(params, batch):
         n = tcfg.microbatches
         adt = getattr(torch, tcfg.accum_dtype)
-        acc = [torch.zeros(p.shape, dtype=adt, device=p.device)
+        acc = [torch.zeros_like(p, dtype=adt)    # DTensors stay DTensors
                for p in opt.tree_leaves(params)]
         lsum = None
         for i in range(n):

@@ -220,13 +220,32 @@ def test_attention_fwd_falls_through_at_8200(monkeypatch):
         _close(a, b, **F32)
 
 
-def test_seq_parallel_knob_refuses(monkeypatch):
-    """A set ``SEQ_PARALLEL_ATTN`` needs the launch layer (A.11)."""
-    monkeypatch.setattr(L, "SEQ_PARALLEL_ATTN", (2, None))
-    q = torch.zeros((1, 2048, 1, 1, 8))
-    k = torch.zeros((1, 2048, 1, 8))
-    with pytest.raises(NotImplementedError, match="A.11"):
-        L._blockwise_causal_attention(q, k, k, 1.0, None)
+@pytest.mark.parametrize("n", [2, 4])
+def test_seq_parallel_knob_splits(monkeypatch, n):
+    """A set ``SEQ_PARALLEL_ATTN`` walks n query shards of S / n, shard s
+    at ``q_offset = s * S / n``, bit for bit the unsplit walk (each query
+    chunk walks the same kv chunks in the same order); a shard shorter
+    than the chunk falls through to the unsplit walk, as in JAX."""
+    rng = _rng(21)
+    q = torch.from_numpy(rng.standard_normal((1, 512, 1, 2, 8))
+                         .astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((1, 512, 1, 8))
+                             .astype(np.float32)) for _ in range(2))
+    whole = L._blockwise_causal_attention(q, k, v, 0.5, 5.0, chunk=CHUNK)
+    offsets = []
+    inner = L._blockwise_inner
+
+    def recording(*a, q_offset=0, **kw):
+        offsets.append(q_offset)
+        return inner(*a, q_offset=q_offset, **kw)
+    monkeypatch.setattr(L, "_blockwise_inner", recording)
+    monkeypatch.setattr(L, "SEQ_PARALLEL_ATTN", (n, None))
+    split = L._blockwise_causal_attention(q, k, v, 0.5, 5.0, chunk=CHUNK)
+    assert offsets == [s * 512 // n for s in range(n)]
+    assert torch.equal(split, whole)
+    offsets.clear()
+    L._blockwise_causal_attention(q, k, v, 0.5, 5.0, chunk=512 // n * 2)
+    assert offsets == [0]
 
 
 # ---------------------------------------------------------------------------

@@ -173,19 +173,22 @@ def test_attention_fwd_plain_branch(cfgs, is_global):
         _close(a, b, rtol=1e-5, atol=1e-4)
 
 
-def test_attention_fwd_unported_branches_raise(monkeypatch):
-    """The blockwise long-sequence branch (S >= 8192) is ported
-    (tests/test_torch_blockwise.py), as are the chunked local and
-    ``use_flash`` branches (tests/test_torch_training.py); only its
-    sequence-parallel split is left: a set ``SEQ_PARALLEL_ATTN`` raises,
-    citing the launch layer's item."""
+def test_attention_fwd_seq_parallel_branch(monkeypatch):
+    """Every branch of ``attention_fwd`` is ported: the blockwise
+    long-sequence branch (tests/test_torch_blockwise.py), the chunked
+    local and ``use_flash`` branches (tests/test_torch_training.py) and
+    the sequence-parallel split the launch layer sets: at S = 8192 with
+    ``SEQ_PARALLEL_ATTN = (2, None)`` the output is bit for bit the
+    unsplit walk's."""
     _, cfg = GEMMA
     p = _t(_attn_params(_rng(7), cfg, qk_norm=True))
-    x = torch.zeros((1, 8192, cfg.d_model))
+    x = torch.from_numpy(_f32(_rng(8), 1, 8192, cfg.d_model))
     pos = torch.arange(8192)[None]
+    whole = L.attention_fwd(cfg, p, x, pos, is_global=True)
     monkeypatch.setattr(L, "SEQ_PARALLEL_ATTN", (2, None))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.11"):
-        L.attention_fwd(cfg, p, x, pos, is_global=True)
+    split = L.attention_fwd(cfg, p, x, pos, is_global=True)
+    for a, b in zip(split, whole):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------
