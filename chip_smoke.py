@@ -454,6 +454,24 @@ the remat policies), in the order they run among the above:
               16) production mesh against ``LAUNCH_GOLDEN_SPECS`` with a
               rule table that moves wq's first candidate shown to miss
               them.
+49. dryrun   — after ``reference_hub``, on this machine's torch and
+              not on the card: ``python -m repro_torch.launch.dryrun``
+              for the routes DTensor's rules refuse unless the model
+              layer lays them out itself (``DRYRUN_PAIRS``: whisper-base
+              ``train_4k`` on the multi-pod mesh; gemma3-27b
+              ``decode_32k``, mamba2-370m ``prefill_32k``, and the moe
+              router and ring fill some torch versions have no rule
+              for, granite-moe-1b-a400m ``train_4k`` and gemma3-1b
+              ``prefill_32k``, on the pod mesh), one subprocess each
+              (each brings up a fake world of 256 / 512 ranks, and the
+              launch phases' NCCL group cannot be replaced in this
+              process), and ``tests/test_torch_sharded.py traces`` for
+              ``DRYRUN_TRACES`` (the moe layer's and the ring fill's
+              smoke-size steps on three-axis meshes, under
+              ``FakeTensorMode`` on a fake world of four), all at once:
+              each record's status, per-chip dot FLOPs and collective
+              bytes, the traces that passed, and the wall seconds; it
+              fails unless every record and trace is ``ok``.
 
 Before the last line it prints the kernels JSON object and the
 ``nvidia-smi`` line; the last line is
@@ -6440,6 +6458,84 @@ def _to(tree, dev):
             for k, v in tree.items()}
 
 
+# the dry-run's full-size routes through the model layer's explicit
+# DTensor layouts (tests/test_torch_dryrun_grid.py traces the same)
+DRYRUN_PAIRS = (("whisper-base", "train_4k", "multi"),
+                ("gemma3-27b", "decode_32k", "single"),
+                ("mamba2-370m", "prefill_32k", "single"),
+                ("granite-moe-1b-a400m", "train_4k", "single"),
+                ("gemma3-1b", "prefill_32k", "single"))
+# the smoke-size fake traces of the routes some torch versions' DTensor
+# rules refuse unless the model lays them out itself
+DRYRUN_TRACES = ("moe_pod_data_granite", "prefill_ring_three_axis",
+                 "train_three_axis_kimi")
+DRYRUN_TIMEOUT_S = 90
+
+
+def dryrun_phase(pairs=DRYRUN_PAIRS, traces=DRYRUN_TRACES,
+                 timeout=DRYRUN_TIMEOUT_S) -> dict:
+    """Each (arch, shape, mesh) of ``pairs`` through the port's dry-run
+    CLI, one subprocess each, and ``traces``, cases of
+    ``tests/test_torch_sharded.py``'s smoke-size fake traces on a fake
+    world of four, in one more, all started together; the records, read
+    back from files under ``build/``, and each trace's status.  Raises
+    unless every record and trace is ``ok``."""
+    from repro_torch.serving.telemetry import default_clock as clock
+    out_dir = ROOT / "build" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    t0 = clock()
+    procs = []
+    for arch, shape, mesh in pairs:
+        out = out_dir / f"{arch}-{shape}-{mesh}.jsonl"
+        out.unlink(missing_ok=True)
+        procs.append((arch, shape, mesh, out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(out)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=ROOT)))
+    traced = subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "test_torch_sharded.py"),
+         "traces", *traces], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env, cwd=ROOT)
+    records, bad = [], []
+    try:
+        for arch, shape, mesh, out, p in procs:
+            log = p.communicate(timeout=max(
+                1.0, timeout - (clock() - t0)))[0]
+            rec = (json.loads(out.read_text().splitlines()[0])
+                   if out.exists() else {"status": "missing"})
+            row = {"arch": arch, "shape": shape, "mesh": mesh,
+                   "status": rec["status"], "rc": p.returncode,
+                   "hlo_flops_per_chip": rec.get("hlo_flops_per_chip"),
+                   "coll_bytes_per_chip": rec.get("coll_bytes_per_chip"),
+                   "trace_s": rec.get("trace_s")}
+            records.append(row)
+            if rec["status"] != "ok":
+                bad.append(dict(row, error=rec.get("error"),
+                                log=log[-1500:]))
+        log = traced.communicate(timeout=max(
+            1.0, timeout - (clock() - t0)))[0]
+        try:
+            traced_ok = json.loads(log.strip().splitlines()[-1])
+        except (IndexError, json.JSONDecodeError):
+            traced_ok = {"all": {"ok": False, "error": log[-1500:]}}
+        bad += [{"trace": k, **v} for k, v in traced_ok.items()
+                if not v["ok"]]
+        bad += [{"trace": k, "missing": True} for k in traces
+                if k not in traced_ok]
+    finally:
+        for p in [p for *_, p in procs] + [traced]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if bad:
+        raise AssertionError(f"dry-run records not ok: {bad}")
+    return {"records": records, "traces_ok": sorted(traced_ok),
+            "wall_s": clock() - t0}
+
+
 def main() -> int:
     # internvl2's phases hold 60-72 GB of the card's 80; with fixed-size
     # segments 11.65 GB of them sat free in pieces too small for
@@ -6776,6 +6872,9 @@ def main() -> int:
                                           hub_days), seconds=clock() - t0)
 
     close_mesh()
+    t0 = clock()
+    emit("dryrun", **dryrun_phase(), seconds=clock() - t0)
+
     emit("done", seconds=clock() - t_start)
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -13,23 +13,51 @@ per-chip argument bytes and the peak of the step's live temporaries
 under fake mode.  Results stream to stdout and, with --out, to a JSON
 lines file.
 
-The plan traced is the port's, which is not XLA's in two places, so the
-per-chip terms are not JAX's there.  Attention walks rank by rank with
-rows and kv heads sharded (``layers._shardwise``); where K does not
-divide the model axis, q, k and v are gathered over it and every model
-rank computes its rows' attention whole, where XLA shards head_dim and
-all-reduces each score tile (gemma3-1b ``prefill_32k`` on the (16, 16)
-mesh: 2.99e13 dot FLOPs and 4.01e10 collective bytes per chip here,
-8.29e12 and 2.01e11 in JAX's dry-run).  And the cache a prefill makes
-is held whole on every rank until the step lays it out by its out
-sharding, which counts in the temporaries' peak.  On a (2, 2) mesh at
-gemma3-1b's smoke width, with K = 2 and with K = 1, the dot FLOPs agree
-with JAX's within 5% (``tests/test_torch_sharded.py``).
+The plan traced is the port's, which is not XLA's, so the per-chip
+terms are not JAX's where the plans differ.  Every (arch, shape, mesh)
+JAX's dry-run compiles traces here too (70 ``ok``, the same 10
+skipped); per-chip dot FLOPs agree with JAX's within 5% on 32 of the 70
+records.  The divergences, largest first (PERF.md's grid table, from
+``scripts/torch_dryrun_grid.py``):
+
+* Attention where the kv heads do not divide the model axis: q, k and v
+  are gathered over it and every model rank computes its rows'
+  attention whole, where XLA shards head_dim and all-reduces the score
+  tiles: ``prefill_32k`` at 3.8-7.4x JAX's dot FLOPs (gemma3-1b,
+  gemma2-9b, phi3-medium-14b, internvl2-76b, whisper-base).  The
+  multi-pod ``train_4k`` is 2.2-4.6x for those and the ssm and hybrid
+  families (gemma3-27b, whose 16 kv heads divide the axis, 1.16x):
+  there the sequence carries the model shard, which the chunked and
+  blockwise walks gather; mamba2, which has no attention, is 4.6x too,
+  a cause not traced yet.
+* One-token reads against a cache sharded on head_dim or time take
+  DTensor's own route, which moves the cache's shards: collective bytes
+  3.5-2070x JAX's on the ``decode_32k`` and ``long_500k`` of gemma3-1b,
+  gemma3-27b, zamba2-7b and phi3-medium-14b (zamba2-7b ``long_500k``
+  also 11.5-12.2x the dot FLOPs, mamba2-370m's 2.3x).
+* The moe dispatch gathers every token for every expert: collective
+  bytes 1.7-7.9x JAX's on the prefills and train steps of granite-moe
+  and kimi-k2.
+* The cache a prefill makes is held whole on every rank until the step
+  lays it out by its out sharding, and eager autograd holds every
+  layer's saved activations: the temporaries' peak is 0.03-169x JAX's.
+
+The counts are the installed torch's: where the model leaves a layout
+to DTensor's rules (the weight gradients' products), versions pick
+differently (whisper-base's multi-pod ``train_4k``: 4.89e12 dot FLOPs a
+chip on torch 2.13, 2.743e12 on 2.11).
+
+On a (2, 2) mesh at the smoke widths of gemma3-1b (K = 2 and K = 1)
+and mamba2-370m the dot FLOPs agree with JAX's within 5%
+(``tests/test_torch_sharded.py``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b \\
       --shape train_4k --mesh single
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --out dryrun.jsonl
+
+``scripts/torch_dryrun_grid.py`` runs the grid one process per (arch,
+shape), several at a time, and compares it with a JAX dry-run's records.
 """
 from __future__ import annotations
 

@@ -137,7 +137,7 @@ def _embed(cfg: ModelConfig, params: Params, tokens, positions):
     x = L.embed(cfg, params["embed"], tokens)
     table = params["pos_table"]
     idx = torch.clamp(positions.long(), 0, table.shape[0] - 1)
-    return x + table[idx].to(x.dtype)
+    return x + L.take_rows(table, idx).to(x.dtype)
 
 
 def _positions(pos, B: int, S: int, device):

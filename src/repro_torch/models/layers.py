@@ -203,9 +203,14 @@ def weight_einsum(eq, x, w):
     kd = math.prod(w.shape[:n])
     if isinstance(x, DTensor) or isinstance(w, DTensor):
         # matmul folds x's leading dims into one and the weight's
-        # contracted and output dims into one each
+        # contracted and output dims into one each, and its backward
+        # folds the gradient's leading dims
         x = _merge_ready(_merge_ready(x, 0, len(lead)), len(lead), x.dim())
         w = _merge_ready(_merge_ready(w, 0, n), n, w.dim())
+        out = torch.matmul(x.reshape(*lead, kd),
+                           w.to(x.dtype).reshape(kd, -1))
+        out = reduced_onto_tokens(out).reshape(*lead, *w.shape[n:])
+        return grad_relaid(out, lambda g: _merge_ready(g, 0, len(lead)))
     out = torch.matmul(x.reshape(*lead, kd), w.to(x.dtype).reshape(kd, -1))
     return out.reshape(*lead, *w.shape[n:])
 
@@ -228,6 +233,55 @@ def _relaid(t, fn):
     return t.redistribute(t.device_mesh, pl)
 
 
+def reduced_onto_tokens(t):
+    """``t`` with its partial sums reduce-scattered onto its rows (dim 0)
+    where they divide further, else onto the sequence (dim 1).  A
+    product whose contracted dim is sharded leaves ``Partial``
+    placements, and the next pointwise op would have DTensor pick a dim
+    for them: the rows where they take them (what XLA does too), but
+    otherwise the sequence, which the attention products, the scan's
+    products and the token flattens then fold into a strided shard.
+    Placed here, on every torch, the walks and flattens downstream take
+    the sequence shard explicitly (``_shardwise``, ``_merge_ready``,
+    ``grad_relaid``).  Partial sums that fit neither (a decode's few
+    rows of one token) stay partial, for DTensor's own route."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    pl = list(t.placements)
+    for i, p in enumerate(pl):
+        if not isinstance(p, Partial):
+            continue
+        for dim in range(min(2, t.dim() - 1)):
+            split = math.prod(mesh.size(j) for j, q in enumerate(pl)
+                              if isinstance(q, Shard) and q.dim == dim)
+            if t.shape[dim] % (split * mesh.size(i)) == 0:
+                pl[i] = Shard(dim)
+                break
+    return t if pl == list(t.placements) else t.redistribute(mesh, pl)
+
+
+class _GradRelaid(torch.autograd.Function):
+    """The identity, whose backward lays the gradient out by ``relay``
+    (a redistribute): the reshapes' backwards fold and split gradients
+    in whatever layout the ops downstream left them, and DTensor's
+    rules refuse some (a strided shard, a nested row shard split)."""
+
+    @staticmethod
+    def forward(ctx, t, relay):
+        ctx.relay = relay
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.relay(g), None
+
+
+def grad_relaid(t, relay):
+    """``t``, its gradient laid out by ``relay`` on the way back."""
+    return _GradRelaid.apply(t, relay) if t.requires_grad else t
+
+
 def _split_ready(t, dim: int, lead: int):
     """``t`` ready for dim ``dim`` to split into (lead, rest): a shard of
     that dim over a mesh dim that ``lead`` does not divide (H query heads
@@ -236,40 +290,83 @@ def _split_ready(t, dim: int, lead: int):
                    and p.dim == dim and lead % t.device_mesh.size(i) else p)
 
 
-def _shardwise(walk):
+def _shardwise(walk, keep_seq: bool = False):
     """``walk(qg, k, v, ...)``, an attention walk over qg (B, S, K, G, hd)
     and k, v (B, T, K, hd) that returns qg's shape, run rank by rank on
     DTensors: an explicit local map.  Rows (dim 0) and kv heads (dim 2,
     where K divides the mesh dim) keep their shards, since attention is
-    independent per row and per kv head; any other layout is gathered
-    and partial sums reduced, and q, k and v take the same placements.
-    Each rank walks its local tensors and the output comes back with
-    those placements.  (DTensor's view rules do not follow the walks'
-    chunk-by-chunk slicing and head regrouping on a split dim.)  Plain
-    tensors go straight to ``walk``."""
+    independent per row and per kv head; with ``keep_seq`` (a walk whose
+    mask holds the positions) so does the query sequence, against k and
+    v held whole along it.  Any other layout is gathered and partial
+    sums reduced.  Each rank walks its local tensors and the output
+    comes back with qg's placements; a tensor among the other positional
+    arguments (a mask (B or 1, 1, 1, S, T)) is laid out by qg's rows and
+    sequence.  Where k and v are held whole along a mesh dim that splits
+    the queries, their gradients come back as the ranks' partial sums.
+    (DTensor's view rules do not follow the walks' chunk-by-chunk
+    slicing and head regrouping on a split dim.)  Plain tensors go
+    straight to ``walk``."""
     @functools.wraps(walk)
     def run(qg, k, v, *args, **kw):
         if not isinstance(qg, DTensor):
             return walk(qg, k, v, *args, **kw)
-        mesh, K = qg.device_mesh, qg.shape[2]
+        mesh, (B, S, K) = qg.device_mesh, qg.shape[:3]
         pl = [p if type(p) is Shard and (
-            p.dim == 0 or (p.dim == 2 and K % mesh.size(i) == 0))
+            p.dim == 0 or (p.dim == 2 and K % mesh.size(i) == 0)
+            or (p.dim == 1 and keep_seq))
             else Replicate() for i, p in enumerate(qg.placements)]
-        local = [_local_as(t, mesh, pl) for t in (qg, k, v)]
-        out = walk(*local, *args, **kw)
+        seq = [type(p) is Shard and p.dim == 1 for p in pl]
+        kv_pl = [Replicate() if s else p for s, p in zip(seq, pl)]
+        kv_grad = [Partial() if s else p for s, p in zip(seq, pl)]
+        local = [_local_as(qg, mesh, pl)] + [
+            _local_as(t, mesh, kv_pl, kv_grad) for t in (k, v)]
+        args = [_local_as(a, mesh, [
+            Shard(0) if type(p) is Shard and p.dim == 0 and a.shape[0] == B
+            else Shard(a.dim() - 2) if s and a.shape[-2] == S
+            else Replicate() for s, p in zip(seq, pl)])
+            if isinstance(a, torch.Tensor) else a for a in args]
+        out = walk(*local, *args, **kw).contiguous()
         return DTensor.from_local(out, mesh, pl, run_check=False,
                                   shape=qg.shape,
                                   stride=_contiguous_stride(qg.shape))
     return run
 
 
-def _local_as(t, mesh, placements):
+def _local_as(t, mesh, placements, grad_placements=None):
     """This rank's part of ``t`` laid out by ``placements`` (a plain
-    ``t`` is taken as the whole tensor, held on every rank)."""
+    ``t`` is taken as the whole tensor, held on every rank); its
+    gradient comes back with ``grad_placements`` (default: those)."""
     if isinstance(t, DTensor):
-        return t.redistribute(mesh, placements).to_local()
+        t = grad_relaid(t, _true_strides)
+        return t.redistribute(mesh, placements).to_local(
+            grad_placements=grad_placements)
     return distribute_tensor(t, mesh, placements,
                              src_data_rank=None).to_local()
+
+
+def _true_strides(g):
+    """``g`` with strides its local part has: a local map's backward
+    hands back the local gradient in whatever strides the walk left (a
+    transposed product's) under the forward's strides, and DTensor's
+    views of it (the reshapes' backwards upstream) go by the latter.  On
+    a mesh of one device the local part is the tensor and no collective
+    or chunk rebuilds it upstream, so ``g`` reports the local strides,
+    those the same ops give a plain tensor (the products upstream see
+    the plain path's layouts); on larger meshes the redistributes
+    upstream make local parts whose strides DTensor's spec does not
+    follow, so a non-contiguous one is made contiguous, which DTensor's
+    views take."""
+    loc = g.to_local()
+    if g.device_mesh.size() == 1:
+        if loc.stride() == g.stride():
+            return g
+        stride = loc.stride()
+    elif loc.is_contiguous():
+        return g
+    else:
+        loc, stride = loc.contiguous(), g.stride()
+    return DTensor.from_local(loc, g.device_mesh, g.placements,
+                              run_check=False, shape=g.shape, stride=stride)
 
 
 def _contiguous_stride(shape) -> tuple:
@@ -307,10 +404,26 @@ def init_rmsnorm(d: int, stack=(), device=None):
     return {"scale": _zeros((d,), stack, device=device)}
 
 
+def _mean_last(t):
+    """The mean over the last dim, kept.  On a DTensor sharded there the
+    sum's partial sums are all-reduced explicitly before the division: a
+    partial mean meeting the next pointwise op would be reduce-scattered
+    onto the sequence, and DTensor's backward cannot turn the gradient's
+    partial sum into a partial mean."""
+    if isinstance(t, DTensor) and any(isinstance(p, Shard)
+                                      and p.dim == t.dim() - 1
+                                      for p in t.placements):
+        total = _relaid(torch.sum(t, dim=-1, keepdim=True),
+                        lambda i, p: Replicate() if isinstance(p, Partial)
+                        else p)
+        return total / t.shape[-1]
+    return torch.mean(t, dim=-1, keepdim=True)
+
+
 def rmsnorm(params, x, eps: float = 1e-6):
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    var = _mean_last(torch.square(x))
     y = x * torch.rsqrt(var + eps)
     return (y * (1.0 + params["scale"].float())).to(dtype)
 
@@ -324,8 +437,8 @@ def init_layernorm(d: int, stack=(), device=None):
 def layernorm(params, x, eps: float = 1e-6):
     dtype = x.dtype
     x = x.float()
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    mu = _mean_last(x)
+    var = _mean_last(torch.square(x - mu))
     y = (x - mu) * torch.rsqrt(var + eps)
     return (y * params["scale"] + params["bias"]).to(dtype)
 
@@ -421,7 +534,27 @@ def attention_weights_and_out(q, k, v, mask, *, scale, softcap=0.0):
     of the activation-dtype inputs (the JAX ``preferred_element_type``);
     both contractions are batched matmuls over (B, K) with the G query
     heads of a group stacked along the rows.
+
+    On DTensors the full-sequence reads run rank by rank (``_shardwise``,
+    the query sequence's shard kept): folding (B, K) or (G, S) into one
+    dim makes a strided shard of a row, kv-head or sequence shard, which
+    DTensor's product and cast rules refuse, and partial sums do not
+    survive the softmax.  A one-token read keeps DTensor's own route
+    (a head_dim shard of the cache, where the kv heads do not divide the
+    model axis, gives partial scores, as XLA splits it; a cache whose
+    time axis is split reduces the softmax over the time shards) unless
+    its rows and kv heads are both sharded.
     """
+    if isinstance(q, DTensor):
+        dims = {p.dim for t in (q, k) if isinstance(t, DTensor)
+                for p in t.placements if isinstance(p, Shard)}
+        if q.shape[1] > 1 or {0, 2} <= dims:
+            return _attention_by_rank(q, k, v, mask, scale=scale,
+                                      softcap=softcap)
+    return _attention_core(q, k, v, mask, scale=scale, softcap=softcap)
+
+
+def _attention_core(q, k, v, mask, *, scale, softcap):
     B, S, K, G, hd = q.shape
     T = k.shape[1]
     qr = q.permute(0, 2, 3, 1, 4).reshape(B, K, G * S, hd).float()
@@ -432,6 +565,21 @@ def attention_weights_and_out(q, k, v, mask, *, scale, softcap=0.0):
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.matmul(probs.view(B, K, G * S, T), v.permute(0, 2, 1, 3))
     return out.view(B, K, G, S, hd).permute(0, 3, 1, 2, 4)
+
+
+_attention_by_rank = _shardwise(_attention_core, keep_seq=True)
+
+
+def _merged_heads(out):
+    """(B, S, K, G, hd) -> (B, S, H, hd) for the output projection.  On
+    DTensors the merge's input is readied for it, and the gradient, which
+    the projection's backward hands back sharded as the heads of ``wo``
+    are, comes back ready for the split into (K, G)."""
+    B, S, K, G, hd = out.shape
+    if not isinstance(out, DTensor):
+        return out.reshape(B, S, K * G, hd)
+    merged = _merge_ready(out, 2, 4).reshape(B, S, K * G, hd)
+    return grad_relaid(merged, lambda g: _split_ready(g, 2, K))
 
 
 def causal_mask(s: int, t: int, q_offset=0, device=None) -> torch.Tensor:
@@ -539,10 +687,7 @@ def attention_fwd(cfg: ModelConfig, params, x, positions, *,
                                         scale=scale,
                                         softcap=cfg.attn_logit_softcap)
 
-    if isinstance(out, DTensor):
-        out = _merge_ready(out, 2, 4)
-    o = weight_einsum("bshq,hqd->bsd", out.reshape(B, S, H, hd),
-                      params["wo"])
+    o = weight_einsum("bshq,hqd->bsd", _merged_heads(out), params["wo"])
     return o, k, v
 
 
@@ -857,9 +1002,7 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
         out = attention_weights_and_out(q.reshape(B, 1, K, G, hd), k, v,
                                         None, scale=scale,
                                         softcap=cfg.attn_logit_softcap)
-        if isinstance(out, DTensor):
-            out = _merge_ready(out, 2, 4)
-        o = weight_einsum("bshq,hqd->bsd", out.reshape(B, 1, H, hd),
+        o = weight_einsum("bshq,hqd->bsd", _merged_heads(out),
                           params["wo"])
         return o, cache
     pos = torch.broadcast_to(torch.as_tensor(pos, dtype=torch.int32,
@@ -891,10 +1034,7 @@ def attention_decode(cfg: ModelConfig, params, x, cache, pos, *,
     out = attention_weights_and_out(qg, kc.to(x.dtype), vc.to(x.dtype),
                                     mask, scale=scale,
                                     softcap=cfg.attn_logit_softcap)
-    if isinstance(out, DTensor):
-        out = _merge_ready(out, 2, 4)
-    o = weight_einsum("bshq,hqd->bsd", out.reshape(B, 1, H, hd),
-                      params["wo"])
+    o = weight_einsum("bshq,hqd->bsd", _merged_heads(out), params["wo"])
     return o, cache
 
 
@@ -1435,15 +1575,56 @@ def init_embedding(cfg: ModelConfig, gen, dtype=torch.float32, device=None):
     return {"table": table}
 
 
+def take_rows(table, idx):
+    """``table[idx]``: rows of a 2-D table at integer ids of any shape.
+    On DTensors rank by rank (an explicit local map): on each mesh dim
+    the ids keep their shard and the table is held whole there, or,
+    where the ids are whole, the table is sharded by columns (a row
+    shard moved there, as DTensor's own rule does); each rank looks its
+    ids up in its part.  Neither the lookup nor its backward
+    (an ``index_put``) goes through DTensor's index rules, which the
+    card's torch (2.11) lacks for these layouts.  Along an ids shard the
+    ranks' table gradients are partial sums, and come back as such."""
+    if not isinstance(table, DTensor):
+        return table[idx]
+    mesh, k = table.device_mesh, idx.dim()
+    ipl = (idx.placements if isinstance(idx, DTensor)
+           else [Replicate()] * mesh.ndim)
+    tpl, gpl, opl, cols = [], [], [], 1
+    for i, (ip, tp) in enumerate(zip(ipl, table.placements)):
+        if isinstance(ip, Shard):
+            tpl.append(Replicate())
+            gpl.append(Partial())
+            opl.append(ip)
+        elif type(tp) is Shard and table.shape[1] % (
+                cols * mesh.size(i)) == 0:
+            cols *= mesh.size(i)
+            tpl.append(Shard(1))
+            gpl.append(Shard(1))
+            opl.append(Shard(k))
+        else:
+            tpl.append(Replicate())
+            gpl.append(Replicate())
+            opl.append(Replicate())
+    tl = table.redistribute(mesh, tpl).to_local(grad_placements=gpl)
+    il = _local_as(idx, mesh, [p if isinstance(p, Shard) else Replicate()
+                               for p in ipl])
+    shape = (*idx.shape, table.shape[1])
+    return DTensor.from_local(tl[il], mesh, opl, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
 def embed(cfg: ModelConfig, params, tokens):
     # gather first, then cast: the same values as casting the table
-    x = params["table"][tokens.long()].to(cfg.activation_dtype)
+    x = take_rows(params["table"], tokens.long()).to(cfg.activation_dtype)
     if cfg.name.startswith("gemma"):
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
 def unembed(cfg: ModelConfig, emb_params, head_params, x):
+    if isinstance(x, DTensor):      # the product folds (B, S)
+        x = _merge_ready(x, 0, x.dim() - 1)
     if cfg.tie_embeddings:
         logits = torch.matmul(x, emb_params["table"].to(x.dtype).t())
     else:

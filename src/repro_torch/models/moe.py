@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
@@ -94,8 +95,21 @@ def moe_mlp(cfg: ModelConfig, p: Params, x, token_mask=None):
             auxes.append(a)
         return torch.stack(outs), torch.mean(torch.stack(auxes))
     flat_mask = None if token_mask is None else token_mask.reshape(B * S)
-    out, aux = _moe_tokens(cfg, p, x.reshape(B * S, d), flat_mask)
-    return out.reshape(B, S, d), aux
+    if not isinstance(x, DTensor):
+        out, aux = _moe_tokens(cfg, p, x.reshape(B * S, d), flat_mask)
+        return out.reshape(B, S, d), aux
+    # the token flatten merges (B, S): a sequence shard is gathered
+    # first (the tokens' gradient comes back in their layout:
+    # ``_moe_tokens``)
+    xf = L._merge_ready(x, 0, 2).reshape(B * S, d)
+    mesh, rows = xf.device_mesh, xf.placements
+    out, aux = _moe_tokens(cfg, p, xf, flat_mask)
+    # the combine's gather over all tokens leaves partial sums on the row
+    # axes, which the next op would reduce-scatter wherever its rule
+    # lands; they are reduced onto the tokens' own rows here, and the
+    # output's gradient comes back ready for the flatten
+    out = out.redistribute(mesh, rows).reshape(B, S, d)
+    return L.grad_relaid(out, lambda g: L._merge_ready(g, 0, 2)), aux
 
 
 def _route(cfg: ModelConfig, router, xf, token_mask=None):
@@ -123,18 +137,29 @@ def _route(cfg: ModelConfig, router, xf, token_mask=None):
         eidx = torch.where(token_mask[:, None], eidx, E)
         gate = gate * token_mask[:, None].to(gate.dtype)
 
-    ef = eidx.reshape(-1)                                      # (N*k,)
+    pos = _places(eidx.reshape(-1)).reshape(N, k)
+    return gate, eidx, pos, pos < c, probs
+
+
+def _places(ef):
+    """(M,) expert ids -> each one's place among the pairs of its expert,
+    counted in the stable-sort order of ``ef``.
+
+    On DTensors every rank counts the ids whole (an explicit local map):
+    the sort runs over all tokens in any layout, and DTensor has no rule
+    for the segment scan's ``ne`` and ``cummax`` in every torch version."""
+    if isinstance(ef, DTensor):
+        mesh, whole = ef.device_mesh, [Replicate()] * ef.device_mesh.ndim
+        pos = _places(ef.redistribute(mesh, whole).to_local())
+        return DTensor.from_local(pos, mesh, whole, run_check=False
+                                  ).redistribute(mesh, ef.placements)
     order = torch.argsort(ef, stable=True)
     es = ef[order]
-    idx = torch.arange(N * k, device=xf.device)
+    idx = torch.arange(ef.shape[0], device=ef.device)
     is_start = torch.cat([torch.ones((1,), dtype=torch.bool,
-                                     device=xf.device), es[1:] != es[:-1]])
+                                     device=ef.device), es[1:] != es[:-1]])
     seg_start = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    # out of place: on DTensors (a launch.specs step) a plain tensor
-    # cannot take DTensor writes in place
-    pos = torch.empty_like(idx).scatter(0, order, idx - seg_start)
-    pos = pos.reshape(N, k)
-    return gate, eidx, pos, pos < c, probs
+    return torch.empty_like(idx).scatter(0, order, idx - seg_start)
 
 
 def _aux_loss(cfg: ModelConfig, probs, eidx):
@@ -182,13 +207,19 @@ def _moe_tokens(cfg: ModelConfig, p: Params, xf, token_mask=None):
     N, d = xf.shape
     E = cfg.num_experts
     c = capacity(cfg, N)
-    gate, eidx, pos, valid, probs = _route(cfg, p["router"], xf, token_mask)
+    # autograd sums the gradients of xf's three uses (the router, the
+    # dispatch, the shared expert); on DTensors they come back in
+    # different layouts, whose sum DTensor has no rule for in every
+    # torch version, so each is laid out as xf first
+    x_route, x_dispatch, x_shared = (_grad_laid_as(xf) for _ in range(3))
+    gate, eidx, pos, valid, probs = _route(cfg, p["router"], x_route,
+                                          token_mask)
     aux = _aux_loss(cfg, probs, eidx)
 
     inv = _inverse(eidx, pos, valid, E, c, N)
-    x_pad = torch.cat([xf, torch.zeros((1, d), dtype=xf.dtype,
+    x_pad = torch.cat([x_dispatch, torch.zeros((1, d), dtype=xf.dtype,
                                        device=xf.device)])
-    xs = x_pad[inv]                                            # (E, c, d)
+    xs = L.take_rows(x_pad, inv)                               # (E, c, d)
     wg = _expert_weight(p["w_gate"], xf.dtype)
     wu = _expert_weight(p["w_up"], xf.dtype)
     wd = _expert_weight(p["w_down"], xf.dtype)
@@ -197,16 +228,30 @@ def _moe_tokens(cfg: ModelConfig, p: Params, xf, token_mask=None):
 
     # combine: each token's k expert outputs, a dropped pair reading the
     # zero row at c; the sentinel id is clamped to E - 1 as JAX's gather
-    # clamps it, and its gate of 0 zeroes that finite row
+    # clamps it, and its gate of 0 zeroes that finite row.  Both lookups
+    # are ``take_rows`` of a 2-D table (a local map on DTensors)
     ys_pad = torch.cat([ys, torch.zeros((E, 1, d), dtype=ys.dtype,
                                         device=ys.device)], dim=1)
     slot = torch.where(valid, pos, c)
-    y_tok = ys_pad[torch.clamp(eidx, max=E - 1), slot]         # (N, k, d)
+    y_tok = L.take_rows(ys_pad.reshape(E * (c + 1), d),
+                        torch.clamp(eidx, max=E - 1) * (c + 1) + slot)
     out = torch.sum(y_tok * gate.to(y_tok.dtype)[..., None], dim=1)
 
     if cfg.num_shared_experts:
-        out = out + L.mlp(p["shared"], xf[None]).reshape(N, d)
+        # the tokens stay rows: on DTensors (1, N, d) would put their
+        # shard on a dim the projections' flatten gathers
+        out = out + L.mlp(p["shared"], x_shared[:, None]).reshape(N, d)
     return out, aux
+
+
+def _grad_laid_as(t):
+    """``t``, whose gradient comes back laid out as ``t`` is (partial
+    sums reduced); a plain ``t`` as it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in t.placements]
+    return L.grad_relaid(t, lambda g: g.redistribute(mesh, pl))
 
 
 # ---------------------------------------------------------------------------

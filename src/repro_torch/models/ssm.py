@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
@@ -95,6 +96,8 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, use_kernel: bool = False):
     ``use_kernel`` sends the scan through ``kernels.ops.ssd_scan`` with
     this ``chunk``.
     """
+    if isinstance(x, DTensor):
+        return _ssd_by_rank(x, dt, A, B, C, chunk, h0, use_kernel)
     if use_kernel:
         from repro_torch.kernels import ops as kernel_ops
         return kernel_ops.ssd_scan(x, dt, A, B, C, chunk=chunk, h0=h0)
@@ -156,6 +159,59 @@ def ssd_chunked(x, dt, A, B, C, chunk: int, h0=None, use_kernel: bool = False):
     return y.to(x.dtype), carry
 
 
+def _ssd_by_rank(x, dt, A, B, C, chunk, h0, use_kernel):
+    """``ssd_chunked`` on DTensors, rank by rank (an explicit local map):
+    the scan is independent per row and per ssm head, so the rows keep
+    their shards and each other mesh dim shards the heads where they
+    divide (the sequence a product rule would fold with the chunk axis
+    is gathered); B and C, which have no head dim, are held whole but
+    for their rows (and A, which has no rows, for its heads); where a
+    tensor is held whole along a mesh dim that splits the work, its
+    gradient comes back as the ranks' partial sums.  Each rank scans its rows' and heads' whole sequence,
+    the chunk-to-chunk carry included; y and the final state come back
+    with those placements."""
+    mesh, h = x.device_mesh, x.shape[2]
+    role, heads = [], 1
+    for i, p in enumerate(x.placements):
+        if type(p) is Shard and p.dim == 0:
+            role.append("rows")
+        elif h % (heads * mesh.size(i)) == 0 and mesh.size(i) > 1:
+            heads *= mesh.size(i)
+            role.append("heads")
+        else:
+            role.append(None)
+
+    def laid(t, head_dim):
+        """``t``'s local part: rows on dim 0, heads on ``head_dim``."""
+        if t is None:
+            return None, None
+        pl = [Shard(0) if r == "rows" and t.dim() > 1
+              else Shard(head_dim) if r == "heads" and head_dim is not None
+              else Replicate() for r in role]
+        # held whole along a mesh dim that splits the work: the ranks'
+        # gradients there are partial sums
+        grad = [Partial() if r and p == Replicate() else p
+                for r, p in zip(role, pl)]
+        return L._local_as(t, mesh, pl, grad), pl
+
+    (xl, ypl), (dtl, _), (Al, _) = laid(x, 2), laid(dt, 2), laid(A, 0)
+    (Bl, _), (Cl, _), (h0l, hpl) = laid(B, None), laid(C, None), laid(h0, 1)
+    if hpl is None:
+        hpl = [Shard(0) if r == "rows" else Shard(1) if r == "heads"
+               else Replicate() for r in role]
+    y, hf = ssd_chunked(xl, dtl, Al, Bl, Cl, chunk, h0=h0l,
+                        use_kernel=use_kernel)
+    b, l, _, p = x.shape
+    hshape = (b, h, p, B.shape[-1])
+    y = DTensor.from_local(y.contiguous(), mesh, ypl, run_check=False,
+                           shape=x.shape,
+                           stride=L._contiguous_stride(x.shape))
+    hf = DTensor.from_local(hf.contiguous(), mesh, hpl, run_check=False,
+                            shape=hshape,
+                            stride=L._contiguous_stride(hshape))
+    return y, hf
+
+
 def _causal_conv(xBC, conv_w, conv_b, conv_state=None, true_len=None):
     """Depthwise causal conv via shifted adds.
 
@@ -209,7 +265,7 @@ def mamba_mix(cfg: ModelConfig, p: Params, x, state=None, *,
     """
     b, l, d = x.shape
     di, n, h, pd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    zxbcdt = torch.matmul(x, p["in_proj"].to(x.dtype))
+    zxbcdt = L.weight_einsum("bld,de->ble", x, p["in_proj"])
     z, xBC, dt = _split_in_proj(cfg, zxbcdt)
 
     conv_in = None if state is None else state["conv"]
@@ -231,7 +287,7 @@ def mamba_mix(cfg: ModelConfig, p: Params, x, state=None, *,
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xin
     y = y.reshape(b, l, di)
     y = L.rmsnorm(p["gate_norm"], y * F.silu(z), cfg.norm_eps)
-    out = torch.matmul(y, p["out_proj"].to(x.dtype))
+    out = L.weight_einsum("ble,ed->bld", y, p["out_proj"])
     return out, {"conv": new_conv, "ssm": h_final}
 
 

@@ -658,11 +658,15 @@ def _fill_local(cache: Params, k, v, n=None) -> None:
                                          torch.gather(src, 1, idx), 0))
         cache["slots"].copy_(torch.where(valid, p, -1))
     elif S >= W:
+        # slot (S - W + i) % W takes position S - W + i: the last W
+        # positions rotated by r, written whole (no index_put, which
+        # DTensor has no rule for in every torch version)
+        r = (S - W) % W
         pos = torch.arange(S - W, S, dtype=torch.int32, device=k.device)
-        at = (pos % W).long()
-        cache["k"][:, at] = k[:, S - W:].to(cache["k"].dtype)
-        cache["v"][:, at] = v[:, S - W:].to(cache["v"].dtype)
-        cache["slots"][:, at] = pos
+        for key, last in (("k", k[:, S - W:]), ("v", v[:, S - W:]),
+                          ("slots", pos[None].expand(B, W))):
+            cache[key].copy_(torch.cat([last[:, W - r:], last[:, :W - r]],
+                                       dim=1))
     else:
         cache["k"][:, :S] = k
         cache["v"][:, :S] = v
